@@ -1,0 +1,147 @@
+"""The port's CUDA kernel and pipeline on an NVIDIA GPU.
+
+Every test here needs a card and skips without one. Nothing here imports
+JAX, so the file also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import scipy.signal as sps
+import torch
+
+from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
+from tpu_sdr_torch.kernels import biquad, fft, window
+from tpu_sdr_torch.kernels.cuda import iir_fft
+
+pytestmark = pytest.mark.cuda
+
+N = 16384
+SOS = sps.butter(12, 0.25, output="sos")
+# Kernel vs its plain version: fp32 results agree to fp32 rounding; a bf16
+# store keeps 8 mantissa bits, rounded once on each side.
+SNR_FLOOR_DB = {"float32": 120.0, "bfloat16": 45.0}
+
+
+def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    ref = ref.double().cpu()
+    err = ((ref - got.double().cpu()) ** 2).sum().item()
+    return float("inf") if err == 0 else 10 * np.log10((ref**2).sum().item() / err)
+
+
+@pytest.fixture(scope="module")
+def cuda_plan():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.set_float32_matmul_precision("highest")
+    return iir_fft.build_plan(
+        SOS,
+        window.hann_coefficients(N, device="cuda"),
+        fft.plan_constants(128, 128, device="cuda"),
+    )
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return np.random.default_rng(5).standard_normal((8, N)).astype(np.float32)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32in", "bf16in"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+def test_kernel_matches_plain(cuda_plan, frames, apply_window, out_dtype, in_dtype):
+    x = torch.as_tensor(frames, device="cuda").to(in_dtype)
+    got = iir_fft.spectrum_bypass_cuda(x, cuda_plan, apply_window, out_dtype)
+    ref = iir_fft.spectrum_bypass_plain(x, cuda_plan, apply_window, out_dtype)
+    assert got.dtype == ref.dtype and got.shape == (8, N)
+    assert snr_db(ref.float(), got.float()) >= SNR_FLOOR_DB[out_dtype]
+
+
+def test_kernel_frames_independent_of_launch(cuda_plan, frames):
+    """A frame's bits do not depend on how many frames share the launch."""
+    x = torch.as_tensor(frames, device="cuda")
+    whole = iir_fft.spectrum_bypass_cuda(x, cuda_plan)
+    parts = torch.cat([iir_fft.spectrum_bypass_cuda(c, cuda_plan) for c in x.split(3)])
+    assert torch.equal(whole, parts)
+
+
+def test_kernel_takes_unaligned_view(cuda_plan, frames):
+    """A contiguous view that starts off a 16-byte boundary gives the same
+    bits as an aligned tensor (the wrapper copies it)."""
+    x = torch.as_tensor(frames, device="cuda")
+    buf = torch.empty(x.numel() + 1, device="cuda")
+    buf[1:] = x.reshape(-1)
+    view = buf[1:].view(8, N)
+    assert view.data_ptr() % 16 != 0
+    got = iir_fft.spectrum_bypass_cuda(view, cuda_plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, iir_fft.spectrum_bypass_cuda(x, cuda_plan))
+
+
+def test_wrapper_launches_and_counts(cuda_plan, frames):
+    x = torch.as_tensor(frames[:2], device="cuda")
+    iir_fft.counts.update(kernel=0, plain=0)
+    iir_fft.spectrum_from_state(x, torch.zeros((2, 12), device="cuda"), cuda_plan, bypass=True)
+    assert iir_fft.counts == {"kernel": 1, "plain": 0}
+    with pytest.raises(ValueError, match="interpret"):
+        iir_fft.spectrum_from_state(
+            x, torch.zeros((2, 12), device="cuda"), cuda_plan, bypass=True, interpret=True
+        )
+
+
+@pytest.mark.parametrize("mode", list(FilterMode), ids=lambda m: m.name)
+def test_pipeline_on_card_matches_cpu(cuda_plan, mode):
+    cfg = PipelineConfig(channels=2)
+    gpu = SpectrumPipeline(cfg)
+    cpu = SpectrumPipeline(cfg, device="cpu")
+    gpu.upload_sos(SOS)
+    cpu.upload_sos(SOS)
+    x = np.random.default_rng(0).standard_normal((2, 4 * N)).astype(np.float32)
+    a, sa = gpu.process(x, gpu.initial_state(), mode)
+    b, sb = cpu.process(x, cpu.initial_state(), mode)
+    assert a["magnitude"].is_cuda and a["magnitude"].shape == (2, 4, N)
+    assert snr_db(b["magnitude"], a["magnitude"]) >= 120.0
+    np.testing.assert_allclose(
+        sa.sos_state.cpu().numpy(), sb.sos_state.numpy(), rtol=1e-4, atol=1e-6
+    )
+
+
+def test_pipeline_chunked_equals_oneshot_on_card(cuda_plan):
+    p = SpectrumPipeline(PipelineConfig(channels=2))
+    p.upload_sos(SOS)
+    x = torch.as_tensor(
+        np.random.default_rng(1).standard_normal((2, 8 * N)).astype(np.float32),
+        device="cuda",
+    )
+    whole, st_whole = p.process(x, p.initial_state(), FilterMode.CUSTOM)
+    st = p.initial_state()
+    parts = []
+    for chunk in x.chunk(4, dim=-1):
+        out, st = p.process(chunk, st, FilterMode.CUSTOM)
+        parts.append(out["magnitude"])
+    assert torch.equal(torch.cat(parts, dim=1), whole["magnitude"])
+    assert torch.equal(st.sos_state, st_whole.sos_state)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 16, 300])
+def test_canonical_matmul_is_row_count_independent_on_card(cuda_plan, rows):
+    """On cuBLAS too, each row's bits are those of the same row in any
+    other dispatch, through one padded call or several calls."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn((300, 1536), device="cuda", generator=gen)
+    bt = torch.randn((1536, 1536), device="cuda", generator=gen)
+    whole = biquad._canonical_matmul(a, bt, 128)
+    assert torch.equal(biquad._canonical_matmul(a[-rows:], bt, 128), whole[-rows:])
+
+
+def test_plan_leaves_match_cpu_build(cuda_plan):
+    cpu = iir_fft.build_plan(
+        SOS,
+        window.hann_coefficients(N, device="cpu"),
+        fft.plan_constants(128, 128, device="cpu"),
+    )
+    for f in dataclasses.fields(iir_fft.PallasSOSPlan):
+        assert torch.equal(getattr(cuda_plan, f.name).cpu(), getattr(cpu, f.name)), f.name

@@ -1,0 +1,258 @@
+"""The block-stream runtime: frames in, spectra out, state carried.
+
+The counterpart of ``tpu_sdr.runtime.stream`` for real input with
+frame-aligned hop (hop == fft_size). Datapath order, per frame:
+
+    samples -> Hann window -> {bypass | fixed IIR12 | custom IIR12}
+            -> 16K four-step DFT -> magnitude (+ optional outputs)
+
+Magnitude output at the 128x128 geometry goes through the spectrum kernel
+(``kernels/cuda/iir_fft.spectrum_from_state``): BYPASS windows inside the
+kernel; FIXED/CUSTOM run the window and the composite IIR as matrix products
+first and call the kernel with ``apply_window=False``. Other shapes and
+outputs take the plain four-step path.
+
+Precision: every matrix product of this module runs in IEEE fp32, at every
+tier. The pipeline checks that PyTorch's float32 matmul precision is
+"highest" before each dispatch instead of relying on it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_sdr_torch.control import golden
+from tpu_sdr_torch.core.config import FilterMode, PipelineConfig
+from tpu_sdr_torch.kernels import biquad, fft, magnitude, window
+from tpu_sdr_torch.kernels.cuda import iir_fft
+from tpu_sdr_torch.runtime import banks
+from tpu_sdr_torch.runtime.state import StreamState
+
+_MODE_TO_INDEX = {FilterMode.BYPASS: 0, FilterMode.FIXED: 1, FilterMode.CUSTOM: 2}
+
+
+def _kernel_out_dtype(cfg: PipelineConfig) -> str:
+    """Magnitude store dtype: bf16 when the bf16 tier opts into bf16_io."""
+    return "bfloat16" if cfg.dtype == "bf16" and cfg.bf16_io else "float32"
+
+
+def _maybe_bf16_y(cfg: PipelineConfig, y: torch.Tensor) -> torch.Tensor:
+    """bf16_io: the IIR output reaches the spectrum kernel as bf16."""
+    if cfg.dtype == "bf16" and cfg.bf16_io:
+        return y.to(torch.bfloat16)
+    return y
+
+
+def _finalize_bf16_io(cfg: PipelineConfig, out: dict) -> dict:
+    """bf16_io dtype contract on the plain path: magnitudes come back
+    bfloat16 (the fp32 results rounded once), as the kernel stores them, so
+    one config never yields two output dtypes. Other outputs stay fp32."""
+    if cfg.dtype == "bf16" and cfg.bf16_io and "magnitude" in out:
+        out["magnitude"] = out["magnitude"].to(torch.bfloat16)
+    return out
+
+
+def _decode_outputs(cfg: PipelineConfig, fr, fi, outputs: str) -> dict:
+    """Spectrum decode of the plain path: one place owns the outputs
+    vocabulary and the bf16_io finalize."""
+    out = {}
+    if outputs in ("magnitude", "all"):
+        out["magnitude"] = magnitude.magnitude(fr, fi)
+    if outputs in ("complex", "all"):
+        out["re"], out["im"] = fr, fi
+    if outputs in ("power", "all"):
+        out["power"] = magnitude.power(fr, fi)
+    if outputs in ("phase", "all"):
+        out["phase"] = magnitude.phase(fr, fi)
+    return _finalize_bf16_io(cfg, out)
+
+
+def check_matmul_precision(expected: str):
+    """Raise unless float32 matrix products run at the ``expected``
+    PyTorch precision with TF32 off."""
+    got = torch.get_float32_matmul_precision()
+    if got != expected or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"the spectrum pipeline computes in IEEE fp32 and needs "
+            f"torch.get_float32_matmul_precision() == {expected!r} and "
+            f"torch.backends.cuda.matmul.allow_tf32 == False; got {got!r} "
+            f"and {torch.backends.cuda.matmul.allow_tf32}"
+        )
+
+
+def process_stream(
+    x: torch.Tensor,
+    state: StreamState,
+    bank_fixed: dict,
+    bank_custom: dict,
+    hann_w: torch.Tensor,
+    plan: dict,
+    *,
+    mode_index: int,
+    cfg: PipelineConfig,
+    outputs: str = "magnitude",
+    time_axis: str | None = None,
+):
+    """Process a stream chunk x (..., channels, T), T a multiple of fft_size.
+
+    (x, state, banks) -> (out dict, new state). ``mode_index``: 0 bypass /
+    1 fixed / 2 custom. Each bank is a dict {"op": BlockedSOSComposite,
+    "pp": PallasSOSPlan or None}.
+
+    Not ported yet (NotImplementedError): ``time_axis`` (ROADMAP queue A
+    item 13), hop < fft_size (queue A item 3), ``fused_two_pass`` for the
+    f32/f32max tiers (queue A item 1).
+    """
+    if time_axis is not None:
+        raise NotImplementedError("time sharding: ROADMAP queue A item 13")
+    n = cfg.fft_size
+    if cfg.effective_hop != n:
+        raise NotImplementedError("hop < fft_size: ROADMAP queue A item 3")
+    t = x.shape[-1]
+    n_frames = t // n
+    lead = x.shape[:-1]  # (..., channels)
+
+    if cfg.pallas_geometry_ok() and outputs == "magnitude":
+        bank = bank_fixed if mode_index != 2 else bank_custom
+        pp = bank["pp"]
+        flat = x.reshape(-1, n)
+        zs = torch.zeros(
+            (flat.shape[0], pp.state_dim), dtype=torch.float32, device=x.device
+        )
+        # The kernel computes in IEEE fp32 at every tier, so the reference's
+        # per-tier precision, karatsuba and flat_emit keywords keep their
+        # defaults here; only the store dtype differs by tier.
+        kw = dict(bypass=True, out_dtype=_kernel_out_dtype(cfg))
+        if mode_index == 0:
+            mag = iir_fft.spectrum_from_state(flat, zs, pp, **kw)
+            zf = state.sos_state
+        elif cfg.dtype in ("f32max", "f32") and cfg.fused_two_pass:
+            raise NotImplementedError(
+                "fused_two_pass=True: ROADMAP queue A item 1 (kernel rows 2-3)"
+            )
+        else:
+            xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
+            y, zf = biquad.sosfilt_blocked_composite(
+                bank["op"], xw, state.sos_state
+            )
+            mag = iir_fft.spectrum_from_state(
+                _maybe_bf16_y(cfg, y).reshape(-1, n), zs, pp,
+                apply_window=False, **kw,
+            )
+        out = {"magnitude": mag.reshape(*lead, n_frames, n)}
+    else:
+        # 1. Window over the frame-aligned stream.
+        xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
+        # 2. IIR filter bank (or bypass).
+        if mode_index == 0:
+            y = xw
+            zf = state.sos_state
+        else:
+            op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
+            y, zf = biquad.sosfilt_blocked_composite(op, xw, state.sos_state)
+        # 3. Per-frame DFT of the real frames + output decode.
+        frames = y.reshape(*lead, n_frames, n)
+        fr, fi = fft.fft_4step(frames, None, plan)
+        out = _decode_outputs(cfg, fr, fi, outputs)
+
+    new_state = StreamState(
+        sos_state=zf,
+        window_phase=(state.window_phase + t) % n,
+        frame_count=state.frame_count + n_frames,
+    )
+    return out, new_state
+
+
+class SpectrumPipeline:
+    """The single-device engine: owns the device constants and the banks.
+
+    ``device`` defaults to "cuda"; construction raises when CUDA is absent
+    unless the caller asks for the CPU (``device="cpu"``), where the
+    spectrum kernel's plain PyTorch version runs instead.
+    """
+
+    def __init__(self, cfg: PipelineConfig | None = None, device=None):
+        self.cfg = cfg or PipelineConfig()
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SpectrumPipeline: no CUDA device is available; pass "
+                "device='cpu' to run the plain versions on the CPU"
+            )
+        # Every tier computes in IEEE fp32 in this port (tensor-core tiers
+        # are later work): the precision that process() checks for.
+        self.matmul_precision = "highest"
+        self.hann_w = window.hann_coefficients(
+            self.cfg.fft_size, self.cfg.rtl_faithful_window, device=self.device
+        )
+        self.plan = fft.plan_constants(
+            self.cfg.fft_n1, self.cfg.fft_n2, device=self.device
+        )
+        # The custom bank boots as identity until coefficients are uploaded.
+        self.bank_fixed = self._build_bank(golden.fixed_filter_sos())
+        self.bank_custom = self._build_bank(
+            biquad.sos_identity(self.cfg.n_sections)
+        )
+
+    def _build_bank(self, sos: np.ndarray) -> dict:
+        return banks.build_bank(self.cfg, self.hann_w, self.plan, sos)
+
+    def initial_state(self, batch_shape=()) -> StreamState:
+        return StreamState.initial(
+            self.cfg.channels,
+            self.cfg.n_sections,
+            batch_shape,
+            history_len=self.cfg.fft_size - self.cfg.effective_hop,
+            device=self.device,
+        )
+
+    def upload_sos(self, sos: np.ndarray):
+        """Runtime coefficient reload of the custom bank.
+
+        Unstable sections (poles on or outside the unit circle) are rejected.
+        """
+        self.bank_custom = self._build_bank(
+            banks.prepare_sos(sos, self.cfg.n_sections)
+        )
+
+    def upload_sos_bank(self, sos_bank):
+        raise NotImplementedError(
+            "per-channel filter banks (upload_sos_bank): ROADMAP queue A item 4"
+        )
+
+    def process(
+        self,
+        x,
+        state: StreamState,
+        mode: FilterMode = FilterMode.BYPASS,
+        outputs: str = "magnitude",
+    ):
+        """x: (..., channels, T) or (T,), real -> (out dict, new_state).
+
+        x may be a NumPy array or a tensor; it is moved to the pipeline's
+        device as float32.
+        """
+        complex_input = x.is_complex() if torch.is_tensor(x) else np.iscomplexobj(x)
+        if complex_input:
+            raise NotImplementedError("complex (IQ) input: ROADMAP queue A item 2")
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.shape[-1] % self.cfg.fft_size:
+            raise ValueError(
+                f"stream chunk length {x.shape[-1]} must be a multiple of "
+                f"fft_size={self.cfg.fft_size} (frame-aligned dispatch)"
+            )
+        check_matmul_precision(self.matmul_precision)
+        return process_stream(
+            x, state, self.bank_fixed, self.bank_custom, self.hann_w, self.plan,
+            mode_index=_MODE_TO_INDEX[FilterMode(mode)], cfg=self.cfg,
+            outputs=outputs,
+        )
+
+    def process_planes(self, xs, state: StreamState, mode=FilterMode.BYPASS,
+                       outputs: str = "magnitude"):
+        raise NotImplementedError(
+            "complex (IQ) planes (process_planes): ROADMAP queue A item 2"
+        )
