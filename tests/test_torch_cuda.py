@@ -83,9 +83,10 @@ def test_kernel_takes_unaligned_view(cuda_plan, frames):
 
 def test_wrapper_launches_and_counts(cuda_plan, frames):
     x = torch.as_tensor(frames[:2], device="cuda")
-    iir_fft.counts.update(kernel=0, plain=0)
+    iir_fft.reset_counts()
     iir_fft.spectrum_from_state(x, torch.zeros((2, 12), device="cuda"), cuda_plan, bypass=True)
-    assert iir_fft.counts == {"kernel": 1, "plain": 0}
+    assert iir_fft.counts["kernel"]["spectrum_bypass"] == 1
+    assert not any(iir_fft.counts["plain"].values())
     with pytest.raises(ValueError, match="interpret"):
         iir_fft.spectrum_from_state(
             x, torch.zeros((2, 12), device="cuda"), cuda_plan, bypass=True, interpret=True
@@ -145,3 +146,149 @@ def test_plan_leaves_match_cpu_build(cuda_plan):
     )
     for f in dataclasses.fields(iir_fft.PallasSOSPlan):
         assert torch.equal(getattr(cuda_plan, f.name).cpu(), getattr(cpu, f.name)), f.name
+
+
+# ------------------------------------------------ the IIR and complex kernels
+
+# iir_summaries: max |kernel - plain| over max |plain| of the (F, 12)
+# frame-end states, fp32 sums taken in different orders.
+STATE_REL_TOL = 1e-5
+
+
+def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
+    ref = ref.double().cpu()
+    return ((ref - got.double().cpu()).abs().max() / ref.abs().max()).item()
+
+
+@pytest.fixture(scope="module")
+def entry_states():
+    return (0.1 * np.random.default_rng(6).standard_normal((8, 12))).astype(np.float32)
+
+
+def test_iir_summaries_kernel_matches_plain(cuda_plan, frames):
+    x = torch.as_tensor(frames, device="cuda")
+    got = iir_fft.iir_summaries_cuda(x, cuda_plan)
+    ref = iir_fft.iir_summaries_plain(x, cuda_plan)
+    assert got.shape == (8, 12) and got.dtype == torch.float32
+    assert rel_err(ref, got) <= STATE_REL_TOL
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+def test_spectrum_iir_kernel_matches_plain(cuda_plan, frames, entry_states, apply_window, out_dtype):
+    x = torch.as_tensor(frames, device="cuda")
+    zs = torch.as_tensor(entry_states, device="cuda")
+    got = iir_fft.spectrum_iir_cuda(x, zs, cuda_plan, apply_window, out_dtype)
+    ref = iir_fft.spectrum_iir_plain(x, zs, cuda_plan, apply_window, out_dtype)
+    assert got.dtype == ref.dtype and got.shape == (8, N)
+    assert snr_db(ref.float(), got.float()) >= SNR_FLOOR_DB[out_dtype]
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32in", "bf16in"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+def test_spectrum_complex_kernel_matches_plain(cuda_plan, frames, apply_window, out_dtype, in_dtype):
+    x = torch.as_tensor(frames, device="cuda").to(in_dtype)
+    xr, xi = x[:4], x[4:]
+    got = iir_fft.spectrum_complex_cuda(xr, xi, cuda_plan, apply_window, out_dtype)
+    ref = iir_fft.spectrum_complex_plain(xr, xi, cuda_plan, apply_window, out_dtype)
+    assert got.dtype == ref.dtype and got.shape == (4, N)
+    assert snr_db(ref.float(), got.float()) >= SNR_FLOOR_DB[out_dtype]
+
+
+def test_new_kernels_frames_independent_of_launch(cuda_plan, frames, entry_states):
+    x = torch.as_tensor(frames, device="cuda")
+    zs = torch.as_tensor(entry_states, device="cuda")
+    split = lambda fn, *ts: torch.cat([fn(*parts) for parts in zip(*(t.split(3) for t in ts))])
+    summaries = lambda a: iir_fft.iir_summaries_cuda(a, cuda_plan)
+    spectrum = lambda a, z: iir_fft.spectrum_iir_cuda(a, z, cuda_plan)
+    iq = lambda a, b: iir_fft.spectrum_complex_cuda(a, b, cuda_plan)
+    assert torch.equal(summaries(x), split(summaries, x))
+    assert torch.equal(spectrum(x, zs), split(spectrum, x, zs))
+    assert torch.equal(iq(x, x.flip(0)), split(iq, x, x.flip(0)))
+
+
+def test_refused_launch_raises(cuda_plan, frames, monkeypatch):
+    """A launch the runtime refuses (the C entry point returns its CUDA
+    error code) raises and is not counted."""
+
+    class Refusing:
+        @staticmethod
+        def tpu_sdr_iir_summaries(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def tpu_sdr_cuda_error_string(err):
+            return b"invalid argument"
+
+    monkeypatch.setattr(iir_fft, "_kernel_lib", lambda name: Refusing)
+    iir_fft.reset_counts()
+    with pytest.raises(RuntimeError, match="iir_summaries kernel launch failed.*invalid argument"):
+        iir_fft.iir_summaries(torch.as_tensor(frames[:1], device="cuda"), cuda_plan)
+    assert not any(iir_fft.counts["kernel"].values())
+    assert not any(iir_fft.counts["plain"].values())
+
+
+def _chunked(p, x, state, mode, chunks, planes=False):
+    run = p.process_planes if planes else p.process
+    whole, st_whole = run(x, state(), mode)
+    st = state()
+    parts = []
+    for chunk in x.chunk(chunks, dim=-1):
+        out, st = run(chunk, st, mode)
+        parts.append(out["magnitude"])
+    return whole, st_whole, torch.cat(parts, dim=-2), st
+
+
+@pytest.mark.parametrize("tier", ["f32", "f32max"])
+def test_fused_pipeline_on_card(cuda_plan, tier):
+    """The fused two-pass path launches one summaries and one in-kernel-IIR
+    kernel per dispatch, is chunked == one-shot bitwise on the card, and
+    agrees with the hybrid path."""
+    fused = SpectrumPipeline(PipelineConfig(channels=2, dtype=tier, fused_two_pass=True))
+    hybrid = SpectrumPipeline(PipelineConfig(channels=2, dtype=tier))
+    fused.upload_sos(SOS)
+    hybrid.upload_sos(SOS)
+    x = torch.as_tensor(
+        np.random.default_rng(2).standard_normal((2, 8 * N)).astype(np.float32), device="cuda"
+    )
+    iir_fft.reset_counts()
+    whole, st_whole, chunked, st = _chunked(fused, x, fused.initial_state, FilterMode.CUSTOM, 4)
+    torch.cuda.synchronize()
+    assert iir_fft.counts["kernel"]["iir_summaries"] == 5
+    assert iir_fft.counts["kernel"]["spectrum_iir"] == 5
+    assert iir_fft.counts["kernel"]["spectrum_bypass"] == 0
+    assert not any(iir_fft.counts["plain"].values())
+    assert torch.equal(chunked, whole["magnitude"])
+    assert torch.equal(st.sos_state, st_whole.sos_state)
+    ref, _ = hybrid.process(x, hybrid.initial_state(), FilterMode.CUSTOM)
+    assert snr_db(ref["magnitude"], whole["magnitude"]) >= 100.0
+
+
+@pytest.mark.parametrize("mode", [FilterMode.BYPASS, FilterMode.CUSTOM], ids=lambda m: m.name)
+def test_iq_pipeline_on_card(cuda_plan, mode):
+    """Complex input launches the complex kernel once per dispatch, is
+    chunked == one-shot bitwise on the card, process == process_planes, and
+    the card agrees with the CPU."""
+    p = SpectrumPipeline(PipelineConfig(channels=2))
+    cpu = SpectrumPipeline(PipelineConfig(channels=2), device="cpu")
+    p.upload_sos(SOS)
+    cpu.upload_sos(SOS)
+    rng = np.random.default_rng(3)
+    xc = (rng.standard_normal((2, 8 * N)) + 1j * rng.standard_normal((2, 8 * N))).astype(np.complex64)
+    x = torch.as_tensor(xc, device="cuda")
+    state = lambda: p.initial_state(batch_shape=(2,))
+    iir_fft.reset_counts()
+    whole, st_whole, chunked, st = _chunked(p, x, state, mode, 4)
+    torch.cuda.synchronize()
+    assert iir_fft.counts["kernel"]["spectrum_complex"] == 5
+    assert not any(iir_fft.counts["plain"].values())
+    assert torch.equal(chunked, whole["magnitude"])
+    assert torch.equal(st.sos_state, st_whole.sos_state)
+    planes = torch.stack([x.real, x.imag])
+    p_whole, p_st, p_chunked, _ = _chunked(p, planes, state, mode, 4, planes=True)
+    assert torch.equal(p_whole["magnitude"], whole["magnitude"])
+    assert torch.equal(p_st.sos_state, st_whole.sos_state)
+    assert torch.equal(p_chunked, chunked)
+    ref, _ = cpu.process(xc, cpu.initial_state(batch_shape=(2,)), mode)
+    assert snr_db(ref["magnitude"], whole["magnitude"]) >= 120.0

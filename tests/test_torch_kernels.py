@@ -231,11 +231,12 @@ def test_spectrum_flat_emit_same_bits(plans, frames):
 
 def test_cpu_tensor_takes_plain_version_only(plans, frames):
     _, pp = plans
-    iir_fft.counts.update(kernel=0, plain=0)
+    iir_fft.reset_counts()
     iir_fft.spectrum_from_state(
         torch.as_tensor(frames[:1]), torch.zeros((1, 12)), pp, bypass=True
     )
-    assert iir_fft.counts == {"kernel": 0, "plain": 1}
+    assert not any(iir_fft.counts["kernel"].values())
+    assert iir_fft.counts["plain"]["spectrum_bypass"] == 1
 
 
 def test_aligned_copies_only_unaligned_or_strided_tensors():
@@ -258,13 +259,12 @@ def test_kernel_wrapper_refuses_cpu_tensor(plans, frames):
 @pytest.mark.parametrize(
     "kw,exc",
     [
-        (dict(bypass=False), NotImplementedError),
         (dict(bypass=True, half_spectrum=True), NotImplementedError),
         (dict(bypass=True, blocked_output=True), NotImplementedError),
         (dict(bypass=True, precision="fast"), ValueError),
         (dict(bypass=True, out_dtype="float16"), ValueError),
     ],
-    ids=["in-kernel-iir", "half", "blocked", "precision", "out_dtype"],
+    ids=["half", "blocked", "precision", "out_dtype"],
 )
 def test_spectrum_rejects_unported_and_bad_options(plans, frames, kw, exc):
     _, pp = plans
@@ -284,3 +284,54 @@ def test_spectrum_checks_shapes(plans, frames):
         iir_fft.spectrum_from_state(
             torch.zeros((1, 8192)), torch.zeros((1, 12)), pp, bypass=True
         )
+
+
+@pytest.fixture
+def sources(tmp_path, monkeypatch):
+    """A kernel source and two headers in a temporary SOURCE_DIR."""
+    from tpu_sdr_torch.kernels.cuda import loader
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(loader, "SOURCE_DIR", tmp_path)
+    return loader, tmp_path
+
+
+@pytest.mark.parametrize("changed", ["k.cu", "a.cuh", "b.cuh"])
+def test_library_path_hashes_source_and_headers(sources, changed):
+    """Editing the source or any header of csrc/ names a new library, so a
+    stale build of a shared header is never loaded."""
+    loader, src = sources
+    before = loader.library_path("k")
+    (src / changed).write_text((src / changed).read_text() + "// edited\n")
+    after = loader.library_path("k")
+    assert after != before and after.parent == before.parent
+    assert after.name.startswith("libk-") and after.suffix == ".so"
+
+
+def test_library_path_sees_a_new_header(sources):
+    loader, src = sources
+    before = loader.library_path("k")
+    (src / "c.cuh").write_text("// c\n")
+    assert loader.library_path("k") != before
+    (src / "c.cuh").unlink()
+    assert loader.library_path("k") == before
+
+
+def test_package_data_lists_the_headers():
+    """Every header the kernels include ships with the package."""
+    import tomllib
+    from pathlib import Path
+
+    from tpu_sdr_torch.kernels.cuda import loader
+
+    root = Path(__file__).resolve().parents[1]
+    data = tomllib.loads((root / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["tpu_sdr_torch"]
+    assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs
+    assert sorted(p.name for p in loader.SOURCE_DIR.glob("*.cuh")) == [
+        "four_step.cuh", "iir_blocks.cuh",
+    ]
+    for name in iir_fft.KERNELS:
+        assert (loader.SOURCE_DIR / f"{name}.cu").is_file()

@@ -303,7 +303,8 @@ def test_state_checkpoint_matches_jax_layout(port):
 def test_import_pulls_in_neither_jax_nor_tpu_sdr():
     code = (
         "import sys, tpu_sdr_torch, tpu_sdr_torch.convert, "
-        "tpu_sdr_torch.kernels.cuda.loader\n"
+        "tpu_sdr_torch.kernels.cuda.loader, tpu_sdr_torch.kernels.cuda.iir_fft, "
+        "tpu_sdr_torch.runtime.stream\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -324,16 +325,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_cpu_run_never_launches_the_kernel(port):
-    iir_fft.counts.update(kernel=0, plain=0)
+    iir_fft.reset_counts()
     x = np.random.default_rng(10).standard_normal(N).astype(np.float32)
     for mode in FilterMode:
         port.process(x, port.initial_state(), mode)
-    assert iir_fft.counts == {"kernel": 0, "plain": 3}
+    assert not any(iir_fft.counts["kernel"].values())
+    assert iir_fft.counts["plain"] == {
+        "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
+    }
 
 
 @pytest.mark.parametrize(
     "case",
-    ["hop", "complex", "planes", "bank", "fused", "time-axis"],
+    ["hop", "bank", "time-axis"],
 )
 def test_unported_paths_raise(port, case):
     x = np.zeros(N, np.float32)
@@ -341,15 +345,8 @@ def test_unported_paths_raise(port, case):
         if case == "hop":
             p = SpectrumPipeline(PipelineConfig(hop=8192), device="cpu")
             p.process(x, p.initial_state(), FilterMode.BYPASS)
-        elif case == "complex":
-            port.process(x.astype(np.complex64), port.initial_state())
-        elif case == "planes":
-            port.process_planes(np.zeros((2, 1, N), np.float32), port.initial_state((2,)))
         elif case == "bank":
             port.upload_sos_bank(SOS[None])
-        elif case == "fused":
-            p = SpectrumPipeline(PipelineConfig(fused_two_pass=True), device="cpu")
-            p.process(x, p.initial_state(), FilterMode.CUSTOM)
         else:
             stream.process_stream(
                 torch.as_tensor(x)[None], port.initial_state(), port.bank_fixed,

@@ -66,7 +66,7 @@ class PipelineConfig:
     # 128x128 geometry; False takes the plain four-step path.
     use_pallas: bool = True
     # True: the fully-fused two-pass kernel pipeline for the f32/f32max
-    # tiers (not ported yet: raises NotImplementedError in the port).
+    # tiers (the IIR inside the kernels); the bf16 tier ignores it.
     fused_two_pass: bool = False
     # bf16 tier only: the IIR output reaches the FFT kernel as bfloat16 and
     # the magnitudes are stored as bfloat16 (the fp32 results rounded once).

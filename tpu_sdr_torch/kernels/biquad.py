@@ -239,6 +239,18 @@ def alb_step(op, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (op.ALB * z[..., None, :]).sum(dim=-1) + w
 
 
+def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor):
+    """The frame chain over a dispatch: z (..., m) entry state, w_frames
+    (..., F, m) each frame's zero-state end state -> (z_starts (..., F, m),
+    the state after the last frame (..., m)). A Python loop of
+    ``alb_step`` over the F frames."""
+    starts = []
+    for f in range(w_frames.shape[-2]):
+        starts.append(z)
+        z = alb_step(op, z, w_frames[..., f, :])
+    return torch.stack(starts, dim=-2), z
+
+
 def _composite_emit(op, y_zs, zhat, z_starts):
     """Assemble outputs from per-frame start states z_starts (..., F, m).
 
@@ -261,8 +273,7 @@ def sosfilt_blocked_composite(
     """Composite-cascade filter: x (..., T), T a multiple of B*L.
 
     zi: (..., S, 2) scipy-convention state. Returns (y (..., T),
-    zf (..., S, 2)). The frame chain is a Python loop of ``alb_step`` over
-    the F frames of the dispatch.
+    zf (..., S, 2)). The frame chain is ``frame_chain``.
     """
     L, B, m = op.block, op.frame_blocks, op.state_dim
     lead = x.shape[:-1]
@@ -273,12 +284,7 @@ def sosfilt_blocked_composite(
     y_zs, zhat = _composite_frame_terms(op, v)
 
     # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
-    w_frames = zhat[..., -1, :]  # (..., F, m)
-    starts = []
-    for f in range(F):
-        starts.append(z)
-        z = alb_step(op, z, w_frames[..., f, :])
-    z_starts = torch.stack(starts, dim=-2)  # (..., F, m)
+    z_starts, z = frame_chain(op, z, zhat[..., -1, :])
 
     y = _composite_emit(op, y_zs, zhat, z_starts)
     return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)

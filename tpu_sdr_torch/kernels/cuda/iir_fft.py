@@ -1,13 +1,24 @@
-"""The fused spectrum kernel and its plan (the counterpart of
+"""The fused spectrum kernels and their plan (the counterpart of
 ``tpu_sdr.kernels.pallas.iir_fft``).
 
-``build_plan`` builds every constant of the reference plan, so that later
-kernels (the in-kernel IIR, the IQ kernel) and the weight converter can use
-it. ``spectrum_from_state`` is implemented in its ``bypass=True`` form:
-optional Hann window, the 16384-point four-step DFT and the magnitude, stored
-in natural order. On a CUDA tensor it launches the hand-written kernel in
-``tpu_sdr_torch/csrc/spectrum_bypass.cu``; on a CPU tensor it runs the plain
-PyTorch version of the same function (``spectrum_bypass_plain``).
+``build_plan`` builds every constant of the reference plan. Four kernels,
+each a hand-written CUDA source in ``tpu_sdr_torch/csrc/`` with a plain
+PyTorch version of the same function beside it:
+
+- ``spectrum_from_state(bypass=True)``: optional Hann window, the
+  16384-point four-step DFT and the magnitude, natural order
+  (``spectrum_bypass.cu``; ``spectrum_bypass_plain``).
+- ``spectrum_from_state(bypass=False)``: the same after the composite IIR,
+  run inside the kernel from each frame's entry state (``spectrum_iir.cu``;
+  ``spectrum_iir_plain``).
+- ``iir_summaries``: each frame's zero-state IIR end state, which seeds the
+  frame chain of the fused two-pass pipeline (``iir_summaries.cu``;
+  ``iir_summaries_plain``).
+- ``spectrum_mag_complex``: the magnitude spectrum of IQ frames given as re
+  and im planes (``spectrum_complex.cu``; ``spectrum_complex_plain``).
+
+Each public function runs its plain version exactly when its input lies on
+the CPU, and launches the kernel on a CUDA tensor; it never falls back.
 """
 
 from __future__ import annotations
@@ -30,10 +41,20 @@ HALF_K2 = 72  # half-spectrum rows: k2 in [0, 64] padded to a multiple of 8
 PRECISIONS = ("highest", "high3", "default")
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# Launches of the CUDA kernel ("kernel") and CPU calls of the plain version
-# made by ``spectrum_from_state`` ("plain"). Read and reset by callers that
-# check which path a run took.
-counts = {"kernel": 0, "plain": 0}
+# The kernels, by the name of their source (``csrc/<name>.cu``).
+KERNELS = ("spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex")
+
+# Per kernel: launches of the CUDA kernel ("kernel") and calls of its plain
+# version on CPU tensors ("plain"), made by the public functions of this
+# module. Read and reset (``reset_counts``) by callers that check which path
+# a run took.
+counts = {"kernel": dict.fromkeys(KERNELS, 0), "plain": dict.fromkeys(KERNELS, 0)}
+
+
+def reset_counts():
+    for per_kernel in counts.values():
+        for name in per_kernel:
+            per_kernel[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +107,7 @@ class PallasSOSPlan:
 
     @functools.cached_property
     def kernel_constants(self) -> tuple:
-        """(tab (4, 128), twr (128, 128), twi (128, 128)) for the kernel.
+        """(tab (4, 128), twr (128, 128), twi (128, 128)) for the kernels.
 
         W128[k, n] = W128[1, (k*n) mod 128], so row 1 of each DFT plane is
         the whole table; it holds the values computed from the reduced
@@ -98,6 +119,20 @@ class PallasSOSPlan:
             tab.contiguous(),
             self.twr[:, :n1].contiguous(),
             self.twi[:, :n1].contiguous(),
+        )
+
+    @functools.cached_property
+    def iir_constants(self) -> tuple:
+        """(h (L,), PT (L, m), MT (m, L), AL1T (m, m)) for the IIR kernels.
+
+        T is Toeplitz, T[i, k] = h[i - k] for i >= k and 0 above the
+        diagonal, so its first column h is the whole matrix.
+        """
+        return (
+            self.T[:, 0].contiguous(),
+            self.PT.contiguous(),
+            self.MT.contiguous(),
+            self.AL1T.contiguous(),
         )
 
 
@@ -176,6 +211,9 @@ def build_plan(
     )
 
 
+# ---------------------------------------------------------------- plain versions
+
+
 def spectrum_bypass_plain(
     x: torch.Tensor,
     plan: PallasSOSPlan,
@@ -184,35 +222,167 @@ def spectrum_bypass_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel: x (F, N) -> |DFT| (F, N).
 
-    Window (optional), ``fft.fft_4step``, magnitude, then one rounding to
-    ``out_dtype``. Runs on any device; the wrapper takes it only for CPU
-    tensors.
+    ``spectrum_complex_plain`` of a real input. Runs on any device; the
+    wrapper takes it only for CPU tensors.
     """
+    return spectrum_complex_plain(x, None, plan, apply_window, out_dtype)
+
+
+def _blocks(x: torch.Tensor, plan: PallasSOSPlan, apply_window: bool) -> torch.Tensor:
+    """x (F, N) -> the (optionally windowed) fp32 frames as (F, B, L) blocks."""
+    n2, n1 = plan.win.shape
     xf = x.float()
     if apply_window:
         xf = xf * plan.win.reshape(-1)
-    fr, fi = fft.fft_4step(xf, None, plan.fft_plan)
+    return xf.reshape(-1, n2, n1)
+
+
+def _block_chain(plan: PallasSOSPlan, f: torch.Tensor, z: torch.Tensor):
+    """The in-frame block chain: f (F, B, m) forcing, z (F, m) entry states
+    -> (z_in (F, B, m), the state after the frame (F, m)).
+
+    z_in[:, j] is the state entering block j; z <- AL z + f[:, j]. Each step
+    is an elementwise multiply and a sum over m, like ``biquad.alb_step``,
+    so a frame's bits do not depend on how many frames share the call.
+    """
+    AL = plan.AL1T.T
+    z_in = []
+    for j in range(f.shape[1]):
+        z_in.append(z)
+        z = (AL * z[:, None, :]).sum(dim=-1) + f[:, j]
+    return torch.stack(z_in, dim=1), z
+
+
+def _rows(plan: PallasSOSPlan) -> int:
+    """Block rows per product call: ``biquad.CANONICAL_FRAMES`` frames."""
+    return biquad.CANONICAL_FRAMES * plan.win.shape[0]
+
+
+def iir_summaries_plain(x: torch.Tensor, plan: PallasSOSPlan) -> torch.Tensor:
+    """The plain PyTorch version of ``iir_summaries``: x (F, N) -> (F, m).
+
+    Window, forcing xw @ PT through ``biquad._canonical_matmul``, the block
+    chain from rest; returns the state after each frame.
+    """
+    xw = _blocks(x, plan, apply_window=True)
+    f = biquad._canonical_matmul(xw, plan.PT, _rows(plan))
+    zero = torch.zeros((xw.shape[0], plan.state_dim), dtype=f.dtype, device=f.device)
+    return _block_chain(plan, f, zero)[1]
+
+
+def spectrum_iir_plain(
+    x: torch.Tensor,
+    z_starts: torch.Tensor,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """The plain PyTorch version of ``spectrum_from_state(bypass=False)``.
+
+    Per frame from its entry state: y_zs = xw @ T^T, the forcing xw @ PT and
+    the state product z_in @ MT through ``biquad._canonical_matmul``, the
+    block chain of ``_block_chain``, y = y_zs + z_in @ MT; then
+    ``spectrum_bypass_plain`` of y without a window.
+    """
+    xw = _blocks(x, plan, apply_window)
+    rows = _rows(plan)
+    y_zs = biquad._canonical_matmul(xw, plan.T.T, rows)
+    f = biquad._canonical_matmul(xw, plan.PT, rows)
+    z_in, _ = _block_chain(plan, f, z_starts.float())
+    y = y_zs + biquad._canonical_matmul(z_in, plan.MT, rows)
+    return spectrum_bypass_plain(y.reshape(x.shape[0], -1), plan, False, out_dtype)
+
+
+def spectrum_complex_plain(
+    xr: torch.Tensor,
+    xi: torch.Tensor | None,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """The plain PyTorch version of ``spectrum_mag_complex``: window both
+    planes (optional), ``fft.fft_4step`` of xr + i*xi, magnitude, one
+    rounding to ``out_dtype``. xi None is a real input."""
+    planes = [None if t is None else t.float() for t in (xr, xi)]
+    if apply_window:
+        w = plan.win.reshape(-1)
+        planes = [None if t is None else t * w for t in planes]
+    fr, fi = fft.fft_4step(*planes, plan.fft_plan)
     return magnitude.magnitude(fr, fi).to(OUT_DTYPES[out_dtype])
 
 
+# ---------------------------------------------------------------- CUDA launches
+
+# ctypes argument types of each library's entry point (p: pointer or
+# stream, i: int), in the order of its C signature in ``csrc/<name>.cu``.
+_SIGNATURES = {
+    "spectrum_bypass": "pipppppiip",
+    "spectrum_iir": "pppppppppppiip",
+    "iir_summaries": "pppppip",
+    "spectrum_complex": "ppipppppiip",
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
-    lib = loader.load("spectrum_bypass")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpu_sdr_spectrum_bypass.argtypes = [p, i, p, p, p, p, p, i, i, p]
-    lib.tpu_sdr_spectrum_bypass.restype = i
-    lib.tpu_sdr_cuda_error_string.argtypes = [i]
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = loader.load(name)
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    fn = getattr(lib, f"tpu_sdr_{name}")
+    fn.argtypes = [types[c] for c in _SIGNATURES[name]]
+    fn.restype = ctypes.c_int
+    lib.tpu_sdr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpu_sdr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _launch(name: str, device: torch.device, *args):
+    """Call ``tpu_sdr_<name>`` with ``args`` and the current stream of
+    ``device``; raise if the launch failed, else count it."""
+    lib = _kernel_lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"tpu_sdr_{name}")(*args, stream)
+    if err != 0:
+        msg = lib.tpu_sdr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    counts["kernel"][name] += 1
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t if contiguous and 16-byte aligned, else a contiguous copy: the
-    kernel loads frames and the window 16 bytes at a time, and a contiguous
+    kernels load frames and the window 16 bytes at a time, and a contiguous
     view can start at any element (``x1d[3:3 + n]``)."""
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _check_frames(what: str, x: torch.Tensor, plan: PallasSOSPlan, dtypes) -> int:
+    """Validate a (F, N) CUDA input of a kernel; returns F."""
+    n = plan.win.numel()
+    if x.dim() != 2 or x.shape[1] != n:
+        raise ValueError(f"{what} must be (F, {n}), got {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel needs a CUDA tensor, got {what} on {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"the kernel takes {what} as {dtypes}, got {x.dtype}")
+    if x.shape[0] >= 2**31:
+        raise ValueError(f"too many frames for one launch: {x.shape[0]}")
+    return x.shape[0]
+
+
+def _check_leaves(device: torch.device, **leaves):
+    for name, t in leaves.items():
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(
+                f"plan leaf {name} is {t.dtype} on {t.device}; the kernel "
+                f"needs float32 on {device}"
+            )
+
+
+def _check_state_dim(plan: PallasSOSPlan):
+    if plan.state_dim != 12:
+        raise ValueError(f"the IIR kernels take m = 12 states, got {plan.state_dim}")
 
 
 def spectrum_bypass_cuda(
@@ -221,50 +391,137 @@ def spectrum_bypass_cuda(
     apply_window: bool = True,
     out_dtype: str = "float32",
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on x (F, 16384) fp32/bf16 on a CUDA device.
-
-    Raises if the kernel cannot be built or launched; never falls back.
-    """
-    n = plan.win.numel()
-    if x.dim() != 2 or x.shape[1] != n:
-        raise ValueError(f"x must be (F, {n}), got {tuple(x.shape)}")
-    F = x.shape[0]
-    if x.device.type != "cuda":
-        raise ValueError(f"spectrum kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spectrum kernel takes fp32 or bf16 input, got {x.dtype}")
-    if F >= 2**31:
-        raise ValueError(f"too many frames for one launch: {F}")
+    """Launch ``spectrum_bypass.cu`` on x (F, 16384) fp32/bf16 on a CUDA
+    device. Raises if the kernel cannot be built or launched."""
+    F = _check_frames("x", x, plan, (torch.float32, torch.bfloat16))
     tab, twr, twi = plan.kernel_constants
     win = _aligned(plan.win)
-    for name, t in (("tab", tab), ("twr", twr), ("twi", twi), ("win", win)):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(
-                f"plan leaf {name} is {t.dtype} on {t.device}; the kernel "
-                f"needs float32 on {x.device}"
-            )
+    _check_leaves(x.device, tab=tab, twr=twr, twi=twi, win=win)
     x = _aligned(x)
-    out = torch.empty((F, n), dtype=OUT_DTYPES[out_dtype], device=x.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpu_sdr_spectrum_bypass(
-            x.data_ptr(),
-            int(x.dtype == torch.bfloat16),
-            win.data_ptr() if apply_window else None,
-            tab.data_ptr(),
-            twr.data_ptr(),
-            twi.data_ptr(),
-            out.data_ptr(),
-            int(out_dtype == "bfloat16"),
-            F,
-            stream,
-        )
-    if err != 0:
-        msg = lib.tpu_sdr_cuda_error_string(err).decode()
-        raise RuntimeError(f"spectrum kernel launch failed: CUDA error {err} ({msg})")
-    counts["kernel"] += 1
+    out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
+    _launch(
+        "spectrum_bypass", x.device,
+        x.data_ptr(), int(x.dtype == torch.bfloat16),
+        win.data_ptr() if apply_window else None,
+        tab.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out.data_ptr(), int(out_dtype == "bfloat16"), F,
+    )
     return out
+
+
+def spectrum_iir_cuda(
+    x: torch.Tensor,
+    z_starts: torch.Tensor,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """Launch ``spectrum_iir.cu`` on x (F, 16384) fp32 and entry states
+    z_starts (F, 12) fp32 on a CUDA device. Raises if the kernel cannot be
+    built or launched."""
+    F = _check_frames("x", x, plan, (torch.float32,))
+    _check_state_dim(plan)
+    if tuple(z_starts.shape) != (F, plan.state_dim) or z_starts.dtype != torch.float32:
+        raise ValueError(
+            f"z_starts must be ({F}, {plan.state_dim}) float32, got "
+            f"{tuple(z_starts.shape)} {z_starts.dtype}"
+        )
+    tab, twr, twi = plan.kernel_constants
+    h, pt, mt, al1t = plan.iir_constants
+    win = _aligned(plan.win)
+    zs = z_starts.contiguous()
+    _check_leaves(
+        x.device, tab=tab, twr=twr, twi=twi, win=win, h=h, PT=pt, MT=mt,
+        AL1T=al1t, z_starts=zs,
+    )
+    x = _aligned(x)
+    out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
+    _launch(
+        "spectrum_iir", x.device,
+        x.data_ptr(), zs.data_ptr(), win.data_ptr() if apply_window else None,
+        h.data_ptr(), pt.data_ptr(), mt.data_ptr(), al1t.data_ptr(),
+        tab.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out.data_ptr(), int(out_dtype == "bfloat16"), F,
+    )
+    return out
+
+
+def iir_summaries_cuda(x: torch.Tensor, plan: PallasSOSPlan) -> torch.Tensor:
+    """Launch ``iir_summaries.cu`` on x (F, 16384) fp32 on a CUDA device.
+    Raises if the kernel cannot be built or launched."""
+    F = _check_frames("x", x, plan, (torch.float32,))
+    _check_state_dim(plan)
+    _, pt, _, al1t = plan.iir_constants
+    win = _aligned(plan.win)
+    _check_leaves(x.device, win=win, PT=pt, AL1T=al1t)
+    x = _aligned(x)
+    out = torch.empty((F, plan.state_dim), dtype=torch.float32, device=x.device)
+    _launch(
+        "iir_summaries", x.device,
+        x.data_ptr(), win.data_ptr(), pt.data_ptr(), al1t.data_ptr(),
+        out.data_ptr(), F,
+    )
+    return out
+
+
+def spectrum_complex_cuda(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """Launch ``spectrum_complex.cu`` on IQ planes xr, xi (F, 16384), both
+    fp32 or both bf16, on a CUDA device. Raises if the kernel cannot be
+    built or launched."""
+    F = _check_frames("xr", xr, plan, (torch.float32, torch.bfloat16))
+    if xi.shape != xr.shape or xi.dtype != xr.dtype or xi.device != xr.device:
+        raise ValueError(
+            f"xi must match xr: {tuple(xr.shape)} {xr.dtype} on {xr.device}, "
+            f"got {tuple(xi.shape)} {xi.dtype} on {xi.device}"
+        )
+    tab, twr, twi = plan.kernel_constants
+    win = _aligned(plan.win)
+    _check_leaves(xr.device, tab=tab, twr=twr, twi=twi, win=win)
+    xr, xi = _aligned(xr), _aligned(xi)
+    out = torch.empty((F, xr.shape[1]), dtype=OUT_DTYPES[out_dtype], device=xr.device)
+    _launch(
+        "spectrum_complex", xr.device,
+        xr.data_ptr(), xi.data_ptr(), int(xr.dtype == torch.bfloat16),
+        win.data_ptr() if apply_window else None,
+        tab.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out.data_ptr(), int(out_dtype == "bfloat16"), F,
+    )
+    return out
+
+
+# ---------------------------------------------------------------- public functions
+
+
+def _check_options(precision: str, out_dtype: str = "float32"):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {tuple(OUT_DTYPES)}, got {out_dtype!r}")
+
+
+def _on_cpu(name: str, x: torch.Tensor, interpret: bool) -> bool:
+    """True (and a plain call counted) when x lies on the CPU. ``interpret``
+    has no meaning for a CUDA kernel: on a CUDA tensor it raises."""
+    if x.device.type == "cpu":
+        counts["plain"][name] += 1
+        return True
+    if interpret:
+        raise ValueError("interpret=True: a CUDA kernel has no interpret mode")
+    return False
+
+
+def _check_x(x: torch.Tensor, plan: PallasSOSPlan, name: str = "x") -> int:
+    n2, n1 = plan.win.shape
+    F = x.shape[0]
+    if tuple(x.shape) != (F, n1 * n2):
+        raise ValueError(f"{name} must be (F, {n1 * n2}), got {tuple(x.shape)}")
+    return F
 
 
 def spectrum_from_state(
@@ -283,45 +540,79 @@ def spectrum_from_state(
 ) -> torch.Tensor:
     """x (F, N) frames + per-frame entry states (F, m) -> magnitudes (F, N).
 
-    The keywords are the reference's. Implemented: ``bypass=True`` (the
-    entry states are then unused) with ``apply_window`` True/False,
-    ``out_dtype`` "float32"/"bfloat16" (the fp32 result rounded once on
-    store) and ``flat_emit`` True/False (natural-order (F, N) either way).
+    The keywords are the reference's. Implemented: ``bypass=True`` (window,
+    DFT, magnitude; the entry states are then unused) and ``bypass=False``
+    (the composite IIR from each frame's entry state first; x must be
+    fp32), each with ``apply_window`` True/False, ``out_dtype``
+    "float32"/"bfloat16" (the fp32 result rounded once on store) and
+    ``flat_emit`` True/False (natural-order (F, N) either way).
     ``precision`` ("highest" | "high3" | "default") and ``karatsuba`` are
-    validated and accepted: the kernel computes in IEEE fp32 at every tier.
+    validated and accepted: the kernels compute in IEEE fp32 at every tier.
     ``interpret`` has no meaning for a CUDA kernel: the plain version runs
     exactly when x lies on the CPU, and ``interpret=True`` on a CUDA tensor
     raises.
 
-    Not ported yet (NotImplementedError): ``bypass=False`` (ROADMAP queue A
-    item 1, kernel row 2), ``half_spectrum`` and ``blocked_output`` (queue A
-    item 6, kernel row 4).
+    Not ported yet (NotImplementedError): ``half_spectrum`` and
+    ``blocked_output`` (ROADMAP queue A, kernel row 4).
     """
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if out_dtype not in OUT_DTYPES:
-        raise ValueError(f"out_dtype must be one of {tuple(OUT_DTYPES)}, got {out_dtype!r}")
-    if not bypass:
-        raise NotImplementedError(
-            "spectrum_from_state(bypass=False), the in-kernel IIR: ROADMAP "
-            "queue A item 1 (kernel row 2)"
-        )
+    _check_options(precision, out_dtype)
     if half_spectrum or blocked_output:
         raise NotImplementedError(
             "spectrum_from_state half_spectrum / blocked_output: ROADMAP "
-            "queue A item 6 (kernel row 4)"
+            "queue A (kernel row 4)"
         )
-    n2, n1 = plan.win.shape
-    F = x.shape[0]
-    if x.shape != (F, n1 * n2):
-        raise ValueError(f"x must be (F, {n1 * n2}), got {tuple(x.shape)}")
+    F = _check_x(x, plan)
     if tuple(z_starts.shape) != (F, plan.state_dim):
         raise ValueError(
             f"z_starts must be ({F}, {plan.state_dim}), got {tuple(z_starts.shape)}"
         )
-    if x.device.type == "cpu":
-        counts["plain"] += 1
-        return spectrum_bypass_plain(x, plan, apply_window, out_dtype)
-    if interpret:
-        raise ValueError("interpret=True: a CUDA kernel has no interpret mode")
-    return spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
+    if bypass:
+        if _on_cpu("spectrum_bypass", x, interpret):
+            return spectrum_bypass_plain(x, plan, apply_window, out_dtype)
+        return spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
+    if _on_cpu("spectrum_iir", x, interpret):
+        return spectrum_iir_plain(x, z_starts, plan, apply_window, out_dtype)
+    return spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
+
+
+def iir_summaries(
+    x: torch.Tensor,
+    plan: PallasSOSPlan,
+    interpret: bool = False,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """x (F, N) raw frames -> per-frame zero-state forcing summaries (F, m).
+
+    ``precision`` is validated and accepted (IEEE fp32 at every tier);
+    ``interpret`` as in ``spectrum_from_state``.
+    """
+    _check_options(precision)
+    _check_x(x, plan)
+    if _on_cpu("iir_summaries", x, interpret):
+        return iir_summaries_plain(x, plan)
+    return iir_summaries_cuda(x, plan)
+
+
+def spectrum_mag_complex(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    plan: PallasSOSPlan,
+    interpret: bool = False,
+    precision: str = "highest",
+    apply_window: bool = True,
+    karatsuba: bool = False,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """IQ frames xr/xi (F, N) -> magnitudes (F, N), natural order.
+
+    ``precision`` and ``karatsuba`` are validated and accepted (IEEE fp32,
+    four real products per complex one, at every tier); ``interpret`` as in
+    ``spectrum_from_state``.
+    """
+    _check_options(precision, out_dtype)
+    F = _check_x(xr, plan, "xr")
+    if tuple(xi.shape) != (F, xr.shape[1]):
+        raise ValueError(f"xi must be {tuple(xr.shape)}, got {tuple(xi.shape)}")
+    if _on_cpu("spectrum_complex", xr, interpret):
+        return spectrum_complex_plain(xr, xi, plan, apply_window, out_dtype)
+    return spectrum_complex_cuda(xr, xi, plan, apply_window, out_dtype)

@@ -2,8 +2,9 @@
 
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which is loaded with ``ctypes``. The
-library's file name carries a hash of the source and the compiler flags, so
-a change to either builds a new library. Libraries go to
+library's file name carries a hash of the source, of every header in
+``csrc/`` (``*.cuh``, which a source may include) and of the compiler flags,
+so a change to any of them builds a new library. Libraries go to
 ``build/tpu_sdr_torch/`` beside the package (listed in ``.gitignore``).
 Nothing here runs at import time.
 """
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` with ``NVCC_FLAGS`` lives."""
-    key = (SOURCE_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    return BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+    """Where the library of ``csrc/<name>.cu``, the headers of ``csrc/`` and
+    ``NVCC_FLAGS`` lives."""
+    key = hashlib.sha256()
+    for path in (SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))):
+        key.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(name: str, force: bool = False) -> str:

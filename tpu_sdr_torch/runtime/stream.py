@@ -6,11 +6,16 @@ frame-aligned hop (hop == fft_size). Datapath order, per frame:
     samples -> Hann window -> {bypass | fixed IIR12 | custom IIR12}
             -> 16K four-step DFT -> magnitude (+ optional outputs)
 
-Magnitude output at the 128x128 geometry goes through the spectrum kernel
-(``kernels/cuda/iir_fft.spectrum_from_state``): BYPASS windows inside the
-kernel; FIXED/CUSTOM run the window and the composite IIR as matrix products
-first and call the kernel with ``apply_window=False``. Other shapes and
-outputs take the plain four-step path.
+Magnitude output at the 128x128 geometry goes through the spectrum kernels
+(``kernels/cuda/iir_fft``): BYPASS windows inside the kernel; FIXED/CUSTOM
+run the window and the composite IIR as matrix products first and call the
+kernel with ``apply_window=False`` (the hybrid structure, every tier's
+default), or, with ``fused_two_pass`` at the f32/f32max tiers, run the IIR
+inside two kernels (``iir_summaries``, then ``spectrum_from_state`` from
+each frame's entry state) with only the 12-float frame chain between them.
+Complex (IQ) input runs as stacked re/im planes (``process_stream_complex``,
+kernel ``spectrum_mag_complex``). Other shapes and outputs take the plain
+four-step path.
 
 Precision: every matrix product of this module runs in IEEE fp32, at every
 tier. The pipeline checks that PyTorch's float32 matmul precision is
@@ -100,15 +105,14 @@ def process_stream(
     1 fixed / 2 custom. Each bank is a dict {"op": BlockedSOSComposite,
     "pp": PallasSOSPlan or None}.
 
-    Not ported yet (NotImplementedError): ``time_axis`` (ROADMAP queue A
-    item 13), hop < fft_size (queue A item 3), ``fused_two_pass`` for the
-    f32/f32max tiers (queue A item 1).
+    Not ported yet (NotImplementedError): ``time_axis`` (ROADMAP queue A,
+    time sharding), hop < fft_size (queue A, hop < N).
     """
     if time_axis is not None:
-        raise NotImplementedError("time sharding: ROADMAP queue A item 13")
+        raise NotImplementedError("time sharding: ROADMAP queue A")
     n = cfg.fft_size
     if cfg.effective_hop != n:
-        raise NotImplementedError("hop < fft_size: ROADMAP queue A item 3")
+        raise NotImplementedError("hop < fft_size: ROADMAP queue A")
     t = x.shape[-1]
     n_frames = t // n
     lead = x.shape[:-1]  # (..., channels)
@@ -117,7 +121,8 @@ def process_stream(
         bank = bank_fixed if mode_index != 2 else bank_custom
         pp = bank["pp"]
         flat = x.reshape(-1, n)
-        zs = torch.zeros(
+        # Entry states of the bypass form, which ignores them.
+        zs = lambda: torch.zeros(
             (flat.shape[0], pp.state_dim), dtype=torch.float32, device=x.device
         )
         # The kernel computes in IEEE fp32 at every tier, so the reference's
@@ -125,19 +130,28 @@ def process_stream(
         # defaults here; only the store dtype differs by tier.
         kw = dict(bypass=True, out_dtype=_kernel_out_dtype(cfg))
         if mode_index == 0:
-            mag = iir_fft.spectrum_from_state(flat, zs, pp, **kw)
+            mag = iir_fft.spectrum_from_state(flat, zs(), pp, **kw)
             zf = state.sos_state
         elif cfg.dtype in ("f32max", "f32") and cfg.fused_two_pass:
-            raise NotImplementedError(
-                "fused_two_pass=True: ROADMAP queue A item 1 (kernel rows 2-3)"
+            # The fused two-pass pipeline: each frame's zero-state end state
+            # from the summaries kernel, the 12-float frame chain, then the
+            # IIR from each frame's entry state inside the spectrum kernel.
+            # A per-channel bank must take the hybrid branch once banks are
+            # ported (the reference's ``banked`` test, JAX stream.py).
+            m = pp.state_dim
+            w = iir_fft.iir_summaries(flat, pp).reshape(*lead, n_frames, m)
+            z_starts, z_final = biquad.frame_chain(
+                pp, state.sos_state.reshape(*lead, m), w
             )
+            mag = iir_fft.spectrum_from_state(flat, z_starts.reshape(-1, m), pp)
+            zf = z_final.reshape(*lead, m // 2, 2)
         else:
             xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
             y, zf = biquad.sosfilt_blocked_composite(
                 bank["op"], xw, state.sos_state
             )
             mag = iir_fft.spectrum_from_state(
-                _maybe_bf16_y(cfg, y).reshape(-1, n), zs, pp,
+                _maybe_bf16_y(cfg, y).reshape(-1, n), zs(), pp,
                 apply_window=False, **kw,
             )
         out = {"magnitude": mag.reshape(*lead, n_frames, n)}
@@ -162,6 +176,70 @@ def process_stream(
         frame_count=state.frame_count + n_frames,
     )
     return out, new_state
+
+
+def process_stream_complex(
+    xs: torch.Tensor,
+    state: StreamState,
+    bank_fixed: dict,
+    bank_custom: dict,
+    hann_w: torch.Tensor,
+    plan: dict,
+    *,
+    mode_index: int,
+    cfg: PipelineConfig,
+    outputs: str = "magnitude",
+    time_axis: str | None = None,
+):
+    """Complex (IQ) stream: xs (2, ..., channels, T) stacked re/im planes.
+
+    The window and the real-coefficient IIR act on re and im independently,
+    so they run on the stacked planes; the state carries a leading 2-axis
+    (``initial_state(batch_shape=(2,))``). Magnitude output at the 128x128
+    geometry takes the complex spectrum kernel (``spectrum_mag_complex``);
+    other outputs combine the plain path's spectra of the two planes by DFT
+    linearity, X = FFT(re) + i*FFT(im).
+    """
+    if time_axis is not None:
+        raise NotImplementedError("time sharding: ROADMAP queue A")
+    n = cfg.fft_size
+    if not (cfg.pallas_geometry_ok() and outputs == "magnitude" and cfg.effective_hop == n):
+        out, new_state = process_stream(
+            xs, state, bank_fixed, bank_custom, hann_w, plan,
+            mode_index=mode_index, cfg=cfg, outputs="complex",
+        )
+        fr = out["re"][0] - out["im"][1]
+        fi = out["im"][0] + out["re"][1]
+        # The counters derive from T, so the stacked planes advance the
+        # stream once: new_state is already right.
+        return _decode_outputs(cfg, fr, fi, outputs), new_state
+    t = xs.shape[-1]
+    n_frames = t // n
+    lead = xs.shape[1:-1]  # (..., channels)
+    bank = bank_fixed if mode_index != 2 else bank_custom
+    if mode_index == 0:
+        y, zf, apply_window = xs, state.sos_state, True
+    else:
+        xw = (xs.reshape(2, *lead, n_frames, n) * hann_w).reshape(2, *lead, t)
+        y, zf = biquad.sosfilt_blocked_composite(bank["op"], xw, state.sos_state)
+        apply_window = False
+    yr, yi = y[0], y[1]
+    # bf16_io: only the filtered planes reach the kernel as bf16. In BYPASS
+    # the kernel windows first, and rounding the raw input before that
+    # multiply would break "fp32 results rounded once on store".
+    if not apply_window:
+        yr, yi = _maybe_bf16_y(cfg, yr), _maybe_bf16_y(cfg, yi)
+    mag = iir_fft.spectrum_mag_complex(
+        yr.reshape(-1, n), yi.reshape(-1, n), bank["pp"],
+        apply_window=apply_window, out_dtype=_kernel_out_dtype(cfg),
+    )
+    new_state = StreamState(
+        sos_state=zf,
+        window_phase=(state.window_phase + t) % n,
+        frame_count=state.frame_count + n_frames,
+        history=state.history,
+    )
+    return {"magnitude": mag.reshape(*lead, n_frames, n)}, new_state
 
 
 class SpectrumPipeline:
@@ -218,7 +296,33 @@ class SpectrumPipeline:
 
     def upload_sos_bank(self, sos_bank):
         raise NotImplementedError(
-            "per-channel filter banks (upload_sos_bank): ROADMAP queue A item 4"
+            "per-channel filter banks (upload_sos_bank): ROADMAP queue A"
+        )
+
+    def _check_iq_state(self, state: StreamState):
+        expected = (2, self.cfg.channels, self.cfg.n_sections, 2)
+        if tuple(state.sos_state.shape) != expected:
+            raise ValueError(
+                "complex input needs a re/im-stacked state of shape "
+                f"{expected}, got {tuple(state.sos_state.shape)}: create it "
+                "with initial_state(batch_shape=(2,))"
+            )
+
+    def _check_length(self, t: int):
+        if t % self.cfg.fft_size:
+            raise ValueError(
+                f"stream chunk length {t} must be a multiple of "
+                f"fft_size={self.cfg.fft_size} (frame-aligned dispatch)"
+            )
+
+    def _run(self, x, state, mode, outputs, complex_input: bool):
+        self._check_length(x.shape[-1])
+        check_matmul_precision(self.matmul_precision)
+        fn = process_stream_complex if complex_input else process_stream
+        return fn(
+            x, state, self.bank_fixed, self.bank_custom, self.hann_w, self.plan,
+            mode_index=_MODE_TO_INDEX[FilterMode(mode)], cfg=self.cfg,
+            outputs=outputs,
         )
 
     def process(
@@ -228,31 +332,42 @@ class SpectrumPipeline:
         mode: FilterMode = FilterMode.BYPASS,
         outputs: str = "magnitude",
     ):
-        """x: (..., channels, T) or (T,), real -> (out dict, new_state).
+        """x: (..., channels, T) or (T,) -> (out dict, new_state).
 
-        x may be a NumPy array or a tensor; it is moved to the pipeline's
-        device as float32.
+        x may be a NumPy array or a tensor; real input is moved to the
+        pipeline's device as float32. Complex (IQ) input is accepted with a
+        state from ``initial_state(batch_shape=(2,))``: it is moved to the
+        device as complex64 and split there into stacked re/im planes.
         """
         complex_input = x.is_complex() if torch.is_tensor(x) else np.iscomplexobj(x)
         if complex_input:
-            raise NotImplementedError("complex (IQ) input: ROADMAP queue A item 2")
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.shape[-1] % self.cfg.fft_size:
-            raise ValueError(
-                f"stream chunk length {x.shape[-1]} must be a multiple of "
-                f"fft_size={self.cfg.fft_size} (frame-aligned dispatch)"
-            )
-        check_matmul_precision(self.matmul_precision)
-        return process_stream(
-            x, state, self.bank_fixed, self.bank_custom, self.hann_w, self.plan,
-            mode_index=_MODE_TO_INDEX[FilterMode(mode)], cfg=self.cfg,
-            outputs=outputs,
-        )
+            self._check_iq_state(state)
+            xc = torch.as_tensor(x).to(self.device, torch.complex64)
+            if xc.ndim == 1:
+                xc = xc[None, :]
+            x = torch.stack([xc.real, xc.imag])
+        else:
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            if x.ndim == 1:
+                x = x[None, :]
+        return self._run(x, state, mode, outputs, complex_input)
 
-    def process_planes(self, xs, state: StreamState, mode=FilterMode.BYPASS,
-                       outputs: str = "magnitude"):
-        raise NotImplementedError(
-            "complex (IQ) planes (process_planes): ROADMAP queue A item 2"
-        )
+    def process_planes(
+        self,
+        xs,
+        state: StreamState,
+        mode: FilterMode = FilterMode.BYPASS,
+        outputs: str = "magnitude",
+    ):
+        """Complex (IQ) input as pre-split planes: xs (2, channels, T) or
+        (2, T) float32, re then im, e.g. a device-resident chunk split once.
+        Takes the state of ``initial_state(batch_shape=(2,))``."""
+        xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
+        if xs.ndim < 2 or xs.shape[0] != 2:
+            raise ValueError(
+                f"xs must stack re/im as a leading 2-axis, got {tuple(xs.shape)}"
+            )
+        self._check_iq_state(state)
+        if xs.ndim == 2:
+            xs = xs[:, None, :]
+        return self._run(xs, state, mode, outputs, complex_input=True)
