@@ -5,33 +5,45 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port, built from
+  2. build: every CUDA kernel library of the port (six), built from
      ``tpu_sdr_torch/csrc`` with nvcc, one process per source, all started
      together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card at F = 1, 8 and 512 frames, with the stated SNR floors (and a
-     relative-error bound for the IIR summaries' states);
+     card: the spectrum kernels at F = 1, 8 and 512 frames with the stated
+     SNR floors (and a relative-error bound for the IIR summaries' states);
+     the FM kernel at 8 x 2^20 samples (atol 1e-6, and whether it is
+     bitwise) and the PFB kernel at the channelizer's real and IQ shapes
+     (1e-5 of the output scale);
   4. the paths, each driven with the launch counts set to 0 just before it
-     and read just after, at 8 channels x 64 frames per dispatch
-     (8.4 Msamples), 5 carried-state dispatches per mode:
-     - the default (hybrid) path: ``SpectrumPipeline.process`` in CUSTOM
-       (butter(12, 0.25)), FIXED and BYPASS: one spectrum-kernel launch per
-       dispatch, no plain call, the two-tone peaks against a float64
-       NumPy/SciPy golden (1 dB), chunked vs one-shot;
-     - the fused two-pass path (``fused_two_pass=True``) at the f32 and
-       f32max tiers, CUSTOM and FIXED: one summaries and one in-kernel-IIR
-       launch per dispatch, the golden, chunked == one-shot bitwise, and
-       fused vs hybrid magnitudes;
-     - complex (IQ) input through ``process`` and ``process_planes``,
-       BYPASS and CUSTOM: one complex-kernel launch per dispatch, a complex
-       tone at +f only, the golden, chunked == one-shot bitwise, and
-       process == process_planes bitwise;
+     and read just after:
+     - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
+       Msamples), 5 carried-state dispatches per mode: the default (hybrid)
+       path in CUSTOM (butter(12, 0.25)), FIXED and BYPASS; the fused
+       two-pass path (f32, f32max); complex (IQ) input through ``process``
+       and ``process_planes``; each with one kernel launch per dispatch, no
+       plain call, a float64 golden, chunked == one-shot;
+     - the FM kernel path, ``FMDemodulator(200e3, use_pallas=True)`` with
+       and without de-emphasis at 8 x 2^20 samples: one ``fm_demod`` launch
+       per dispatch, chunked == one-shot bitwise (mixed chunks), the default
+       path within 2e-6, a 1 kHz tone recovered;
+     - the channelizer kernel path, ``Channelizer(m=128, taps=8,
+       use_pallas=True)`` on 8 x 2^20 real samples and (2, 8, 2^20) IQ
+       planes: one ``pfb_fold_dft`` launch per dispatch, the default path
+       within 1e-5 of max |re|, chunked == one-shot bitwise, a tone in its
+       channel;
+     - the receiver, ``Receiver(fs=1e6, center_hz=250e3, mode="wbfm",
+       audio_rate=48e3)`` on 8 x 1,008,000 samples, real and IQ planes (no
+       kernel of the port: all counts 0), then nbfm, am, usb, lsb, stereo
+       and a 4-station ``ReceiverBank``: tones recovered, chunked ==
+       one-shot bitwise, the bank == 4 receivers bitwise;
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it; each
-     path's end-to-end dispatch time;
+     path's end-to-end dispatch time, compared paths in alternating turns;
   6. profile: device time per dispatch by kernel, launches per dispatch,
-     and the device's idle share, per path and mode;
+     and the device's idle share, per path and mode, as torch.profiler saw
+     them (it can lose an event or two; the port's kernels are checked
+     against their wrappers' launch counts);
   7. small dispatches: CUSTOM at 1 channel x 1 and x 4 frames, wall and
      device time, beside the bench shape's of phases 5 and 6.
 
@@ -75,7 +87,25 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     "spectrum_iir": dict(name="spectrum_from_state[iir]", replaces=f"{JAX_KERNELS}:549"),
     "iir_summaries": dict(name="iir_summaries", replaces=f"{JAX_KERNELS}:509"),
     "spectrum_complex": dict(name="spectrum_mag_complex", replaces=f"{JAX_KERNELS}:447"),
+    "fm_demod": dict(name="fm_demod_pallas",
+                     replaces="tpu_sdr/kernels/pallas/affine_scan.py:138"),
+    "pfb_fold_dft": dict(name="pfb_fold_dft", replaces="tpu_sdr/kernels/pallas/pfb_kernel.py:73"),
 }
+
+# The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
+NB_CH, NB_T = 8, 1 << 20  # 8 channels x 2^20 samples per dispatch
+FM_FS, FM_DEV, FM_TAU, FM_TONE = 200e3, 75e3, 75e-6, 1e3
+# The FM kernel's function, per sample: the discriminator (4 mul, 2 add),
+# the polynomial atan2 (2 abs, max, min, a division, r^2, 8 Horner steps of
+# 2, p*r, 2 octant subtractions, the sign: 25), the two scale multiplies,
+# (1 - a) * audio, the 7-level tree (3 a level) and the emit (2): 57.
+FM_FLOPS_PER_SAMPLE = 57
+FM_KERNEL_ATOL = 1e-6  # the JAX kernel's own bound (tests/test_pallas_kernel.py)
+FM_PATHS_ATOL = 2e-6  # kernel path vs default path (tests/test_demod.py)
+PFB_M, PFB_TAPS = 128, 8
+PFB_REL = 1e-5  # of max |re| (tests/test_pfb.py)
+RX_FS, RX_CENTER, RX_AUDIO = 1e6, 250e3, 48e3
+RX_T = 63 * 16_000  # 63 x the wbfm receiver's chunk granularity
 
 
 def check(ok, what=""):
@@ -90,12 +120,23 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float("inf") if err == 0 else 10 * np.log10(sig / err)
 
 
+# Cycles a spin kernel holds the device while the host queues the timed
+# calls (about 50 ms at the H100's clocks).
+HOLD_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` back-to-back calls."""
+    """Mean device time of fn() over ``iters`` back-to-back calls. A spin
+    kernel holds the device while the host queues them, so a call whose
+    wrapper takes longer on the host than its kernels on the device is
+    still timed by its device work (unless queueing outlasts the spin, as
+    for a plain version that launches thousands of kernels)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -144,7 +185,7 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from tpu_sdr_torch.kernels.cuda import iir_fft, loader
+    from tpu_sdr_torch.kernels.cuda import launch, loader
 
     def build(name):
         t0 = time.perf_counter()
@@ -152,8 +193,8 @@ def phase_build():
         return name, time.perf_counter() - t0, log
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(iir_fft.KERNELS)) as pool:
-        built = list(pool.map(build, iir_fft.KERNELS))
+    with concurrent.futures.ThreadPoolExecutor(len(launch.KERNELS)) as pool:
+        built = list(pool.map(build, launch.KERNELS))
     print(f"[2] built {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s "
           f"(nvcc, in parallel)")
     for name, seconds, log in built:
@@ -292,12 +333,12 @@ def run_dispatches(run, x, state) -> tuple[list, object]:
 def check_counts(tag: str, expected: dict):
     """Every kernel launched exactly as ``expected`` (others 0), and no
     plain version ran."""
-    from tpu_sdr_torch.kernels.cuda import iir_fft
+    from tpu_sdr_torch.kernels.cuda import launch
 
-    launched = iir_fft.counts["kernel"]
+    launched = launch.counts["kernel"]
     want = {k: expected.get(k, 0) for k in launched}
     check(launched == want, (tag, launched, want))
-    check(not any(iir_fft.counts["plain"].values()), (tag, iir_fft.counts["plain"]))
+    check(not any(launch.counts["plain"].values()), (tag, launch.counts["plain"]))
 
 
 def phase_main_path(pipe, x_np: np.ndarray, sos_custom) -> int:
@@ -441,42 +482,98 @@ def phase_iq(pipe, xc_np: np.ndarray, sos_custom) -> int:
     return launches
 
 
-def dispatch_wall(step) -> tuple[float, float, float]:
+def dispatch_wall(step, reps: int = 5, calls: int = 10,
+                  warmup: int = 3) -> tuple[float, float, float]:
     """Host-clock seconds per call of step() (one dispatch on a carried
-    state): median, min and max of 5 reps of 10 chained calls, after 3."""
-    for _ in range(3):
+    state): median, min and max of ``reps`` reps of ``calls`` chained
+    calls, after ``warmup``."""
+    for _ in range(warmup):
         step()
-    reps = []
-    for _ in range(5):
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(calls):
             step()
         torch.cuda.synchronize()
-        reps.append((time.perf_counter() - t0) / 10)
-    return statistics.median(reps), min(reps), max(reps)
+        times.append((time.perf_counter() - t0) / calls)
+    return statistics.median(times), min(times), max(times)
+
+
+# The range each traced call runs in: the profiler ties a kernel launched
+# through ctypes to a host operator, and so lists it, only inside a range.
+# It lists the range on the device too; device_kernels leaves it out.
+STEP_RANGE = "chip_smoke step"
+# Per wrapper: its device kernels that end a launch, one per launch
+# (csrc/<name>.cu; fm_demod ends with its emit pass, or is its one
+# discriminator pass without de-emphasis).
+LAST_DEVICE_KERNEL = {
+    "spectrum_bypass": ("spectrum_bypass_kernel",), "spectrum_iir": ("spectrum_iir_kernel",),
+    "iir_summaries": ("iir_summaries_kernel",),
+    "spectrum_complex": ("spectrum_complex_kernel",),
+    "fm_demod": ("fm_emit_kernel", "fm_disc_kernel"), "pfb_fold_dft": ("pfb_fold_dft_kernel",),
+}
 
 
 def device_kernels(step, reps: int = 3):
-    """Device kernels of ``reps`` calls of step() under torch.profiler:
-    (kernels per call, device busy ms per call, {name: ms per call}), or
-    None when the profiler saw no device events."""
+    """Device kernels of ``reps`` calls of step() under torch.profiler, as
+    the profiler saw them: (kernels per call, device busy ms per call,
+    {name: (ms per call, launches per call)}, {wrapper: (launches seen,
+    launches made)} for each port kernel launched), or None when the
+    profiler saw no device events.
+
+    Traced from the profiler's first step, it lost the first kernel or two
+    of the window (PyTorch's kernels too), so one warm-up step runs under
+    the profiler before the ``reps`` it records. Nothing is rounded: where
+    it still loses an event, counts and busy time read low, and the port's
+    kernels are checked against their wrappers' counts."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    from tpu_sdr_torch.kernels.cuda import launch
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for k in range(1 + reps):
+            with record_function(STEP_RANGE):
+                step()
+            torch.cuda.synchronize()
+            if k == 0:
+                launch.reset_counts()
+            prof.step()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name != STEP_RANGE:
+            ms, n = seen.get(e.name, (0.0, 0))
+            seen[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not seen:
         return None
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    return len(kernels) / reps, sum(by_name.values()), by_name
+    port = {w: (sum(n for name, (_, n) in seen.items() if any(k in name for k in ends)), made)
+            for w, ends in LAST_DEVICE_KERNEL.items()
+            if (made := launch.counts["kernel"][w])}
+    by_name = {name: (ms / reps, n / reps) for name, (ms, n) in seen.items()}
+    return (sum(n for _, n in by_name.values()), sum(ms for ms, _ in by_name.values()),
+            by_name, port)
+
+
+def port_seen(port: dict) -> str:
+    """'seen/made' launches of each port kernel in a traced window."""
+    return ", ".join(f"{w} {seen}/{made}" + ("" if seen == made else " (lost by the profiler)")
+                     for w, (seen, made) in port.items())
+
+
+def profiled(kernel) -> str:
+    """The profiler's view of 5 calls of a kernel wrapper: device ms per
+    call, by kernel, beside the CUDA-event time."""
+    prof = device_kernels(kernel, reps=5)
+    if prof is None:
+        return "profiler: no device events"
+    short = lambda name: (name.replace("(anonymous namespace)::", "").replace("void ", "")
+                          .split("(")[0].split("<")[0][-40:])
+    parts = ", ".join(f"{short(name)} {ms:.4f} ms x{n:g}" for name, (ms, n) in prof[2].items())
+    return f"profiler {prof[1]:.4f} ms per call seen ({parts}; launches {port_seen(prof[3])})"
 
 
 def chained(run, x, state):
@@ -538,7 +635,7 @@ def phase_timing(pp, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
         print(f"[5] {name} F={F}: kernel {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
               f"library {lib}; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
               f"({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) -> kernel at "
-              f"{b['bound_ms'] / t['ms']:.1%} of the bound")
+              f"{b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}")
 
     # Window, 16384-point FFT of a real frame, magnitude (4 operations a bin).
     record("spectrum_bypass",
@@ -596,21 +693,22 @@ def phase_timing(pp, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
     return {label: statistics.median(v) for label, v in walls.items()}, timing
 
 
-def phase_profile(steps: dict, walls: dict):
+def phase_profile(steps: dict, walls: dict, reps: dict | None = None):
     """Device time per dispatch by kernel (torch.profiler), kernel launches
     per dispatch, and the device's idle share against the untraced
-    dispatch time of phase 5."""
+    dispatch time of phase 5. ``reps``: traced dispatches per label (3)."""
     for label, wall in walls.items():
-        prof = device_kernels(steps[label])
+        prof = device_kernels(steps[label], (reps or {}).get(label, 3))
         if prof is None:
             print(f"[6] {label:17s} profiler saw no device events: not measured")
             continue
-        n_kernels, busy_ms, by_name = prof
-        print(f"[6] {label:17s} per dispatch: {n_kernels:.0f} device kernels, "
-              f"busy {busy_ms:.4f} ms of {wall * 1e3:.4f} ms -> idle share "
-              f"{1 - busy_ms / (wall * 1e3):.1%}")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"[6]   {ms:8.4f} ms  {name[:90]}")
+        n_kernels, busy_ms, by_name, port = prof
+        seen = f"; port kernels seen/launched: {port_seen(port)}" if port else ""
+        print(f"[6] {label:17s} per dispatch, as the profiler saw it: {n_kernels:g} device "
+              f"kernels, busy {busy_ms:.4f} ms of {wall * 1e3:.4f} ms -> idle share "
+              f"{1 - busy_ms / (wall * 1e3):.1%}{seen}")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"[6]   {ms:8.4f} ms in {n:8g} launches  {name[:80]}")
 
 
 def phase_small_dispatch(sos_custom):
@@ -627,9 +725,423 @@ def phase_small_dispatch(sos_custom):
         med, lo, hi = dispatch_wall(step)
         prof = device_kernels(step)
         busy = ("device not measured" if prof is None
-                else f"{prof[0]:.0f} device kernels, busy {prof[1]:.4f} ms")
+                else f"{prof[0]:g} device kernels seen, busy {prof[1]:.4f} ms seen")
         print(f"[7] CUSTOM dispatch (1 ch x {frames} frames): median {med * 1e3:.4f} ms "
               f"(min {lo * 1e3:.4f}, max {hi * 1e3:.4f}); {busy}")
+
+
+# ---------------------------------------------------------------- narrowband
+
+
+def tone_hz(x: np.ndarray, rate: float) -> float:
+    """The frequency of the largest peak of a Hann-windowed spectrum."""
+    x = np.asarray(x, np.float64)
+    x = x - x.mean()
+    spec = np.abs(np.fft.rfft(x * np.hanning(x.size)))
+    return float(np.argmax(spec) * rate / x.size)
+
+
+def check_tone(tag: str, audio: torch.Tensor, rate: float, want_hz: float, skip_s: float):
+    a = audio.double().cpu().numpy()[int(skip_s * rate):]
+    check(np.isfinite(a).all(), (tag, "finite"))
+    got = tone_hz(a, rate)
+    tol = 2 * rate / a.size
+    print(f"[4] {tag}: tone at {got:.2f} Hz (sent {want_hz:.0f} Hz, +-{tol:.2f}), "
+          f"peak |audio| {np.abs(a).max():.4f}")
+    check(abs(got - want_hz) <= tol, (tag, got, want_hz))
+
+
+def _noise(shape, seed: int, scale: float) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scale * torch.randn(shape, dtype=torch.float64, device="cuda", generator=gen)
+
+
+def fm_phase(t: int, fs: float, dev: float, tone: float) -> torch.Tensor:
+    """The phase (float64, on the card) of a carrier FM-modulated by a tone."""
+    n = torch.arange(t, dtype=torch.float64, device="cuda")
+    return 2 * np.pi * dev / fs * torch.cumsum(torch.sin(2 * np.pi * tone * n / fs), 0)
+
+
+def fm_planes() -> tuple:
+    """8 channels x 2^20 complex FM baseband (a 1 kHz tone at 75 kHz
+    deviation, fs 200 kHz) plus noise at -60 dB, as float32 re/im planes."""
+    ph = fm_phase(NB_T, FM_FS, FM_DEV, FM_TONE)
+    re = torch.cos(ph) + _noise((NB_CH, NB_T), 20, 1e-3)
+    im = torch.sin(ph) + _noise((NB_CH, NB_T), 21, 1e-3)
+    return re.float(), im.float()
+
+
+def phase_nb_kernels() -> dict:
+    """The FM and PFB kernels against their plain versions at the main
+    paths' shapes; returns the max abs error of each as the path calls it."""
+    from tpu_sdr_torch.kernels.cuda import affine_scan, pfb_kernel
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    errs = {}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    re, im = (torch.randn((NB_CH, NB_T), device="cuda", generator=gen) for _ in range(2))
+    pr, pi = (torch.randn((NB_CH, 1), device="cuda", generator=gen) for _ in range(2))
+    y0 = 0.1 * torch.randn((NB_CH,), device="cuda", generator=gen)
+    for pole in (float(np.exp(-1.0 / (FM_FS * FM_TAU))), None):
+        kw = dict(fs=FM_FS, dev=FM_DEV, pole=pole)
+        got = affine_scan.fm_demod_cuda(re, im, pr, pi, y0, **kw)
+        ref = affine_scan.fm_demod_plain(re, im, pr, pi, y0, **kw)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
+        print(f"[3] fm_demod {NB_CH} x {NB_T} pole={pole}: max_abs_err={err:.3e} "
+              f"(atol {FM_KERNEL_ATOL}) bitwise={bitwise}")
+        check(all(g.shape == r.shape for g, r in zip(got, ref)), "fm_demod shapes")
+        check(err <= FM_KERNEL_ATOL, ("fm_demod", pole, err))
+        errs.setdefault("fm_demod", err)
+    ch = Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True)
+    for label, batch, neg_b in (("real", NB_CH, True), ("IQ", 2 * NB_CH, False)):
+        rows = torch.randn((batch, NB_T // PFB_M + PFB_TAPS - 1, PFB_M), device="cuda",
+                           generator=gen)
+        a, b = pfb_kernel.pfb_fold_dft_cuda(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS, neg_b)
+        ra, rb = pfb_kernel.pfb_fold_dft_plain(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS,
+                                               PFB_M, neg_b)
+        torch.cuda.synchronize()
+        err = max((a - ra).abs().max().item(), (b - rb).abs().max().item())
+        rel = err / ra.abs().max().item()
+        bitwise = torch.equal(a, ra) and torch.equal(b, rb)
+        print(f"[3] pfb_fold_dft {label} rows {tuple(rows.shape)}: max_abs_err={err:.3e} "
+              f"rel={rel:.2e} (tol {PFB_REL}) bitwise={bitwise}")
+        check(rel <= PFB_REL, ("pfb_fold_dft", label, rel))
+        errs.setdefault("pfb_fold_dft", err)
+    return errs
+
+
+def phase_fm(planes) -> int:
+    """The FM kernel path, with and without de-emphasis; returns fm_demod's
+    launches."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.kernels.demod import FMDemodulator
+
+    re, im = planes
+    launch.reset_counts()
+    for k, tau in enumerate((FM_TAU, None), start=1):
+        fm = FMDemodulator(FM_FS, deviation_hz=FM_DEV, deemphasis_tau=tau, use_pallas=True)
+        st = fm.initial_state((NB_CH,))
+        for _ in range(DISPATCHES):
+            audio, st = fm.process(re, im, st)
+        torch.cuda.synchronize()
+        check_counts(f"FM kernel tau={tau}", {"fm_demod": k * DISPATCHES})
+        check(audio.shape == (NB_CH, NB_T) and st.offset == DISPATCHES * NB_T)
+        check_tone(f"FM kernel path tau={tau}: {DISPATCHES} dispatches of {NB_CH} x {NB_T}, "
+                   f"fm_demod launches {DISPATCHES}, plain 0; channel 0 of the last",
+                   audio[0, -(1 << 17):], FM_FS, FM_TONE, 0.0)
+    launches = launch.counts["kernel"]["fm_demod"]
+    chunks = (128, 384, 1536, 2048, 4096, 8192, 32768, NB_T - 49152)
+    for tau in (FM_TAU, None):
+        fm = FMDemodulator(FM_FS, deviation_hz=FM_DEV, deemphasis_tau=tau, use_pallas=True)
+        one, st_one = fm.process(re, im, fm.initial_state((NB_CH,)))
+        st, parts, pos = fm.initial_state((NB_CH,)), [], 0
+        for n in chunks:
+            o, st = fm.process(re[:, pos : pos + n], im[:, pos : pos + n], st)
+            parts.append(o)
+            pos += n
+        xla = FMDemodulator(FM_FS, deviation_hz=FM_DEV, deemphasis_tau=tau)
+        ref, _ = xla.process(re, im, xla.initial_state((NB_CH,)))
+        torch.cuda.synchronize()
+        bitwise = torch.equal(torch.cat(parts, dim=-1), one) and torch.equal(st.filt, st_one.filt)
+        err = (ref - one).abs().max().item()
+        print(f"[4] FM tau={tau}: chunked ({len(chunks)} mixed chunks) vs one-shot bitwise="
+              f"{bitwise}; kernel path vs default path max_abs_err={err:.3e} "
+              f"(atol {FM_PATHS_ATOL})")
+        check(bitwise, ("FM chunked", tau))
+        check(err <= FM_PATHS_ATOL, ("FM paths", tau, err))
+    return launches
+
+
+def pfb_inputs() -> tuple:
+    """A real tone at channel 37's center (8 x 2^20) and a complex one as
+    (2, 8, 2^20) planes, plus noise at -60 dB."""
+    n = torch.arange(NB_T, dtype=torch.float64, device="cuda")
+    ph = 2 * np.pi * 37 / PFB_M * n
+    x = (torch.cos(ph) + _noise((NB_CH, NB_T), 23, 1e-3)).float()
+    planes = torch.stack([torch.cos(ph) + _noise((NB_CH, NB_T), 24, 1e-3),
+                          torch.sin(ph) + _noise((NB_CH, NB_T), 25, 1e-3)]).float()
+    return x, planes
+
+
+def phase_channelizer(x, planes) -> int:
+    """The channelizer kernel path, real and IQ; returns pfb_fold_dft's
+    launches."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    ch = Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True)
+    xla = Channelizer(m=PFB_M, taps=PFB_TAPS)
+    cases = (("real", ch.process, x, (NB_CH,)), ("IQ", ch.process_planes, planes, (2, NB_CH)))
+    launch.reset_counts()
+    k = 0
+    for label, run, inp, shape in cases:
+        k += 1
+        st = ch.initial_state(shape)
+        for _ in range(DISPATCHES):
+            out, st = run(inp, st, outputs="all")
+        torch.cuda.synchronize()
+        check_counts(f"PFB kernel {label}", {"pfb_fold_dft": k * DISPATCHES})
+        mag = out["magnitude"][0, 16:].mean(dim=0).cpu().numpy()
+        top = list(np.argsort(mag)[::-1][:3])
+        want = {37, PFB_M - 37} if label == "real" else {37}
+        print(f"[4] PFB kernel path {label}: {DISPATCHES} dispatches, pfb_fold_dft launches "
+              f"{DISPATCHES}, plain 0; strongest channels {top}, next/peak "
+              f"{mag[top[len(want)]] / mag[top[0]]:.2e}")
+        check(set(top[: len(want)]) == want and mag[top[len(want)]] < 1e-3 * mag[top[0]],
+              ("PFB tone", label, top))
+    launches = launch.counts["kernel"]["pfb_fold_dft"]
+    for label, run, inp, shape in cases:
+        xrun = xla.process if label == "real" else xla.process_planes
+        one, st_one = run(inp, ch.initial_state(shape))
+        ref, _ = xrun(inp, xla.initial_state(shape))
+        st, parts, prev = ch.initial_state(shape), [], 0
+        for cut in (PFB_M, 9 * PFB_M, NB_T // 3 // PFB_M * PFB_M, NB_T):
+            o, st = run(inp[..., prev:cut], st)
+            parts.append(o)
+            prev = cut
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(torch.cat([p[key] for p in parts], dim=-2), one[key])
+                      for key in ("re", "im")) and torch.equal(st, st_one)
+        scale = ref["re"].abs().max().item()
+        rel = max((ref[key] - one[key]).abs().max().item() for key in ("re", "im")) / scale
+        print(f"[4] PFB {label}: chunked (4 chunks) vs one-shot bitwise={bitwise}; kernel "
+              f"path vs default path max_err/max|re|={rel:.2e} (tol {PFB_REL})")
+        check(bitwise, ("PFB chunked", label))
+        check(rel <= PFB_REL, ("PFB paths", label, rel))
+    return launches
+
+
+def rx_signal(t: int, mode: str, iq: bool = False) -> torch.Tensor:
+    """(8, t) real or (2, 8, t) IQ wideband input at 1 MS/s with a station
+    at 250 kHz carrying a test tone: FM (1 kHz, 75 kHz deviation for wbfm;
+    300 Hz, 2.5 kHz for nbfm; stereo L 1 kHz, R 3 kHz), AM (800 Hz) or a
+    single sideband (the carrier +- 700 Hz); noise at -40 dB."""
+    from tpu_sdr_torch.kernels.stereo import make_mpx
+
+    n = torch.arange(t, dtype=torch.float64, device="cuda")
+    w = 2 * np.pi * RX_CENTER / RX_FS * n
+    if mode == "stereo":
+        nn = n.cpu().numpy()
+        mpx = make_mpx(np.sin(2 * np.pi * 1e3 * nn / RX_FS), np.sin(2 * np.pi * 3e3 * nn / RX_FS),
+                       RX_FS)
+        w = w + 2 * np.pi * 75e3 / RX_FS * torch.cumsum(torch.as_tensor(mpx, device="cuda"), 0)
+    elif mode in ("wbfm", "nbfm"):
+        dev, tone = (75e3, 1e3) if mode == "wbfm" else (2.5e3, 300.0)
+        w = w + fm_phase(t, RX_FS, dev, tone)
+    elif mode in ("usb", "lsb"):
+        w = w + (1 if mode == "usb" else -1) * 2 * np.pi * 700.0 / RX_FS * n
+    amp = 0.8 if mode != "am" else 0.5 * (1 + 0.5 * torch.sin(2 * np.pi * 800.0 * n / RX_FS))
+    amp = amp if mode not in ("usb", "lsb") else 0.5
+    parts = [amp * torch.cos(w)] + ([amp * torch.sin(w)] if iq else [])
+    planes = [p + _noise((NB_CH, t), 30 + k, 1e-2) for k, p in enumerate(parts)]
+    return (torch.stack(planes) if iq else planes[0]).float()
+
+
+def _rx_chunked(rx, x, sizes, iq: bool):
+    """(one-shot audio, chunked audio, whether the final states are equal)."""
+    run = rx.process_planes if iq else rx.process
+    batch = x.shape[1:-1] if iq else x.shape[:-1]
+    one, st_one = run(x, rx.initial_state(batch))
+    st, parts, pos = rx.initial_state(batch), [], 0
+    for n in sizes:
+        o, st = run(x[..., pos : pos + n], st)
+        parts.append(o)
+        pos += n
+    torch.cuda.synchronize()
+    d1, d2 = st.to_numpy(), st_one.to_numpy()
+    same = all(np.array_equal(d1[s][k], d2[s][k]) for s in d2 for k in d2[s])
+    return one, torch.cat(parts, dim=-1), same
+
+
+def phase_receiver() -> tuple:
+    """The wbfm receiver at full width (real and IQ), the other modes,
+    stereo and a 4-station bank; returns (receiver, real input, IQ input)
+    for the timing phase."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.runtime.receiver import Receiver, ReceiverBank
+
+    rx = Receiver(fs=RX_FS, center_hz=RX_CENTER, mode="wbfm", audio_rate=RX_AUDIO)
+    g = rx.chunk_granularity
+    check(RX_T % g == 0, (RX_T, g))
+    x, xs = rx_signal(RX_T, "wbfm"), rx_signal(RX_T, "wbfm", iq=True)
+    launch.reset_counts()
+    for label, run, inp in (("real", rx.process, x), ("IQ planes", rx.process_planes, xs)):
+        st = rx.initial_state((NB_CH,))
+        for _ in range(DISPATCHES):
+            audio, st = run(inp, st)
+        torch.cuda.synchronize()
+        check_counts(f"Receiver wbfm {label}", {})
+        check(audio.shape == (NB_CH, RX_T * 6 // 125), audio.shape)
+        check_tone(f"Receiver wbfm {label}: {DISPATCHES} dispatches of {NB_CH} x {RX_T}, no "
+                   f"kernel of the port, plain 0; channel 0 of the last",
+                   audio[0], float(rx.realized_audio_rate), 1e3, 0.01)
+        a = RX_T // g // 3
+        sizes = (a * g, (a + 1) * g, RX_T - (2 * a + 1) * g)
+        one, chunked, same = _rx_chunked(rx, inp, sizes, label != "real")
+        print(f"[4] Receiver wbfm {label}: chunked ({', '.join(str(n // g) for n in sizes)} "
+              f"granules) vs one-shot "
+              f"bitwise={torch.equal(one, chunked)}, states equal={same}")
+        check(torch.equal(one, chunked) and same, ("Receiver chunked", label))
+    # The other modes, each at 8 streams; SSB at 8 kHz audio (a 2.656 M
+    # sample granularity at 48 kHz too, and a 996-phase resampler).
+    modes = (("nbfm", dict(mode="nbfm"), 2, 300.0, 0.05),
+             ("am", dict(mode="am"), 8, 800.0, 0.1),
+             ("usb", dict(mode="usb", audio_rate=8e3), 2, 700.0, 0.2),
+             ("lsb", dict(mode="lsb", audio_rate=8e3), 2, 700.0, 0.2),
+             ("stereo", dict(mode="wbfm", stereo=True), RX_T // g, None, 0.1))
+    for label, kw, granules, tone, skip in modes:
+        r = Receiver(**{"fs": RX_FS, "center_hz": RX_CENTER, "audio_rate": RX_AUDIO, **kw})
+        gr = r.chunk_granularity
+        xm = rx_signal(granules * gr, label)
+        launch.reset_counts()
+        one, chunked, same = _rx_chunked(r, xm, (gr, (granules - 1) * gr), False)
+        check_counts(f"Receiver {label}", {})
+        rate = float(r.realized_audio_rate)
+        tag = (f"Receiver {label} {NB_CH} x {granules * gr}: chunked vs one-shot bitwise="
+               f"{torch.equal(one, chunked)}, states equal={same}")
+        check(torch.equal(one, chunked) and same, tag)
+        if tone is None:
+            check_tone(f"{tag}; left", one[0, 0], rate, 1e3, skip)
+            check_tone(f"{tag}; right", one[0, 1], rate, 3e3, skip)
+        else:
+            check_tone(tag, one[0], rate, tone, skip)
+    centers = (RX_CENTER, 130e3, 340e3, 420e3)
+    bank = ReceiverBank(RX_FS, centers, mode="wbfm", audio_rate=RX_AUDIO)
+    xb = x[:, : 8 * g]
+    st = bank.initial_state((NB_CH,))
+    outs = []
+    for chunk in (xb[:, : 3 * g], xb[:, 3 * g :]):
+        o, st = bank.process(chunk, st)
+        outs.append(o)
+    same = True
+    for k, c in enumerate(centers):
+        r = Receiver(RX_FS, c, mode="wbfm", audio_rate=RX_AUDIO)
+        rs = r.initial_state((NB_CH,))
+        for chunk, o in zip((xb[:, : 3 * g], xb[:, 3 * g :]), outs):
+            ro, rs = r.process(chunk, rs)
+            same = same and torch.equal(o[k], ro)
+    torch.cuda.synchronize()
+    print(f"[4] ReceiverBank of {len(centers)} wbfm stations, {NB_CH} x 8 granules in 2 "
+          f"chunks: == {len(centers)} independent receivers bitwise={same}")
+    check(same, "ReceiverBank")
+    check_tone("ReceiverBank station 0", torch.cat(outs, dim=-1)[0, 0],
+               float(bank.realized_audio_rate), 1e3, 0.01)
+    return rx, x, xs
+
+
+def nb_paths(planes, pfb_x, pfb_planes, rx, rx_x, rx_xs) -> dict:
+    """label -> step() of each timed and profiled narrowband dispatch."""
+    from tpu_sdr_torch.kernels.demod import FMDemodulator
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    re, im = planes
+    fm_k = FMDemodulator(FM_FS, deviation_hz=FM_DEV, deemphasis_tau=FM_TAU, use_pallas=True)
+    fm_x = FMDemodulator(FM_FS, deviation_hz=FM_DEV, deemphasis_tau=FM_TAU)
+    fm_state = lambda fm: (lambda: fm.initial_state((NB_CH,)))
+    ch_k = Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True)
+    ch_x = Channelizer(m=PFB_M, taps=PFB_TAPS)
+    ch_state = lambda shape: (lambda: ch_k.initial_state(shape))
+    split = lambda run: (lambda p, s: run(p[0], p[1], s))
+    return {
+        "FM kernel": chained(split(fm_k.process), (re, im), fm_state(fm_k)),
+        "FM default": chained(split(fm_x.process), (re, im), fm_state(fm_x)),
+        "PFB kernel real": chained(ch_k.process, pfb_x, ch_state((NB_CH,))),
+        "PFB default real": chained(ch_x.process, pfb_x, ch_state((NB_CH,))),
+        "PFB kernel IQ": chained(ch_k.process_planes, pfb_planes, ch_state((2, NB_CH))),
+        "PFB default IQ": chained(ch_x.process_planes, pfb_planes, ch_state((2, NB_CH))),
+        "Receiver wbfm": chained(rx.process, rx_x, lambda: rx.initial_state((NB_CH,))),
+        "Receiver wbfm IQ": chained(rx.process_planes, rx_xs,
+                                    lambda: rx.initial_state((NB_CH,))),
+    }
+
+
+# Light repetitions for the dispatches whose default path walks thousands of
+# blocks in a Python loop (seconds a call): reps x calls after warmup.
+NB_WALL = {"FM default": (3, 2, 1), "FM kernel": (3, 2, 1),
+           "Receiver wbfm": (3, 3, 1), "Receiver wbfm IQ": (3, 3, 1)}
+
+
+def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
+    """The FM and PFB kernels' times, plain times and bounds at the paths'
+    shapes, then each narrowband path's dispatch wall time (kernel path
+    and default path in alternating turns)."""
+    from tpu_sdr_torch.kernels.cuda import affine_scan, pfb_kernel
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    re, im = planes
+    z = torch.zeros((NB_CH, 1), device="cuda")
+    y0 = torch.zeros((NB_CH,), device="cuda")
+    kw = dict(fs=FM_FS, dev=FM_DEV, pole=float(np.exp(-1.0 / (FM_FS * FM_TAU))))
+    samples = NB_CH * NB_T
+    timing = {}
+
+    def record(name, kernel, plain, b, tag, plain_iters=20):
+        timing[name] = {"ms": cuda_ms(kernel),
+                        "plain_ms": cuda_ms(plain, iters=plain_iters, warmup=1),
+                        "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        t = timing[name]
+        print(f"[5] {name} {tag}: kernel {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+              f"library none; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) -> kernel at "
+              f"{b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}")
+
+    # re, im in, audio out (12 bytes a sample) and 3 floats a channel of
+    # state in and out.
+    record("fm_demod",
+           lambda: affine_scan.fm_demod_cuda(re, im, z, z, y0, **kw),
+           lambda: affine_scan.fm_demod_plain(re, im, z, z, y0, **kw),
+           bound(samples * 12 + NB_CH * 24, samples * FM_FLOPS_PER_SAMPLE),
+           f"{NB_CH} x {NB_T}, de-emphasis on", plain_iters=2)
+    nopole = {**kw, "pole": None}
+    print(f"[5] fm_demod without de-emphasis: "
+          f"{cuda_ms(lambda: affine_scan.fm_demod_cuda(re, im, z, z, y0, **nopole)):.4f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rre, rim = (torch.randn((NB_CH, NB_T), device="cuda", generator=gen) for _ in range(2))
+    print(f"[5] fm_demod on Gaussian noise planes: with de-emphasis "
+          f"{cuda_ms(lambda: affine_scan.fm_demod_cuda(rre, rim, z, z, y0, **kw)):.4f} ms, "
+          f"without {cuda_ms(lambda: affine_scan.fm_demod_cuda(rre, rim, z, z, y0, **nopole)):.4f} ms")
+    del rre, rim
+    ch = Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    steps_n = NB_T // PFB_M
+    consts = (PFB_TAPS * PFB_M + 2 * PFB_M * PFB_M) * 4
+    for label, batch, neg_b in (("real", NB_CH, True), ("IQ", 2 * NB_CH, False)):
+        rows = torch.randn((batch, steps_n + PFB_TAPS - 1, PFB_M), device="cuda", generator=gen)
+        # The fold (a multiply and an add a tap) and the two products with
+        # cos/sin counted as a real M-point FFT (2.5 M log2 M a row), as the
+        # spectrum kernels' dense DFT is counted: the dense products (4 M
+        # operations a sample) are what the kernel does, not what the
+        # function needs.
+        out_rows = batch * steps_n
+        b = bound(rows.numel() * 4 + consts + 2 * out_rows * PFB_M * 4,
+                  out_rows * (PFB_M * 2 * PFB_TAPS + 2.5 * PFB_M * math.log2(PFB_M)))
+        name = "pfb_fold_dft" if label == "real" else "pfb_fold_dft IQ"
+        record(name,
+               lambda: pfb_kernel.pfb_fold_dft_cuda(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS, neg_b),
+               lambda: pfb_kernel.pfb_fold_dft_plain(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS,
+                                                     PFB_M, neg_b),
+               b, f"{label}, rows {tuple(rows.shape)}")
+        print(f"[5] {name}: the dense products as written are "
+              f"{out_rows * PFB_M * 4 * PFB_M / 1e9:.3f} GFLOP")
+
+    walls = {}
+    turns = lambda a, b, k: [a, b, b, a] * k
+    order = (turns("FM kernel", "FM default", 2) + turns("PFB kernel real", "PFB default real", 5)
+             + turns("PFB kernel IQ", "PFB default IQ", 5) + ["Receiver wbfm", "Receiver wbfm IQ"])
+    for label in order:
+        med, lo, hi = dispatch_wall(steps[label], *NB_WALL.get(label, (5, 10, 3)))
+        walls.setdefault(label, []).append(med)
+        n = RX_T * NB_CH if label.startswith("Receiver") else samples
+        print(f"[5] {label:17s} dispatch ({n} samples): median {med * 1e3:.4f} ms "
+              f"(min {lo * 1e3:.4f}, max {hi * 1e3:.4f}) -> {n / med:.4e} samples/s")
+    for a, b in (("FM kernel", "FM default"), ("PFB kernel real", "PFB default real"),
+                 ("PFB kernel IQ", "PFB default IQ")):
+        wins = sum(x < y for x, y in zip(walls[a], walls[b]))
+        print(f"[5] {a} faster than {b} in {wins} of {len(walls[a])} pairs (medians "
+              f"{statistics.median(walls[a]) * 1e3:.4f} vs {statistics.median(walls[b]) * 1e3:.4f} ms)")
+    return {label: statistics.median(v) for label, v in walls.items()}, timing
 
 
 def main():
@@ -654,6 +1166,17 @@ def main():
     walls, timing = phase_timing(pp, x_np, steps)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
+    errs.update(phase_nb_kernels())
+    planes = fm_planes()
+    launches["fm_demod"] = phase_fm(planes)
+    pfb_x, pfb_planes = pfb_inputs()
+    launches["pfb_fold_dft"] = phase_channelizer(pfb_x, pfb_planes)
+    rx, rx_x, rx_xs = phase_receiver()
+    nb_steps = nb_paths(planes, pfb_x, pfb_planes, rx, rx_x, rx_xs)
+    nb_walls, nb_timing = phase_nb_timing(planes, nb_steps)
+    timing.update(nb_timing)
+    phase_profile(nb_steps, nb_walls, {"FM default": 1, "Receiver wbfm": 1,
+                                       "Receiver wbfm IQ": 1})
     records = [
         {**fixed, "route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu",
          "launches": launches[name], "max_abs_err": errs[name], **timing[name]}

@@ -15,7 +15,7 @@ import torch
 
 from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
 from tpu_sdr_torch.kernels import biquad, fft, window
-from tpu_sdr_torch.kernels.cuda import iir_fft
+from tpu_sdr_torch.kernels.cuda import affine_scan, iir_fft, launch, pfb_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -221,7 +221,7 @@ def test_refused_launch_raises(cuda_plan, frames, monkeypatch):
         def tpu_sdr_cuda_error_string(err):
             return b"invalid argument"
 
-    monkeypatch.setattr(iir_fft, "_kernel_lib", lambda name: Refusing)
+    monkeypatch.setattr(launch, "_kernel_lib", lambda name: Refusing)
     iir_fft.reset_counts()
     with pytest.raises(RuntimeError, match="iir_summaries kernel launch failed.*invalid argument"):
         iir_fft.iir_summaries(torch.as_tensor(frames[:1], device="cuda"), cuda_plan)
@@ -292,3 +292,130 @@ def test_iq_pipeline_on_card(cuda_plan, mode):
     assert torch.equal(p_chunked, chunked)
     ref, _ = cpu.process(xc, cpu.initial_state(batch_shape=(2,)), mode)
     assert snr_db(ref["magnitude"], whole["magnitude"]) >= 120.0
+
+
+# ------------------------------------------ the narrowband layer's kernels
+
+FM_KW = dict(fs=200e3, dev=75e3)
+FM_POLE = float(np.exp(-1.0 / (200e3 * 75e-6)))
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.set_float32_matmul_precision("highest")
+
+
+def _planes(c, t, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal((c, t)).astype(np.float32), device="cuda")
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("shape", [(3, 5 * 128), (8, 64 * 128)], ids=["3x640", "8x8192"])
+@pytest.mark.parametrize("pole", [None, FM_POLE], ids=["nopole", "pole"])
+def test_fm_kernel_equals_plain_bitwise(card, shape, pole):
+    """The kernel does the plain version's fp32 operations in its order,
+    with no FMA contraction: every output equals it bit for bit."""
+    re, im = _planes(*shape, seed=11)
+    rng = np.random.default_rng(12)
+    pr, pi = (torch.as_tensor(rng.standard_normal((shape[0], 1)).astype(np.float32),
+                              device="cuda") for _ in range(2))
+    y0 = torch.as_tensor(0.1 * rng.standard_normal(shape[0]), dtype=torch.float32, device="cuda")
+    got = affine_scan.fm_demod_cuda(re, im, pr, pi, y0, pole=pole, **FM_KW)
+    ref = affine_scan.fm_demod_plain(re, im, pr, pi, y0, pole=pole, **FM_KW)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g, r)
+
+
+def test_fm_demodulator_kernel_path_on_card(card):
+    """FMDemodulator(use_pallas=True): one kernel launch per dispatch, no
+    plain call, chunked == one-shot bitwise, and the default path within
+    2e-6 on the card."""
+    from tpu_sdr_torch.kernels.demod import FMDemodulator
+
+    re, im = _planes(2, 16 * 128, seed=13)
+    fm = FMDemodulator(200e3, use_pallas=True)
+    launch.reset_counts()
+    one, st_one = fm.process(re, im, fm.initial_state((2,)))
+    st, parts, pos = fm.initial_state((2,)), [], 0
+    for n in (128, 384, 1536):
+        o, st = fm.process(re[:, pos : pos + n], im[:, pos : pos + n], st)
+        parts.append(o)
+        pos += n
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["fm_demod"] == 4 and launch.counts["plain"]["fm_demod"] == 0
+    assert torch.equal(torch.cat(parts, dim=-1), one) and torch.equal(st.filt, st_one.filt)
+    xla = FMDemodulator(200e3)
+    ref, _ = xla.process(re, im, xla.initial_state((2,)))
+    assert (ref - one).abs().max().item() <= 2e-6 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("steps,taps", [(1, 8), (7, 2), (9, 1), (300, 33), (1000, 8)])
+def test_pfb_kernel_matches_plain(card, steps, taps):
+    rng = np.random.default_rng(steps + taps)
+    rows = torch.as_tensor(rng.standard_normal((2, steps + taps - 1, 128)).astype(np.float32),
+                           device="cuda")
+    h2 = torch.as_tensor(rng.standard_normal((taps, 128)).astype(np.float32), device="cuda")
+    pk = np.outer(np.arange(128), np.arange(128)) % 128
+    cos = torch.as_tensor(np.cos(2 * np.pi * pk / 128).astype(np.float32), device="cuda")
+    sin = torch.as_tensor(np.sin(2 * np.pi * pk / 128).astype(np.float32), device="cuda")
+    for neg_b in (False, True):
+        a, b = pfb_kernel.pfb_fold_dft_cuda(rows, h2, cos, sin, taps, neg_b)
+        ra, rb = pfb_kernel.pfb_fold_dft_plain(rows, h2, cos, sin, taps, 128, neg_b)
+        torch.cuda.synchronize()
+        scale = ra.abs().max().item()
+        assert (a - ra).abs().max().item() <= 1e-5 * scale
+        assert (b - rb).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("iq", [False, True], ids=["real", "iq"])
+def test_channelizer_kernel_path_on_card(card, iq):
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    ker = Channelizer(m=128, taps=8, use_pallas=True)
+    xla = Channelizer(m=128, taps=8)
+    shape = (2, 3) if iq else (3,)
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal(shape + (40 * 128,)),
+                        dtype=torch.float32, device="cuda")
+    run = (lambda c: c.process_planes) if iq else (lambda c: c.process)
+    launch.reset_counts()
+    one, st_one = run(ker)(x, ker.initial_state(shape))
+    st, parts, prev = ker.initial_state(shape), [], 0
+    for cut in (128, 9 * 128, 40 * 128):
+        o, st = run(ker)(x[..., prev:cut], st)
+        parts.append(o)
+        prev = cut
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["pfb_fold_dft"] == 4
+    assert not any(launch.counts["plain"].values())
+    for k in ("re", "im"):
+        assert torch.equal(torch.cat([p[k] for p in parts], dim=-2), one[k])
+    ref, _ = run(xla)(x, xla.initial_state(shape))
+    scale = ref["re"].abs().max().item()
+    for k in ("re", "im"):
+        assert (ref[k] - one[k]).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["wbfm", "am", "usb"])
+def test_receiver_on_card_matches_cpu_and_chunks(card, mode):
+    from tpu_sdr_torch.runtime.receiver import Receiver
+
+    rate = {"wbfm": 16e3, "am": 5000.0, "usb": 1e6 / 166 / 2}[mode]
+    gpu = Receiver(center_hz=250e3, mode=mode, audio_rate=rate)
+    cpu = Receiver(center_hz=250e3, mode=mode, audio_rate=rate, device="cpu")
+    g = gpu.chunk_granularity
+    n = np.arange(4 * g)
+    x = (0.8 * np.cos(2 * np.pi * 250e3 * n / 1e6 + 0.3 * np.sin(2 * np.pi * 1e3 * n / 1e6))
+         + 0.01 * np.random.default_rng(15).standard_normal(n.size)).astype(np.float32)
+    xg = torch.as_tensor(x, device="cuda")
+    one, _ = gpu.process(xg, gpu.initial_state())
+    st, parts = gpu.initial_state(), []
+    for chunk in (xg[:g], xg[g:]):
+        o, st = gpu.process(chunk, st)
+        parts.append(o)
+    assert one.is_cuda and torch.equal(torch.cat(parts), one)
+    ref, _ = cpu.process(x, cpu.initial_state())
+    assert (one.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -242,10 +242,12 @@ def test_cpu_tensor_takes_plain_version_only(plans, frames):
 def test_aligned_copies_only_unaligned_or_strided_tensors():
     """The kernel loads 16 bytes at a time: its wrapper hands it a copy of
     a view that starts off a 16-byte boundary or is not contiguous."""
+    from tpu_sdr_torch.kernels.cuda import launch
+
     base = torch.arange(2 * N + 8, dtype=torch.float32)
-    assert iir_fft._aligned(base) is base
+    assert launch.aligned(base) is base
     for view in (base[3 : 3 + N], base[: 2 * N].reshape(2, N)[:, ::2]):
-        got = iir_fft._aligned(view)
+        got = launch.aligned(view)
         assert got.is_contiguous() and got.data_ptr() % 16 == 0
         assert torch.equal(got, view)
 
@@ -324,14 +326,15 @@ def test_package_data_lists_the_headers():
     import tomllib
     from pathlib import Path
 
-    from tpu_sdr_torch.kernels.cuda import loader
+    from tpu_sdr_torch.kernels.cuda import launch, loader
 
     root = Path(__file__).resolve().parents[1]
     data = tomllib.loads((root / "pyproject.toml").read_text())
     globs = data["tool"]["setuptools"]["package-data"]["tpu_sdr_torch"]
     assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs
     assert sorted(p.name for p in loader.SOURCE_DIR.glob("*.cuh")) == [
-        "four_step.cuh", "iir_blocks.cuh",
+        "error_string.cuh", "four_step.cuh", "iir_blocks.cuh",
     ]
-    for name in iir_fft.KERNELS:
+    assert set(iir_fft.KERNELS) <= set(launch.KERNELS)
+    for name in launch.KERNELS:
         assert (loader.SOURCE_DIR / f"{name}.cu").is_file()

@@ -304,7 +304,11 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
     code = (
         "import sys, tpu_sdr_torch, tpu_sdr_torch.convert, "
         "tpu_sdr_torch.kernels.cuda.loader, tpu_sdr_torch.kernels.cuda.iir_fft, "
-        "tpu_sdr_torch.runtime.stream\n"
+        "tpu_sdr_torch.kernels.cuda.launch, tpu_sdr_torch.kernels.cuda.affine_scan, "
+        "tpu_sdr_torch.kernels.cuda.pfb_kernel, tpu_sdr_torch.kernels.ddc, "
+        "tpu_sdr_torch.kernels.demod, tpu_sdr_torch.kernels.resample, "
+        "tpu_sdr_torch.kernels.stereo, tpu_sdr_torch.kernels.pfb, "
+        "tpu_sdr_torch.runtime.stream, tpu_sdr_torch.runtime.receiver\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -332,6 +336,7 @@ def test_cpu_run_never_launches_the_kernel(port):
     assert not any(iir_fft.counts["kernel"].values())
     assert iir_fft.counts["plain"] == {
         "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
+        "fm_demod": 0, "pfb_fold_dft": 0,
     }
 
 

@@ -3,8 +3,9 @@
 Every function takes the JAX package's object as a dict of NumPy arrays,
 keyed by the JAX dataclass field names (or the plan dict's keys), for
 example ``{f.name: np.asarray(getattr(pp, f.name)) for f in
-dataclasses.fields(pp)}``, and returns the port's object on ``device``.
-Values are copied bit for bit. Nothing here imports JAX.
+dataclasses.fields(pp)}``, or, for the narrowband layer's states, the
+JAX state's ``to_numpy()`` dict, and returns the port's object on
+``device``. Values are copied bit for bit. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +17,11 @@ import torch
 
 from tpu_sdr_torch.kernels.biquad import BlockedSOSComposite
 from tpu_sdr_torch.kernels.cuda.iir_fft import PallasSOSPlan
+from tpu_sdr_torch.kernels.ddc import DDCState
+from tpu_sdr_torch.kernels.demod import AGCState, DemodState, SquelchState
+from tpu_sdr_torch.kernels.resample import ResamplerState
+from tpu_sdr_torch.kernels.stereo import StereoDecoderState
+from tpu_sdr_torch.runtime.receiver import ReceiverState
 from tpu_sdr_torch.runtime.state import StreamState
 
 FFT_PLAN_KEYS = ("w1r", "w1i", "w2r", "w2i", "twr", "twi")
@@ -69,3 +75,60 @@ def window(w: np.ndarray, *, device="cuda") -> torch.Tensor:
 def state(d: dict, *, device="cuda") -> StreamState:
     """A JAX ``StreamState.to_numpy()`` checkpoint -> the port's state."""
     return StreamState.from_numpy(d, device=device)
+
+
+# ------------------------------------------------ the narrowband layer
+
+
+def ddc_state(d: dict, *, device="cuda") -> DDCState:
+    """A JAX ``DDCState.to_numpy()`` checkpoint -> the port's state."""
+    return DDCState.from_numpy(d, device=device)
+
+
+def demod_state(d: dict, *, device="cuda") -> DemodState:
+    """A JAX ``DemodState.to_numpy()`` checkpoint -> the port's state."""
+    return DemodState.from_numpy(d, device=device)
+
+
+def agc_state(d: dict, *, device="cuda") -> AGCState:
+    """A JAX ``AGCState.to_numpy()`` checkpoint -> the port's state."""
+    return AGCState.from_numpy(d, device=device)
+
+
+def squelch_state(d: dict, *, device="cuda") -> SquelchState:
+    """A JAX ``SquelchState.to_numpy()`` checkpoint -> the port's state."""
+    return SquelchState.from_numpy(d, device=device)
+
+
+def resampler_state(d: dict, *, device="cuda") -> ResamplerState:
+    """A JAX ``ResamplerState.to_numpy()`` checkpoint -> the port's state."""
+    return ResamplerState.from_numpy(d, device=device)
+
+
+def stereo_state(d: dict, *, device="cuda") -> StereoDecoderState:
+    """A JAX ``StereoDecoderState.to_numpy()`` checkpoint -> the port's."""
+    return StereoDecoderState.from_numpy(d, device=device)
+
+
+def receiver_state(d: dict, *, device="cuda") -> ReceiverState:
+    """A JAX ``ReceiverState.to_numpy()`` checkpoint (nested dicts) -> the
+    port's state."""
+    return ReceiverState.from_numpy(d, device=device)
+
+
+def channelizer_state(history: np.ndarray, *, device="cuda") -> torch.Tensor:
+    """A JAX ``Channelizer`` history (..., (taps-1)*m) -> a tensor."""
+    return torch.tensor(np.asarray(history), device=device)
+
+
+def fir(h: np.ndarray) -> np.ndarray:
+    """A JAX FIR design or prototype (``DDC.fir``, ``Resampler.fir``,
+    ``Channelizer.prototype``) as the float64 array the port's ``fir=``
+    arguments take."""
+    return np.array(h, dtype=np.float64)
+
+
+def dft(cos: np.ndarray, sin: np.ndarray, *, device="cuda") -> tuple:
+    """JAX ``pfb.dft_matrices`` (cos, sin) -> two tensors."""
+    return (torch.tensor(np.asarray(cos), device=device),
+            torch.tensor(np.asarray(sin), device=device))

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "error_string.cuh"
+
 namespace tpu_sdr {
 
 constexpr int kN1 = 128;
@@ -225,9 +227,3 @@ int launch_frames(void (*kernel)(Params...), size_t smem, int frames,
 }
 
 }  // namespace tpu_sdr
-
-// Each kernel source is its own shared library and includes this header
-// once, so each library exports one copy of this function.
-extern "C" const char* tpu_sdr_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -23,7 +23,6 @@ the CPU, and launches the kernel on a CUDA tensor; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -32,7 +31,7 @@ import torch
 import torch.nn.functional as nnf
 
 from tpu_sdr_torch.kernels import biquad, fft, magnitude
-from tpu_sdr_torch.kernels.cuda import loader
+from tpu_sdr_torch.kernels.cuda import launch
 
 LOG2B = 7  # B = 128 blocks per frame
 MAX_GROUP = 8  # frames per group in the reference kernel's tiled planes
@@ -41,20 +40,12 @@ HALF_K2 = 72  # half-spectrum rows: k2 in [0, 64] padded to a multiple of 8
 PRECISIONS = ("highest", "high3", "default")
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# The kernels, by the name of their source (``csrc/<name>.cu``).
+# This module's kernels, by the name of their source (``csrc/<name>.cu``).
 KERNELS = ("spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex")
 
-# Per kernel: launches of the CUDA kernel ("kernel") and calls of its plain
-# version on CPU tensors ("plain"), made by the public functions of this
-# module. Read and reset (``reset_counts``) by callers that check which path
-# a run took.
-counts = {"kernel": dict.fromkeys(KERNELS, 0), "plain": dict.fromkeys(KERNELS, 0)}
-
-
-def reset_counts():
-    for per_kernel in counts.values():
-        for name in per_kernel:
-            per_kernel[name] = 0
+# Launches and plain calls of every kernel of the port (``launch.counts``).
+counts = launch.counts
+reset_counts = launch.reset_counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,49 +304,6 @@ def spectrum_complex_plain(
 
 # ---------------------------------------------------------------- CUDA launches
 
-# ctypes argument types of each library's entry point (p: pointer or
-# stream, i: int), in the order of its C signature in ``csrc/<name>.cu``.
-_SIGNATURES = {
-    "spectrum_bypass": "pipppppiip",
-    "spectrum_iir": "pppppppppppiip",
-    "iir_summaries": "pppppip",
-    "spectrum_complex": "ppipppppiip",
-}
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_lib(name: str) -> ctypes.CDLL:
-    lib = loader.load(name)
-    types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-    fn = getattr(lib, f"tpu_sdr_{name}")
-    fn.argtypes = [types[c] for c in _SIGNATURES[name]]
-    fn.restype = ctypes.c_int
-    lib.tpu_sdr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tpu_sdr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, device: torch.device, *args):
-    """Call ``tpu_sdr_<name>`` with ``args`` and the current stream of
-    ``device``; raise if the launch failed, else count it."""
-    lib = _kernel_lib(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"tpu_sdr_{name}")(*args, stream)
-    if err != 0:
-        msg = lib.tpu_sdr_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-    counts["kernel"][name] += 1
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t if contiguous and 16-byte aligned, else a contiguous copy: the
-    kernels load frames and the window 16 bytes at a time, and a contiguous
-    view can start at any element (``x1d[3:3 + n]``)."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
 
 def _check_frames(what: str, x: torch.Tensor, plan: PallasSOSPlan, dtypes) -> int:
     """Validate a (F, N) CUDA input of a kernel; returns F."""
@@ -395,11 +343,11 @@ def spectrum_bypass_cuda(
     device. Raises if the kernel cannot be built or launched."""
     F = _check_frames("x", x, plan, (torch.float32, torch.bfloat16))
     tab, twr, twi = plan.kernel_constants
-    win = _aligned(plan.win)
+    win = launch.aligned(plan.win)
     _check_leaves(x.device, tab=tab, twr=twr, twi=twi, win=win)
-    x = _aligned(x)
+    x = launch.aligned(x)
     out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
-    _launch(
+    launch.launch(
         "spectrum_bypass", x.device,
         x.data_ptr(), int(x.dtype == torch.bfloat16),
         win.data_ptr() if apply_window else None,
@@ -428,15 +376,15 @@ def spectrum_iir_cuda(
         )
     tab, twr, twi = plan.kernel_constants
     h, pt, mt, al1t = plan.iir_constants
-    win = _aligned(plan.win)
+    win = launch.aligned(plan.win)
     zs = z_starts.contiguous()
     _check_leaves(
         x.device, tab=tab, twr=twr, twi=twi, win=win, h=h, PT=pt, MT=mt,
         AL1T=al1t, z_starts=zs,
     )
-    x = _aligned(x)
+    x = launch.aligned(x)
     out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
-    _launch(
+    launch.launch(
         "spectrum_iir", x.device,
         x.data_ptr(), zs.data_ptr(), win.data_ptr() if apply_window else None,
         h.data_ptr(), pt.data_ptr(), mt.data_ptr(), al1t.data_ptr(),
@@ -452,11 +400,11 @@ def iir_summaries_cuda(x: torch.Tensor, plan: PallasSOSPlan) -> torch.Tensor:
     F = _check_frames("x", x, plan, (torch.float32,))
     _check_state_dim(plan)
     _, pt, _, al1t = plan.iir_constants
-    win = _aligned(plan.win)
+    win = launch.aligned(plan.win)
     _check_leaves(x.device, win=win, PT=pt, AL1T=al1t)
-    x = _aligned(x)
+    x = launch.aligned(x)
     out = torch.empty((F, plan.state_dim), dtype=torch.float32, device=x.device)
-    _launch(
+    launch.launch(
         "iir_summaries", x.device,
         x.data_ptr(), win.data_ptr(), pt.data_ptr(), al1t.data_ptr(),
         out.data_ptr(), F,
@@ -481,11 +429,11 @@ def spectrum_complex_cuda(
             f"got {tuple(xi.shape)} {xi.dtype} on {xi.device}"
         )
     tab, twr, twi = plan.kernel_constants
-    win = _aligned(plan.win)
+    win = launch.aligned(plan.win)
     _check_leaves(xr.device, tab=tab, twr=twr, twi=twi, win=win)
-    xr, xi = _aligned(xr), _aligned(xi)
+    xr, xi = launch.aligned(xr), launch.aligned(xi)
     out = torch.empty((F, xr.shape[1]), dtype=OUT_DTYPES[out_dtype], device=xr.device)
-    _launch(
+    launch.launch(
         "spectrum_complex", xr.device,
         xr.data_ptr(), xi.data_ptr(), int(xr.dtype == torch.bfloat16),
         win.data_ptr() if apply_window else None,
@@ -503,17 +451,6 @@ def _check_options(precision: str, out_dtype: str = "float32"):
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if out_dtype not in OUT_DTYPES:
         raise ValueError(f"out_dtype must be one of {tuple(OUT_DTYPES)}, got {out_dtype!r}")
-
-
-def _on_cpu(name: str, x: torch.Tensor, interpret: bool) -> bool:
-    """True (and a plain call counted) when x lies on the CPU. ``interpret``
-    has no meaning for a CUDA kernel: on a CUDA tensor it raises."""
-    if x.device.type == "cpu":
-        counts["plain"][name] += 1
-        return True
-    if interpret:
-        raise ValueError("interpret=True: a CUDA kernel has no interpret mode")
-    return False
 
 
 def _check_x(x: torch.Tensor, plan: PallasSOSPlan, name: str = "x") -> int:
@@ -567,10 +504,10 @@ def spectrum_from_state(
             f"z_starts must be ({F}, {plan.state_dim}), got {tuple(z_starts.shape)}"
         )
     if bypass:
-        if _on_cpu("spectrum_bypass", x, interpret):
+        if launch.on_cpu("spectrum_bypass", x, interpret):
             return spectrum_bypass_plain(x, plan, apply_window, out_dtype)
         return spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
-    if _on_cpu("spectrum_iir", x, interpret):
+    if launch.on_cpu("spectrum_iir", x, interpret):
         return spectrum_iir_plain(x, z_starts, plan, apply_window, out_dtype)
     return spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
 
@@ -588,7 +525,7 @@ def iir_summaries(
     """
     _check_options(precision)
     _check_x(x, plan)
-    if _on_cpu("iir_summaries", x, interpret):
+    if launch.on_cpu("iir_summaries", x, interpret):
         return iir_summaries_plain(x, plan)
     return iir_summaries_cuda(x, plan)
 
@@ -613,6 +550,6 @@ def spectrum_mag_complex(
     F = _check_x(xr, plan, "xr")
     if tuple(xi.shape) != (F, xr.shape[1]):
         raise ValueError(f"xi must be {tuple(xr.shape)}, got {tuple(xi.shape)}")
-    if _on_cpu("spectrum_complex", xr, interpret):
+    if launch.on_cpu("spectrum_complex", xr, interpret):
         return spectrum_complex_plain(xr, xi, plan, apply_window, out_dtype)
     return spectrum_complex_cuda(xr, xi, plan, apply_window, out_dtype)

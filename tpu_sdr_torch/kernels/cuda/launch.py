@@ -1,0 +1,91 @@
+"""Launch plumbing shared by every CUDA kernel wrapper of the port.
+
+One place holds, for all kernels: their names (``KERNELS``, one per
+``csrc/<name>.cu``), the launch and plain-call counts (``counts``,
+``reset_counts``), each library's C signature, the library cache and
+``launch``, which calls a kernel's C entry point on the current stream and
+raises if the launch failed. ``iir_fft.counts`` is this module's ``counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tpu_sdr_torch.kernels.cuda import loader
+
+# The kernels, by the name of their source (``csrc/<name>.cu``).
+KERNELS = (
+    "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex",
+    "fm_demod", "pfb_fold_dft",
+)
+
+# Per kernel: launches of the CUDA kernel ("kernel") and calls of its plain
+# version on CPU tensors ("plain"), made by the wrappers. Read and reset
+# (``reset_counts``) by callers that check which path a run took.
+counts = {"kernel": dict.fromkeys(KERNELS, 0), "plain": dict.fromkeys(KERNELS, 0)}
+
+# ctypes argument types of each library's entry point ``tpu_sdr_<name>``
+# (p: pointer or stream, i: int, f: float), in the order of its C signature
+# in ``csrc/<name>.cu``. The stream is the last argument of each.
+_SIGNATURES = {
+    "spectrum_bypass": "pipppppiip",
+    "spectrum_iir": "pppppppppppiip",
+    "iir_summaries": "pppppip",
+    "spectrum_complex": "ppipppppiip",
+    "fm_demod": "pppppppppppiiffffip",
+    "pfb_fold_dft": "ppppppiiiip",
+}
+
+
+def reset_counts():
+    for per_kernel in counts.values():
+        for name in per_kernel:
+            per_kernel[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = loader.load(name)
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn = getattr(lib, f"tpu_sdr_{name}")
+    fn.argtypes = [types[c] for c in _SIGNATURES[name]]
+    fn.restype = ctypes.c_int
+    lib.tpu_sdr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpu_sdr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args):
+    """Call ``tpu_sdr_<name>`` with ``args`` and the current stream of
+    ``device``; raise if the launch failed, else count it."""
+    lib = _kernel_lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"tpu_sdr_{name}")(*args, stream)
+    if err != 0:
+        msg = lib.tpu_sdr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    counts["kernel"][name] += 1
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t if contiguous and 16-byte aligned, else a contiguous copy: the
+    kernels move 16 bytes a thread, and a contiguous view can start at any
+    element (``x1d[3:3 + n]``)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def on_cpu(name: str, x: torch.Tensor, interpret: bool = False) -> bool:
+    """True (and a plain call counted) when x lies on the CPU. ``interpret``
+    has no meaning for a CUDA kernel: on a CUDA tensor it raises."""
+    if x.device.type == "cpu":
+        counts["plain"][name] += 1
+        return True
+    if interpret:
+        raise ValueError("interpret=True: a CUDA kernel has no interpret mode")
+    return False
