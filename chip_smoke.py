@@ -5,12 +5,15 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (six), built from
+  2. build: every CUDA kernel library of the port (eight), built from
      ``tpu_sdr_torch/csrc`` with nvcc, one process per source, all started
      together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card: the spectrum kernels at F = 1, 8 and 512 frames with the stated
      SNR floors (and a relative-error bound for the IIR summaries' states);
+     the half spectrum (both forms) with its mirrored bins bitwise equal to
+     their partners and ``blocked_output`` the same bits, and
+     ``fft_mag_fused`` with the plan's planes and with planes scaled by 0.5;
      the FM kernel at 8 x 2^20 samples (atol 1e-6, and whether it is
      bitwise) and the PFB kernel at the channelizer's real and IQ shapes
      (1e-5 of the output scale);
@@ -31,6 +34,19 @@ Phases (each raises on failure):
        planes: one ``pfb_fold_dft`` launch per dispatch, the default path
        within 1e-5 of max |re|, chunked == one-shot bitwise, a tone in its
        channel;
+     - kernel rows 4 and 6, which no runtime path calls (in either
+       package), through their entry points at 8 x 64 frames:
+       ``spectrum_from_state(half_spectrum=True)`` in both forms and
+       ``fft_mag_fused``, against a float64 golden;
+     - hop < N (hop 8192, 128 spectra a channel a dispatch), BYPASS and
+       CUSTOM: one spectrum kernel launch a dispatch, a float64 STFT golden
+       within 1e-5, chunked == one-shot bitwise with the carried history;
+     - a per-channel bank of 8 designs on noise: each channel within 0.05
+       dB of its golden, chunked == one-shot bitwise, and the hybrid branch
+       (launch counts) under ``fused_two_pass=True`` too;
+     - ``SpectrumAnalyzer`` driven by command bytes (bypass + start, a 0xF1
+       upload, CUSTOM, a rejected unstable upload, reset), a checkpoint
+       restored mid-stream == uninterrupted, ``on_spectrum`` once a frame;
      - the receiver, ``Receiver(fs=1e6, center_hz=250e3, mode="wbfm",
        audio_rate=48e3)`` on 8 x 1,008,000 samples, real and IQ planes (no
        kernel of the port: all counts 0), then nbfm, am, usb, lsb, stereo
@@ -39,7 +55,8 @@ Phases (each raises on failure):
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it; each
-     path's end-to-end dispatch time, compared paths in alternating turns;
+     path's end-to-end dispatch time (the facade's with its device->host
+     copy), compared paths in alternating turns;
   6. profile: device time per dispatch by kernel, launches per dispatch,
      and the device's idle share, per path and mode, as torch.profiler saw
      them (it can lose an event or two; the port's kernels are checked
@@ -90,6 +107,9 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     "fm_demod": dict(name="fm_demod_pallas",
                      replaces="tpu_sdr/kernels/pallas/affine_scan.py:138"),
     "pfb_fold_dft": dict(name="pfb_fold_dft", replaces="tpu_sdr/kernels/pallas/pfb_kernel.py:73"),
+    "spectrum_half": dict(name="spectrum_from_state[half_spectrum]",
+                          replaces=f"{JAX_KERNELS}:597"),
+    "fft_mag_fused": dict(name="fft_mag_fused", replaces="tpu_sdr/kernels/pallas/spectrum.py:63"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -512,6 +532,7 @@ LAST_DEVICE_KERNEL = {
     "iir_summaries": ("iir_summaries_kernel",),
     "spectrum_complex": ("spectrum_complex_kernel",),
     "fm_demod": ("fm_emit_kernel", "fm_disc_kernel"), "pfb_fold_dft": ("pfb_fold_dft_kernel",),
+    "spectrum_half": ("spectrum_half_kernel",), "fft_mag_fused": ("fft_mag_fused_kernel",),
 }
 
 
@@ -1143,6 +1164,327 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
               f"{statistics.median(walls[a]) * 1e3:.4f} vs {statistics.median(walls[b]) * 1e3:.4f} ms)")
     return {label: statistics.median(v) for label, v in walls.items()}, timing
 
+# ---------------------------------------------------------------- rows 4 and 6, hop, banks, facade
+
+
+HOP = 8192  # hop < N: 128 spectra a channel from 64 frames' samples
+HOP_GOLDEN_REL = 1e-5  # of max |golden| (tests/test_hop.py)
+HALF_REL = 1e-5  # half against full spectrum (tests/test_pallas_kernel.py)
+BANK_DB = 0.05  # each channel of a bank against its golden (tests/test_filterbank.py)
+
+
+def mirrored(out: torch.Tensor) -> bool:
+    """out[k1, k2] == out[127 - k1, 128 - k2] bit for bit for k2 in [65, 127]."""
+    g = out.reshape(-1, 128, 128)
+    return torch.equal(g[:, :, 65:], g.flip(1)[:, :, 1:64].flip(2))
+
+
+def phase_half_and_fused_vs_plain(pp, fplan: dict) -> dict:
+    """Rows 4 and 6 against their plain versions at F = 1, 8 and 512;
+    returns the max abs error of each at F = 512 (the half kernel's bypass
+    form, fp32, window in the kernel, as the hop path calls row 1; fft_mag_fused
+    with the plan)."""
+    from tpu_sdr_torch.kernels.cuda import iir_fft, spectrum
+
+    rng = np.random.default_rng(3)
+    win = pp.win.reshape(-1)
+    errs = {}
+    for F in KERNEL_FRAMES:
+        main = F == CHANNELS * FRAMES
+        x32 = torch.as_tensor(rng.standard_normal((F, N)), dtype=torch.float32).cuda()
+        zs = torch.as_tensor(0.1 * rng.standard_normal((F, 12)), dtype=torch.float32).cuda()
+        for form, z, in_dtypes in (("bypass", None, (torch.float32, torch.bfloat16)),
+                                   ("iir", zs, (torch.float32,))):
+            for in_dtype in in_dtypes:
+                x = x32.to(in_dtype)
+                for apply_window in (True, False):
+                    for out_dtype in ("float32", "bfloat16"):
+                        tag = (f"spectrum_half {form:6s} F={F:3d} in={str(in_dtype)[6:]:8s} "
+                               f"window={apply_window!s:5s} out={out_dtype:8s}")
+                        got = iir_fft.spectrum_half_cuda(x, z, pp, apply_window, out_dtype)
+                        err = _compare(tag, got, iir_fft.spectrum_half_plain(
+                            x, z, pp, apply_window, out_dtype), SNR_FLOOR_DB[out_dtype])
+                        check(mirrored(got), (tag, "mirror"))
+                        if (main and form == "bypass" and in_dtype == torch.float32
+                                and apply_window and out_dtype == "float32"):
+                            errs["spectrum_half"] = err
+        for bypass in (True, False):
+            run = lambda **kw: iir_fft.spectrum_from_state(x32, zs, pp, bypass=bypass, **kw)
+            full, half = run(), run(half_spectrum=True)
+            rel = ((half - full).abs().max() / full.abs().max()).item()
+            same = torch.equal(half.view(F, 128, 128)[:, :, :65], full.view(F, 128, 128)[:, :, :65])
+            blocked = all(torch.equal(run(half_spectrum=h, blocked_output=True), o.view(F, 128, 128))
+                          for h, o in ((False, full), (True, half)))
+            torch.cuda.synchronize()
+            print(f"[3] spectrum_half {'bypass' if bypass else 'iir':6s} F={F:3d}: half vs full "
+                  f"max_rel={rel:.2e} (tol {HALF_REL}); computed bins (k2 <= 64) equal to the "
+                  f"full kernel's bits: {same}; mirrored bins bitwise: {mirrored(half)}; "
+                  f"blocked_output the same bits (full and half): {blocked}")
+            check(rel < HALF_REL and mirrored(half) and blocked, ("half vs full", F, bypass))
+        for scale in (1.0, 0.5):
+            planes = {k: v * scale for k, v in fplan.items()}
+            err = _compare(f"fft_mag_fused F={F:3d} planes x{scale}",
+                           spectrum.fft_mag_fused_cuda(x32, win, planes),
+                           spectrum.fft_mag_fused_plain(x32, win, planes), SNR_FLOOR_DB["float32"])
+            if main and scale == 1.0:
+                errs["fft_mag_fused"] = err
+    return errs
+
+
+def phase_rows_4_6(pp, fplan: dict, x_np: np.ndarray) -> dict:
+    """Rows 4 and 6 through their entry points at 8 ch x 64 frames,
+    DISPATCHES calls each (no runtime path calls them); returns their
+    launches."""
+    from tpu_sdr_torch.kernels.cuda import iir_fft, launch, spectrum
+
+    x = torch.as_tensor(x_np, device="cuda").reshape(-1, N)
+    zs = torch.zeros((x.shape[0], 12), device="cuda")
+    win = pp.win.reshape(-1)
+    launch.reset_counts()
+    for _ in range(DISPATCHES):
+        half = iir_fft.spectrum_from_state(x, zs, pp, bypass=True, half_spectrum=True)
+        half_iir = iir_fft.spectrum_from_state(x, zs, pp, half_spectrum=True)
+        fused = spectrum.fft_mag_fused(x, win, fplan)
+    torch.cuda.synchronize()
+    check_counts("rows 4 and 6", {"spectrum_half": 2 * DISPATCHES, "fft_mag_fused": DISPATCHES})
+    check(mirrored(half) and mirrored(half_iir) and torch.isfinite(half_iir).all(), "rows 4, 6")
+    shape = (CHANNELS, FRAMES, N)
+    check_golden(f"half spectrum, bypass form, {DISPATCHES} calls each form, spectrum_half "
+                 f"launches {2 * DISPATCHES}", half.view(shape), x_np, None)
+    check_golden(f"fft_mag_fused, {DISPATCHES} calls, launches {DISPATCHES}",
+                 fused.view(shape), x_np, None)
+    return {name: launch.counts["kernel"][name] for name in ("spectrum_half", "fft_mag_fused")}
+
+
+def phase_hop(sos_custom, x_np: np.ndarray):
+    """The hop path (hop 8192) in BYPASS and CUSTOM; returns the pipeline."""
+    from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
+    from tpu_sdr_torch.control import golden
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    pipe = SpectrumPipeline(PipelineConfig(channels=CHANNELS, hop=HOP))
+    pipe.upload_sos(sos_custom)
+    x = torch.as_tensor(x_np, device="cuda")
+    spectra = FRAMES * N // HOP
+    w = golden.hann_true(N)
+    launch.reset_counts()
+    for k, mode in enumerate((FilterMode.BYPASS, FilterMode.CUSTOM), start=1):
+        outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
+        check_counts(f"hop {mode.name}", {"spectrum_bypass": k * DISPATCHES})
+        check(outs[0].shape == (CHANNELS, spectra, N), outs[0].shape)
+        check(int(st.frame_count) == DISPATCHES * spectra and st.history.shape == (CHANNELS, N - HOP))
+        y = x_np[0].astype(np.float64)
+        if mode == FilterMode.CUSTOM:
+            y = sps.sosfilt(sos_custom, y)
+        ext = np.concatenate([np.zeros(N - HOP), y])
+        rel = 0.0
+        for f in (0, 1, spectra // 2, spectra - 1):
+            ref = np.abs(np.fft.fft(ext[f * HOP : f * HOP + N] * w))
+            rel = max(rel, np.abs(outs[0][0, f].double().cpu().numpy() - ref).max() / ref.max())
+        print(f"[4] hop {HOP} {mode.name:6s}: {DISPATCHES} dispatches of {CHANNELS} x "
+              f"{FRAMES * N} samples -> {spectra} spectra a channel, spectrum_bypass launches "
+              f"{DISPATCHES}, plain 0; channel 0 vs the float64 STFT (frames 0, 1, "
+              f"{spectra // 2}, {spectra - 1}): max_err/max={rel:.2e} (tol {HOP_GOLDEN_REL})")
+        check(rel < HOP_GOLDEN_REL, ("hop golden", mode, rel))
+    for mode in (FilterMode.BYPASS, FilterMode.CUSTOM):
+        one, st_one, chunked, st = chunked_vs_oneshot(
+            lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state)
+        bitwise = (torch.equal(chunked, one) and torch.equal(st.history, st_one.history)
+                   and torch.equal(st.sos_state, st_one.sos_state))
+        print(f"[4] hop {mode.name:6s} chunked (4 x {FRAMES // 4} frames' samples) vs one-shot, "
+              f"history carried: bitwise={bitwise}")
+        check(bitwise, ("hop chunked", mode))
+    return pipe
+
+
+def bank_designs() -> list:
+    """8 different designs, one a channel: lowpass, highpass, bandpass and
+    bandstop of five families, each at most 6 sections."""
+    return [
+        sps.butter(12, 0.05, output="sos"),
+        sps.butter(12, 0.2, output="sos"),
+        sps.cheby1(10, 0.5, 0.3, output="sos"),
+        sps.ellip(8, 0.5, 60, 0.4, output="sos"),
+        sps.butter(12, 0.3, btype="highpass", output="sos"),
+        sps.cheby2(8, 60, 0.25, output="sos"),
+        sps.butter(6, [0.2, 0.4], btype="bandpass", output="sos"),
+        sps.butter(4, [0.1, 0.15], btype="bandstop", output="sos"),
+    ]
+
+
+def phase_bank(x_noise: np.ndarray):
+    """A per-channel bank on noise; returns the pipeline."""
+    from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
+    from tpu_sdr_torch.control import golden
+
+    designs = bank_designs()
+    pipe = SpectrumPipeline(PipelineConfig(channels=CHANNELS))
+    fused = SpectrumPipeline(PipelineConfig(channels=CHANNELS, fused_two_pass=True))
+    for p in (pipe, fused):
+        p.upload_sos_bank(designs)
+    x = torch.as_tensor(x_noise, device="cuda")
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    launch.reset_counts()
+    outs, st = run_dispatches(lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x,
+                              pipe.initial_state())
+    check_counts("bank", {"spectrum_bypass": DISPATCHES})
+    win = golden.hann_true(N)
+    worst = []
+    for c in range(CHANNELS):
+        ref = golden_magnitude(x_noise[c, : 2 * N], designs[c], win)
+        got = outs[0][c, :2].double().cpu().numpy()
+        mask = ref > ref.max() * 1e-3
+        worst.append(np.abs(20 * np.log10(got[mask] / ref[mask])).max())
+    print(f"[4] bank of {CHANNELS} designs, {DISPATCHES} dispatches, spectrum_bypass launches "
+          f"{DISPATCHES}, plain 0; each channel's bins above -60 dB vs its golden: max "
+          f"{max(worst):.2e} dB (tol {BANK_DB}; per channel "
+          f"{', '.join(f'{d:.1e}' for d in worst)})")
+    check(max(worst) < BANK_DB, ("bank golden", worst))
+    launch.reset_counts()
+    f_outs, _ = run_dispatches(lambda a, s: fused.process(a, s, FilterMode.CUSTOM), x,
+                               fused.initial_state())
+    check_counts("bank, fused_two_pass config", {"spectrum_bypass": DISPATCHES})
+    same = all(torch.equal(a, b) for a, b in zip(outs, f_outs))
+    print(f"[4] bank under fused_two_pass=True: the hybrid branch (spectrum_bypass "
+          f"{DISPATCHES}, iir_summaries 0, spectrum_iir 0), the same bits: {same}")
+    check(same, "bank fused config")
+    one, st_one, chunked, st = chunked_vs_oneshot(
+        lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x, pipe.initial_state)
+    bitwise = torch.equal(chunked, one) and torch.equal(st.sos_state, st_one.sos_state)
+    print(f"[4] bank chunked (4 x {FRAMES // 4} frames) vs one-shot: bitwise={bitwise}")
+    check(bitwise, "bank chunked")
+    return pipe
+
+
+def phase_analyzer(x_np: np.ndarray):
+    """SpectrumAnalyzer driven by command bytes at 8 ch x 64 frames; returns
+    an analyzer running CUSTOM, for the timing phase."""
+    from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumAnalyzer
+    from tpu_sdr_torch.control import design_iir_filter
+    from tpu_sdr_torch.control.commands import Command, encode_coefficient_upload
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    seen = []
+    sa = SpectrumAnalyzer(PipelineConfig(channels=CHANNELS),
+                          on_spectrum=lambda mag, i: seen.append((i, mag.shape)))
+    x = torch.as_tensor(x_np, device="cuda")
+    launch.reset_counts()
+    check(sa.process(x) is None, "samples before START")
+    sa.handle_bytes(bytes([Command.MODE_BYPASS, Command.START]))
+    byp = sa.process(x)["magnitude"]
+    # A notch at 250 kHz (bin 4096) that passes 100 kHz (bin 1638) and
+    # survives the wire's int8 x64 quantization (a narrow lowpass's
+    # numerator rounds to 0 there).
+    design = design_iir_filter("butterworth", "bandstop", 2, 1e6, (230e3, 270e3))
+    sa.handle_bytes(encode_coefficient_upload(design.to_wire_bytes()) + bytes([Command.MODE_CUSTOM]))
+    cus = sa.process(x)["magnitude"]
+    sa.handle_bytes(bytes([Command.COEFF_HDR]) + bytes([64, 0, 0, 64, 127, 127]) * 2)
+    check(sa.stats.uploads_rejected == 1 and "unstable" in sa.last_upload_error, "rejected upload")
+    check(sa.filter_mode == FilterMode.CUSTOM and sa.stats.coefficient_uploads == 1)
+    ck = sa.checkpoint()
+    after = sa.process(x)["magnitude"]
+    sb = SpectrumAnalyzer(PipelineConfig(channels=CHANNELS))
+    sb.restore(ck)
+    resumed = sb.process(x)["magnitude"]
+    check_counts("analyzer", {"spectrum_bypass": 4})
+    same = np.array_equal(after, resumed)
+    cut = [cus[0, 0, k] / byp[0, 0, k] for k in TONE_BINS]
+    frames = sa.stats.frames_produced
+    hook = [i for i, _ in seen] == list(range(frames)) and all(s == (N,) for _, s in seen)
+    print(f"[4] SpectrumAnalyzer {CHANNELS} ch x {FRAMES} frames: bytes 0xB1 0x55, 0xF1 + 12 "
+          f"(a 230-270 kHz bandstop) 0xA1, an unstable 0xF1 rejected (uploads_rejected "
+          f"{sa.stats.uploads_rejected}); tones at bins {TONE_BINS} at "
+          f"{', '.join(f'{r:.2e}' for r in cut)} of BYPASS; spectrum_bypass launches 4 in 4 "
+          f"process calls, plain 0; restored checkpoint == uninterrupted bitwise: {same}; "
+          f"on_spectrum {len(seen)} calls for {frames} frames in order: {hook}; "
+          f"host magnitudes {after.dtype} {after.shape}, {after.nbytes} bytes a call")
+    check(after.dtype == np.float32 and after.shape == (CHANNELS, FRAMES, N), "analyzer output")
+    check(same and hook and 0.9 < cut[0] < 1.1 and cut[1] < 1e-2, ("analyzer", same, hook, cut))
+    check_golden("SpectrumAnalyzer BYPASS", torch.as_tensor(byp), x_np, None)
+    sa.handle_bytes(bytes([Command.RESET]))
+    check(not sa.running and sa.filter_mode == FilterMode.BYPASS
+          and not sa.state.sos_state.any() and sa.stats.resets == 1, "reset")
+    sa.handle_bytes(bytes([Command.START, Command.MODE_CUSTOM]))
+    return sa
+
+
+def new_paths(hop_pipe, bank_pipe, sa, x_np, x_noise) -> dict:
+    """label -> step() of this slice's timed and profiled dispatches."""
+    from tpu_sdr_torch import FilterMode
+
+    x = torch.as_tensor(x_np, device="cuda")
+    xn = torch.as_tensor(x_noise, device="cuda")
+    steps = {f"hop {m.name}": chained(lambda a, s, m=m: hop_pipe.process(a, s, m), x,
+                                      hop_pipe.initial_state)
+             for m in (FilterMode.BYPASS, FilterMode.CUSTOM)}
+    steps["bank CUSTOM"] = chained(lambda a, s: bank_pipe.process(a, s, FilterMode.CUSTOM), xn,
+                                   bank_pipe.initial_state)
+    steps["analyzer CUSTOM"] = lambda: sa.process(x)
+    return steps
+
+
+def phase_new_timing(pp, fplan: dict, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
+    """Rows 4 and 6 at F = 512 (kernel, plain, library, bound), then this
+    slice's dispatch walls (hop, bank and the facade beside the default
+    CUSTOM path's, in alternating turns)."""
+    from tpu_sdr_torch.kernels.cuda import iir_fft, spectrum
+
+    F = CHANNELS * FRAMES
+    x = torch.as_tensor(x_np, device="cuda").reshape(F, N)
+    win = pp.win.reshape(-1)
+    fft_flops = 2.5 * N * math.log2(N)
+    consts_dft = 4 * 128 * 4 + 2 * N * 4
+    timing = {}
+
+    def record(name, kernel, plain, library, b, tag):
+        timing[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                        "library_ms": cuda_ms(library),
+                        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        t = timing[name]
+        print(f"[5] {name} F={F} {tag}: kernel {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+              f"library {t['library_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) -> kernel at "
+              f"{b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}")
+
+    # The half spectrum's function is row 1's: the same bytes and an FFT.
+    record("spectrum_half",
+           lambda: iir_fft.spectrum_half_cuda(x, None, pp, True, "float32"),
+           lambda: iir_fft.spectrum_half_plain(x, None, pp, True, "float32"),
+           lambda: torch.abs(torch.fft.fft(x * win)),
+           bound(F * N * 4 * 2 + consts_dft + N * 4, F * (N + fft_flops + 4 * N)),
+           "bypass form, window in the kernel (the hop path's call of row 1)")
+    zs = torch.zeros((F, 12), device="cuda")
+    print(f"[5] spectrum_half: without the window "
+          f"{cuda_ms(lambda: iir_fft.spectrum_half_cuda(x, None, pp, False, 'float32')):.4f} ms "
+          f"(row 1 without it: {cuda_ms(lambda: iir_fft.spectrum_bypass_cuda(x, pp, False)):.4f} "
+          f"ms); IIR form {cuda_ms(lambda: iir_fft.spectrum_half_cuda(x, zs, pp)):.4f} ms (row 2: "
+          f"{cuda_ms(lambda: iir_fft.spectrum_iir_cuda(x, zs, pp)):.4f} ms)")
+    # Window, FFT of a real frame, magnitude; the six plan planes read once.
+    record("fft_mag_fused",
+           lambda: spectrum.fft_mag_fused_cuda(x, win, fplan),
+           lambda: spectrum.fft_mag_fused_plain(x, win, fplan),
+           lambda: torch.abs(torch.fft.fft(x * win)),
+           bound(F * N * 4 * 2 + N * 4 + 6 * N * 4, F * (N + fft_flops + 4 * N)),
+           "the plan's six planes")
+
+    samples = CHANNELS * FRAMES * N
+    walls = {}
+    turns = lambda a, b: [a, b, b, a] * 3
+    order = (turns("hop BYPASS", "hop CUSTOM") + turns("bank CUSTOM", "CUSTOM")
+             + turns("analyzer CUSTOM", "CUSTOM"))
+    for label in order:
+        med, lo, hi = dispatch_wall(steps[label])
+        walls.setdefault(label, []).append(med)
+        print(f"[5] {label:17s} dispatch ({CHANNELS} ch x {samples // CHANNELS} samples): median "
+              f"{med * 1e3:.4f} ms (min {lo * 1e3:.4f}, max {hi * 1e3:.4f}) "
+              f"-> {samples / med:.4e} samples/s")
+    for label, meds in walls.items():
+        print(f"[5] {label:17s} {len(meds)} turns: median {statistics.median(meds) * 1e3:.4f} ms "
+              f"(turns {', '.join(f'{m * 1e3:.4f}' for m in meds)})")
+    print(f"[5] the facade's device->host copy: {CHANNELS * FRAMES * N * 4} bytes a call (fp32)")
+    return {label: statistics.median(v) for label, v in walls.items()}, timing
+
 
 def main():
     smi = phase_device()
@@ -1166,6 +1508,17 @@ def main():
     walls, timing = phase_timing(pp, x_np, steps)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
+    fplan = pipe.plan
+    errs.update(phase_half_and_fused_vs_plain(pp, fplan))
+    launches.update(phase_rows_4_6(pp, fplan, x_np))
+    hop_pipe = phase_hop(sos_custom, x_np)
+    x_noise = np.random.default_rng(8).standard_normal((CHANNELS, FRAMES * N)).astype(np.float32)
+    bank_pipe = phase_bank(x_noise)
+    sa = phase_analyzer(x_np)
+    new_steps = {**new_paths(hop_pipe, bank_pipe, sa, x_np, x_noise), "CUSTOM": steps["CUSTOM"]}
+    new_walls, new_timing = phase_new_timing(pp, fplan, x_np, new_steps)
+    timing.update(new_timing)
+    phase_profile(new_steps, {k: v for k, v in new_walls.items() if k != "CUSTOM"})
     errs.update(phase_nb_kernels())
     planes = fm_planes()
     launches["fm_demod"] = phase_fm(planes)

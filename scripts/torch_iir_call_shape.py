@@ -56,7 +56,9 @@ def main(sizes):
             for label, matmul, size in policies:
                 biquad._canonical_matmul, biquad.CANONICAL_FRAMES = matmul, size
                 for c, f in SHAPES:
-                    step = cs.chained(pipes[c], xs[c, f], FilterMode.CUSTOM)
+                    pipe = pipes[c]
+                    step = cs.chained(lambda a, s, p=pipe: p.process(a, s, FilterMode.CUSTOM),
+                                      xs[c, f], pipe.initial_state)
                     med, lo, hi = cs.dispatch_wall(step)
                     prof = cs.device_kernels(step)
                     busy = ("device not measured" if prof is None

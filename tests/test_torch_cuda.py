@@ -419,3 +419,127 @@ def test_receiver_on_card_matches_cpu_and_chunks(card, mode):
     assert one.is_cuda and torch.equal(torch.cat(parts), one)
     ref, _ = cpu.process(x, cpu.initial_state())
     assert (one.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------- rows 4 and 6, hop, banks, facade
+
+
+def _mirror_ok(out: torch.Tensor) -> bool:
+    g = out.view(-1, 128, 128)
+    return torch.equal(g[:, :, 65:], g.flip(1)[:, :, 1:64].flip(2))
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+@pytest.mark.parametrize(
+    "form,in_dtype",
+    [("bypass", torch.float32), ("bypass", torch.bfloat16), ("iir", torch.float32)],
+    ids=["bypass-f32in", "bypass-bf16in", "iir-f32in"],
+)
+def test_half_kernel_matches_plain(cuda_plan, frames, entry_states, form, in_dtype,
+                                   apply_window, out_dtype):
+    """Both forms (the IIR form takes fp32 frames, as the full kernel)."""
+    x = torch.as_tensor(frames, device="cuda").to(in_dtype)
+    zs = None if form == "bypass" else torch.as_tensor(entry_states, device="cuda")
+    got = iir_fft.spectrum_half_cuda(x, zs, cuda_plan, apply_window, out_dtype)
+    ref = iir_fft.spectrum_half_plain(x, zs, cuda_plan, apply_window, out_dtype)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert snr_db(ref.float(), got.float()) >= SNR_FLOOR_DB[out_dtype]
+    assert _mirror_ok(got)
+
+
+def test_half_kernel_frames_independent_and_blocked(cuda_plan, frames, entry_states):
+    x = torch.as_tensor(frames, device="cuda")
+    zs = torch.as_tensor(entry_states, device="cuda")
+    for bypass in (True, False):
+        run = lambda a, z, **kw: iir_fft.spectrum_from_state(
+            a, z, cuda_plan, bypass=bypass, half_spectrum=True, **kw)
+        whole = run(x, zs)
+        parts = torch.cat([run(a, z) for a, z in zip(x.split(3), zs.split(3))])
+        assert torch.equal(whole, parts)
+        assert torch.equal(run(x, zs, blocked_output=True).reshape(whole.shape), whole)
+        full = iir_fft.spectrum_from_state(x, zs, cuda_plan, bypass=bypass)
+        assert ((whole - full).abs().max() / full.abs().max()).item() < 1e-5
+
+
+def test_fft_mag_fused_kernel_uses_the_given_planes(cuda_plan, frames):
+    from tpu_sdr_torch.kernels.cuda import spectrum
+
+    x = torch.as_tensor(frames, device="cuda")
+    win = window.hann_coefficients(N, device="cuda")
+    plan = fft.plan_constants(128, 128, device="cuda")
+    launch.reset_counts()
+    for scale in (1.0, 0.5):
+        p = {k: v * scale for k, v in plan.items()}
+        got = spectrum.fft_mag_fused(x, win, p)
+        ref = spectrum.fft_mag_fused_plain(x, win, p)
+        assert snr_db(ref, got) >= SNR_FLOOR_DB["float32"]
+    assert launch.counts["kernel"]["fft_mag_fused"] == 2
+    assert not any(launch.counts["plain"].values())
+    with pytest.raises(ValueError, match="n1 = n2 = 128"):
+        spectrum.fft_mag_fused(x, win, fft.plan_constants(64, 256, device="cuda"), n1=64, n2=256)
+
+
+@pytest.mark.parametrize("mode", [FilterMode.BYPASS, FilterMode.CUSTOM], ids=lambda m: m.name)
+def test_hop_pipeline_on_card(cuda_plan, mode):
+    """hop < N launches the spectrum kernel once per dispatch, is chunked ==
+    one-shot bitwise with the carried history, and agrees with the CPU."""
+    cfg = PipelineConfig(channels=2, hop=4096)
+    p, cpu = SpectrumPipeline(cfg), SpectrumPipeline(cfg, device="cpu")
+    p.upload_sos(SOS)
+    cpu.upload_sos(SOS)
+    x = torch.as_tensor(
+        np.random.default_rng(3).standard_normal((2, 4 * N)).astype(np.float32), device="cuda"
+    )
+    iir_fft.reset_counts()
+    whole, st_whole, chunked, st = _chunked(p, x, p.initial_state, mode, 4)
+    torch.cuda.synchronize()
+    assert iir_fft.counts["kernel"]["spectrum_bypass"] == 5
+    assert not any(iir_fft.counts["plain"].values())
+    assert torch.equal(chunked, whole["magnitude"]) and torch.equal(st.history, st_whole.history)
+    ref, _ = cpu.process(x.cpu(), cpu.initial_state(), mode)
+    assert snr_db(ref["magnitude"], whole["magnitude"]) >= 120.0
+
+
+def test_bank_pipeline_on_card(cuda_plan):
+    """A per-channel bank: the hybrid branch even with fused_two_pass,
+    chunked == one-shot bitwise, and the card agrees with the CPU."""
+    bank = [sps.butter(12, 0.1 * (c + 1), output="sos") for c in range(4)]
+    cfg = PipelineConfig(channels=4, fused_two_pass=True)
+    p, cpu = SpectrumPipeline(cfg), SpectrumPipeline(cfg, device="cpu")
+    p.upload_sos_bank(bank)
+    cpu.upload_sos_bank(bank)
+    x = torch.as_tensor(
+        np.random.default_rng(4).standard_normal((4, 8 * N)).astype(np.float32), device="cuda"
+    )
+    iir_fft.reset_counts()
+    whole, st_whole, chunked, st = _chunked(p, x, p.initial_state, FilterMode.CUSTOM, 4)
+    torch.cuda.synchronize()
+    assert iir_fft.counts["kernel"]["spectrum_bypass"] == 5
+    assert iir_fft.counts["kernel"]["spectrum_iir"] == iir_fft.counts["kernel"]["iir_summaries"] == 0
+    assert torch.equal(chunked, whole["magnitude"]) and torch.equal(st.sos_state, st_whole.sos_state)
+    ref, _ = cpu.process(x.cpu(), cpu.initial_state(), FilterMode.CUSTOM)
+    assert snr_db(ref["magnitude"], whole["magnitude"]) >= 120.0
+
+
+def test_analyzer_on_card(cuda_plan):
+    """The facade on CUDA: wire bytes, an upload, host float32 magnitudes
+    equal to the pipeline's, and a checkpoint that resumes bit for bit."""
+    from tpu_sdr_torch import SpectrumAnalyzer
+    from tpu_sdr_torch.control import design_iir_filter
+    from tpu_sdr_torch.control.commands import encode_coefficient_upload
+
+    sa = SpectrumAnalyzer(PipelineConfig(channels=2))
+    x = torch.as_tensor(
+        np.random.default_rng(5).standard_normal((2, 2 * N)).astype(np.float32), device="cuda"
+    )
+    sa.handle_bytes(bytes([0xB1, 0x55]))
+    d = design_iir_filter("butterworth", "bandstop", 2, 1e6, (230e3, 270e3))
+    sa.handle_bytes(encode_coefficient_upload(d.to_wire_bytes()) + bytes([0xA1]))
+    out = sa.process(x)
+    assert isinstance(out["magnitude"], np.ndarray) and out["magnitude"].shape == (2, 2, N)
+    ck = sa.checkpoint()
+    a = sa.process(x)["magnitude"]
+    sb = SpectrumAnalyzer(PipelineConfig(channels=2))
+    sb.restore(ck)
+    assert np.array_equal(sb.process(x)["magnitude"], a)

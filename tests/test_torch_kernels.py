@@ -261,19 +261,32 @@ def test_kernel_wrapper_refuses_cpu_tensor(plans, frames):
 @pytest.mark.parametrize(
     "kw,exc",
     [
-        (dict(bypass=True, half_spectrum=True), NotImplementedError),
-        (dict(bypass=True, blocked_output=True), NotImplementedError),
+        (dict(bypass=True, half_spectrum=True), None),
+        (dict(bypass=True, blocked_output=True), None),
         (dict(bypass=True, precision="fast"), ValueError),
         (dict(bypass=True, out_dtype="float16"), ValueError),
     ],
     ids=["half", "blocked", "precision", "out_dtype"],
 )
 def test_spectrum_rejects_unported_and_bad_options(plans, frames, kw, exc):
+    """Bad options raise; half_spectrum and blocked_output, ported now, run
+    (each beside flat_emit raises, as in the reference)."""
     _, pp = plans
-    with pytest.raises(exc):
-        iir_fft.spectrum_from_state(
-            torch.as_tensor(frames[:1]), torch.zeros((1, 12)), pp, **kw
-        )
+    run = lambda **extra: iir_fft.spectrum_from_state(
+        torch.as_tensor(frames[:1]), torch.zeros((1, 12)), pp, **kw, **extra
+    )
+    if exc is not None:
+        with pytest.raises(exc):
+            run()
+        return
+    out = run()
+    full = iir_fft.spectrum_from_state(
+        torch.as_tensor(frames[:1]), torch.zeros((1, 12)), pp, bypass=True
+    )
+    assert out.reshape(1, N).shape == (1, N) and torch.isfinite(out).all()
+    assert (out.reshape(1, N) - full).abs().max() <= 1e-5 * full.abs().max()
+    with pytest.raises(ValueError):
+        run(flat_emit=True)
 
 
 def test_spectrum_checks_shapes(plans, frames):
@@ -335,6 +348,7 @@ def test_package_data_lists_the_headers():
     assert sorted(p.name for p in loader.SOURCE_DIR.glob("*.cuh")) == [
         "error_string.cuh", "four_step.cuh", "iir_blocks.cuh",
     ]
+    assert {"spectrum_half", "fft_mag_fused"} <= set(launch.KERNELS)
     assert set(iir_fft.KERNELS) <= set(launch.KERNELS)
     for name in launch.KERNELS:
         assert (loader.SOURCE_DIR / f"{name}.cu").is_file()

@@ -308,7 +308,9 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
         "tpu_sdr_torch.kernels.cuda.pfb_kernel, tpu_sdr_torch.kernels.ddc, "
         "tpu_sdr_torch.kernels.demod, tpu_sdr_torch.kernels.resample, "
         "tpu_sdr_torch.kernels.stereo, tpu_sdr_torch.kernels.pfb, "
-        "tpu_sdr_torch.runtime.stream, tpu_sdr_torch.runtime.receiver\n"
+        "tpu_sdr_torch.runtime.stream, tpu_sdr_torch.runtime.receiver, "
+        "tpu_sdr_torch.control, tpu_sdr_torch.control.api, "
+        "tpu_sdr_torch.kernels.cuda.spectrum, tpu_sdr_torch.core.qformat\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -336,7 +338,7 @@ def test_cpu_run_never_launches_the_kernel(port):
     assert not any(iir_fft.counts["kernel"].values())
     assert iir_fft.counts["plain"] == {
         "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
-        "fm_demod": 0, "pfb_fold_dft": 0,
+        "fm_demod": 0, "pfb_fold_dft": 0, "spectrum_half": 0, "fft_mag_fused": 0,
     }
 
 
@@ -345,14 +347,21 @@ def test_cpu_run_never_launches_the_kernel(port):
     ["hop", "bank", "time-axis"],
 )
 def test_unported_paths_raise(port, case):
+    """Time sharding still raises, naming its ROADMAP item; hop < N and
+    per-channel banks, ported now, run."""
     x = np.zeros(N, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "hop":
-            p = SpectrumPipeline(PipelineConfig(hop=8192), device="cpu")
-            p.process(x, p.initial_state(), FilterMode.BYPASS)
-        elif case == "bank":
-            port.upload_sos_bank(SOS[None])
-        else:
+    if case == "hop":
+        p = SpectrumPipeline(PipelineConfig(hop=8192), device="cpu")
+        out, st = p.process(x, p.initial_state(), FilterMode.BYPASS)
+        assert out["magnitude"].shape == (1, 2, N) and int(st.frame_count) == 2
+        assert st.history.shape == (1, 8192)
+    elif case == "bank":
+        p = SpectrumPipeline(PipelineConfig(), device="cpu")
+        p.upload_sos_bank(SOS[None])
+        assert p.bank_custom["op"].T.shape == (1, 128, 128)
+        assert p.bank_custom["pp"] is p.bank_fixed["pp"]
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             stream.process_stream(
                 torch.as_tensor(x)[None], port.initial_state(), port.bank_fixed,
                 port.bank_custom, port.hann_w, port.plan, mode_index=0,

@@ -5,7 +5,19 @@ Imports torch, numpy and scipy only; nothing of JAX or of ``tpu_sdr``.
 
 from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig
 from tpu_sdr_torch.runtime import SpectrumPipeline, StreamState
+from tpu_sdr_torch.control import (
+    AnalyzerStats,
+    Command,
+    CommandDecoder,
+    FilterDesign,
+    SpectrumAnalyzer,
+    design_iir_filter,
+    sos_to_wire_bytes,
+    wire_bytes_to_sos,
+)
 
 __all__ = [
-    "CommMode", "FilterMode", "PipelineConfig", "SpectrumPipeline", "StreamState",
+    "AnalyzerStats", "Command", "CommandDecoder", "CommMode", "FilterDesign",
+    "FilterMode", "PipelineConfig", "SpectrumAnalyzer", "SpectrumPipeline",
+    "StreamState", "design_iir_filter", "sos_to_wire_bytes", "wire_bytes_to_sos",
 ]

@@ -55,7 +55,9 @@ def composite(d: dict, *, device="cuda") -> BlockedSOSComposite:
 
 def bank(d: dict, *, device="cuda") -> dict:
     """A JAX filter bank {"op": ..., "pp": ... or None}, each leaf dict as
-    above, -> the port's bank."""
+    above, -> the port's bank. A per-channel bank (``upload_sos_bank``:
+    op leaves with a leading channel axis, the fixed bank's plan) carries
+    over the same way."""
     return {
         "op": composite(d["op"], device=device),
         "pp": None if d["pp"] is None else kernel_plan(d["pp"], device=device),
@@ -73,8 +75,24 @@ def window(w: np.ndarray, *, device="cuda") -> torch.Tensor:
 
 
 def state(d: dict, *, device="cuda") -> StreamState:
-    """A JAX ``StreamState.to_numpy()`` checkpoint -> the port's state."""
+    """A JAX ``StreamState.to_numpy()`` checkpoint -> the port's state,
+    with the carried ``history`` of hop < fft_size where it has one."""
     return StreamState.from_numpy(d, device=device)
+
+
+ANALYZER_KEYS = ("state", "filter_mode", "comm_mode", "running")
+
+
+def analyzer_checkpoint(d: dict) -> dict:
+    """A JAX ``SpectrumAnalyzer.checkpoint()`` dict -> one that the port's
+    ``SpectrumAnalyzer.restore`` takes: the same keys (the command plane,
+    the coefficients, the stream-kind latch, the stats), the stream
+    state's arrays copied as NumPy."""
+    missing = [k for k in ANALYZER_KEYS if k not in d]
+    if missing:
+        raise KeyError(f"analyzer checkpoint: missing keys {missing}")
+    st = d["state"]
+    return {**d, "state": {k: None if v is None else np.array(v) for k, v in st.items()}}
 
 
 # ------------------------------------------------ the narrowband layer

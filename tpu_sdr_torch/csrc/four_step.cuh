@@ -1,20 +1,27 @@
 // The 16384-point four-step DFT + magnitude of one frame, shared by the
-// spectrum kernels (spectrum_bypass.cu, spectrum_iir.cu,
-// spectrum_complex.cu). One 512-thread block owns one frame. Per frame
-// x[n], n = n1 + 128*n2, viewed as X[n2][n1]:
+// spectrum kernels (spectrum_bypass.cu, spectrum_iir.cu, spectrum_complex.cu,
+// spectrum_half.cu, fft_mag_fused.cu). One 512-thread block owns one frame.
+// Per frame x[n], n = n1 + 128*n2, viewed as X[n2][n1]:
 //
-//   1. column DFTs  Y[k2][n1] = sum_n2 W128[k2*n2] * X[n2][n1]
+//   1. column DFTs  Y[k2][n1] = sum_n2 W2[k2][n2] * X[n2][n1]
 //   2. twiddle      T[k2][n1] = Y[k2][n1] * tw[k2][n1]
-//   3. row DFTs     Z[k2][k1] = sum_n1 T[k2][n1] * W128[k1*n1]
+//   3. row DFTs     Z[k2][k1] = sum_n1 T[k2][n1] * W1[k1][n1]
 //   4. store        out[128*k1 + k2] = |Z[k2][k1]|            (natural order)
 //
-// W128[k*n] depends only on (k*n) mod 128, so both DFT matrices are read
-// from four 128-entry tables in shared memory (row 1 of the plan's DFT
-// planes). The twiddle planes are read once per element through the
-// read-only cache. Each thread holds a 4 x 8 (step 1) or 4 x 8 complex
-// (step 3) register tile, so one pair of shared-memory loads feeds 8 to 16
-// FMAs. Arithmetic is IEEE fp32 in a fixed order that depends only on the
-// frame, so a frame's bits do not depend on how many frames a launch holds.
+// The DFT matrices come from a policy: TableDft reads W128[k*n] from a
+// 128-entry table in shared memory (it depends only on (k*n) mod 128; the
+// table is row 1 of the plan's DFT plane), PlaneDft reads the full (128,
+// 128) plane given by the caller through the read-only cache. The twiddle
+// planes are read once per element through the read-only cache. Each
+// thread holds a register tile, so one pair of coefficient loads feeds 8 to
+// 16 FMAs. Arithmetic is IEEE fp32 in a fixed order per output element, the
+// same in every variant, so a frame's bits do not depend on how many frames
+// a launch holds.
+//
+// The half spectrum (real input): |X[N - k]| = |X[k]|, so only k2 in
+// [0, 64] is computed (steps 1-3 on 65 of the 128 rows of Y) and
+// out[k1][k2] for k2 in [65, 127] is the stored |Z[128 - k2][127 - k1]|:
+// the same float, copied, never recomputed.
 
 #pragma once
 
@@ -38,6 +45,30 @@ constexpr int kTStride = 132;
 constexpr int kTwiddledFloats = 2 * kN1 * kTStride;
 // Floats of the DFT tables: W_N2 row 1 re, im, W_N1 row 1 re, im.
 constexpr int kTableFloats = 4 * 128;
+
+// W[k][n] of a 128-point DFT as W128[(k*n) mod 128] from two 128-entry
+// tables (re, im) in shared memory.
+struct TableDft {
+  const float* re;
+  const float* im;
+  __device__ __forceinline__ float2 operator()(int k, int n) const {
+    const int i = (k * n) & (kN1 - 1);
+    return make_float2(re[i], im[i]);
+  }
+};
+
+// W[k][n] read from full (128, 128) planes in device memory, as given.
+struct PlaneDft {
+  const float* __restrict__ re;
+  const float* __restrict__ im;
+  __device__ __forceinline__ float2 operator()(int k, int n) const {
+    return make_float2(__ldg(re + k * kN1 + n), __ldg(im + k * kN1 + n));
+  }
+};
+
+// The column (W_N2) and row (W_N1) DFT tables of load_tables.
+__device__ __forceinline__ TableDft w_n2(const float* tabs) { return {tabs, tabs + 128}; }
+__device__ __forceinline__ TableDft w_n1(const float* tabs) { return {tabs + 256, tabs + 384}; }
 
 __device__ __forceinline__ void load8(const float* x, int i, float v[8]) {
   const float4 a = reinterpret_cast<const float4*>(x)[2 * i];
@@ -101,24 +132,23 @@ __device__ __forceinline__ void load_frame(const TIn* __restrict__ x,
 
 // Steps 1 and 2: column DFTs of the frame in xr (real input) or xr + i*xi
 // (kComplex), twiddled and stored transposed as tr/ti [n1][k2]. Thread tile
-// k2 = 4*ty + i, n1 = 16*c + tx. The column results stay in registers until
-// every thread has read its inputs, so with kComplex tr/ti may overlay the
-// input planes (the routine synchronises the block before storing).
-template <bool kComplex>
+// k2 = kR*ty + i (i < kR), n1 = 16*c + tx: kR = 4 covers the 128 rows,
+// kR = 2 the rows 0..63 of the half spectrum. The column results stay in
+// registers until every thread has read its inputs, so with kComplex tr/ti
+// may overlay the input planes (the routine synchronises the block before
+// storing).
+template <bool kComplex, int kR = 4, typename Dft>
 __device__ __forceinline__ void column_dft_twiddle(
-    const float* xr, const float* xi, const float* tabs,
+    const float* xr, const float* xi, Dft w2,
     const float* __restrict__ twr, const float* __restrict__ twi, float* tr,
     float* ti) {
-  const float* c2 = tabs;  // W_N2 row 1, re then im
-  const float* s2 = tabs + 128;
   const int tx = threadIdx.x & 15;  // 16 column groups
   const int ty = threadIdx.x >> 4;  // 32 row groups
-  float yr[4][8], yi[4][8];
+  float yr[kR][8], yi[kR][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < 8; ++c) yr[i][c] = yi[i][c] = 0.f;
-  int idx[4] = {0, 0, 0, 0};  // (k2 * n2) mod 128
   for (int n2 = 0; n2 < kN2; ++n2) {
     float xv[8], xv_i[8];
 #pragma unroll
@@ -127,89 +157,184 @@ __device__ __forceinline__ void column_dft_twiddle(
       if constexpr (kComplex) xv_i[c] = xi[n2 * kN1 + 16 * c + tx];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float wr = c2[idx[i]];
-      const float wi = s2[idx[i]];
+    for (int i = 0; i < kR; ++i) {
+      const float2 w = w2(kR * ty + i, n2);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         if constexpr (kComplex) {
-          yr[i][c] = fmaf(wr, xv[c], yr[i][c]);
-          yr[i][c] = fmaf(-wi, xv_i[c], yr[i][c]);
-          yi[i][c] = fmaf(wi, xv[c], yi[i][c]);
-          yi[i][c] = fmaf(wr, xv_i[c], yi[i][c]);
+          yr[i][c] = fmaf(w.x, xv[c], yr[i][c]);
+          yr[i][c] = fmaf(-w.y, xv_i[c], yr[i][c]);
+          yi[i][c] = fmaf(w.y, xv[c], yi[i][c]);
+          yi[i][c] = fmaf(w.x, xv_i[c], yi[i][c]);
         } else {
-          yr[i][c] = fmaf(wr, xv[c], yr[i][c]);
-          yi[i][c] = fmaf(wi, xv[c], yi[i][c]);
+          yr[i][c] = fmaf(w.x, xv[c], yr[i][c]);
+          yi[i][c] = fmaf(w.y, xv[c], yi[i][c]);
         }
       }
-      idx[i] = (idx[i] + 4 * ty + i) & 127;
     }
   }
   if constexpr (kComplex) __syncthreads();  // tr/ti overlay xr/xi
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int n1 = 16 * c + tx;
-    float vr[4], vi[4];
+    float vr[kR], vi[kR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k2 = 4 * ty + i;
+    for (int i = 0; i < kR; ++i) {
+      const int k2 = kR * ty + i;
       const float a = __ldg(twr + k2 * kN1 + n1);
       const float b = __ldg(twi + k2 * kN1 + n1);
       vr[i] = yr[i][c] * a - yi[i][c] * b;
       vi[i] = yr[i][c] * b + yi[i][c] * a;
     }
-    store4(tr, n1 * kTStride + 4 * ty, vr);
-    store4(ti, n1 * kTStride + 4 * ty, vi);
+    if constexpr (kR == 4) {
+      store4(tr, n1 * kTStride + 4 * ty, vr);
+      store4(ti, n1 * kTStride + 4 * ty, vi);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        tr[n1 * kTStride + kR * ty + i] = vr[i];
+        ti[n1 * kTStride + kR * ty + i] = vi[i];
+      }
+    }
   }
 }
 
-// Steps 3 and 4: row DFTs of the twiddled planes and the magnitude, stored
-// in natural order out[128*k1 + k2]. Thread tile k1 = 4*ty + i,
-// k2 = 4*tx + q and 64 + 4*tx + q.
-template <typename TOut>
-__device__ __forceinline__ void row_dft_magnitude(const float* tr,
-                                                  const float* ti,
-                                                  const float* tabs,
-                                                  TOut* __restrict__ out) {
-  const float* c1 = tabs + 256;  // W_N1 row 1, re then im
-  const float* s1 = tabs + 384;
+// Steps 1 and 2 for the single row k2 of a real input, one column n1 per
+// thread of the first 128 (the half spectrum's row 64); the same
+// arithmetic per element as column_dft_twiddle.
+template <typename Dft>
+__device__ __forceinline__ void column_dft_twiddle_row(
+    const float* xr, Dft w2, const float* __restrict__ twr,
+    const float* __restrict__ twi, float* tr, float* ti, int k2) {
+  const int n1 = threadIdx.x;
+  if (n1 >= kN1) return;
+  float yr = 0.f, yi = 0.f;
+  for (int n2 = 0; n2 < kN2; ++n2) {
+    const float xv = xr[n2 * kN1 + n1];
+    const float2 w = w2(k2, n2);
+    yr = fmaf(w.x, xv, yr);
+    yi = fmaf(w.y, xv, yi);
+  }
+  const float a = __ldg(twr + k2 * kN1 + n1);
+  const float b = __ldg(twi + k2 * kN1 + n1);
+  tr[n1 * kTStride + k2] = yr * a - yi * b;
+  ti[n1 * kTStride + k2] = yr * b + yi * a;
+}
+
+// Step 3: row DFTs of the twiddled planes into the thread's accumulators,
+// k1 = 4*ty + i and k2 = 4*tx + q (q < 4), then 64 + 4*tx + q (q >= 4)
+// when kJ = 8.
+template <int kJ, typename Dft>
+__device__ __forceinline__ void row_dft(const float* tr, const float* ti,
+                                        Dft w1, float (&zr)[4][kJ],
+                                        float (&zi)[4][kJ]) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  float zr[4][8], zi[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) zr[i][j] = zi[i][j] = 0.f;
-  int idx[4] = {0, 0, 0, 0};  // (k1 * n1) mod 128
+    for (int j = 0; j < kJ; ++j) zr[i][j] = zi[i][j] = 0.f;
   for (int n1 = 0; n1 < kN1; ++n1) {
+    float pr[kJ], pi[kJ];
     const float4 ar0 = *reinterpret_cast<const float4*>(tr + n1 * kTStride + 4 * tx);
-    const float4 ar1 = *reinterpret_cast<const float4*>(tr + n1 * kTStride + 64 + 4 * tx);
     const float4 ai0 = *reinterpret_cast<const float4*>(ti + n1 * kTStride + 4 * tx);
-    const float4 ai1 = *reinterpret_cast<const float4*>(ti + n1 * kTStride + 64 + 4 * tx);
-    const float pr[8] = {ar0.x, ar0.y, ar0.z, ar0.w, ar1.x, ar1.y, ar1.z, ar1.w};
-    const float pi[8] = {ai0.x, ai0.y, ai0.z, ai0.w, ai1.x, ai1.y, ai1.z, ai1.w};
+    pr[0] = ar0.x; pr[1] = ar0.y; pr[2] = ar0.z; pr[3] = ar0.w;
+    pi[0] = ai0.x; pi[1] = ai0.y; pi[2] = ai0.z; pi[3] = ai0.w;
+    if constexpr (kJ == 8) {
+      const float4 ar1 = *reinterpret_cast<const float4*>(tr + n1 * kTStride + 64 + 4 * tx);
+      const float4 ai1 = *reinterpret_cast<const float4*>(ti + n1 * kTStride + 64 + 4 * tx);
+      pr[4] = ar1.x; pr[5] = ar1.y; pr[6] = ar1.z; pr[7] = ar1.w;
+      pi[4] = ai1.x; pi[5] = ai1.y; pi[6] = ai1.z; pi[7] = ai1.w;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float wr = c1[idx[i]];
-      const float wi = s1[idx[i]];
+      const float2 w = w1(4 * ty + i, n1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        zr[i][j] = fmaf(pr[j], wr, zr[i][j]);
-        zr[i][j] = fmaf(-pi[j], wi, zr[i][j]);
-        zi[i][j] = fmaf(pr[j], wi, zi[i][j]);
-        zi[i][j] = fmaf(pi[j], wr, zi[i][j]);
+      for (int j = 0; j < kJ; ++j) {
+        zr[i][j] = fmaf(pr[j], w.x, zr[i][j]);
+        zr[i][j] = fmaf(-pi[j], w.y, zr[i][j]);
+        zi[i][j] = fmaf(pr[j], w.y, zi[i][j]);
+        zi[i][j] = fmaf(pi[j], w.x, zi[i][j]);
       }
-      idx[i] = (idx[i] + 4 * ty + i) & 127;
     }
   }
+}
+
+__device__ __forceinline__ float magnitude(float re, float im) {
+  return sqrtf(re * re + im * im);
+}
+
+// Steps 3 and 4: row DFTs and the magnitude of all 128 rows, stored in
+// natural order out[128*k1 + k2].
+template <typename TOut, typename Dft>
+__device__ __forceinline__ void row_dft_magnitude(const float* tr,
+                                                  const float* ti, Dft w1,
+                                                  TOut* __restrict__ out) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float zr[4][8], zi[4][8];
+  row_dft<8>(tr, ti, w1, zr, zi);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int k1 = 4 * ty + i;
     float m[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m[j] = sqrtf(zr[i][j] * zr[i][j] + zi[i][j] * zi[i][j]);
+    for (int j = 0; j < 8; ++j) m[j] = magnitude(zr[i][j], zi[i][j]);
     store4(out, k1 * kN2 + 4 * tx, m);
     store4(out, k1 * kN2 + 64 + 4 * tx, m + 4);
+  }
+}
+
+// Steps 3 and 4 of the half spectrum: the row DFTs of rows k2 in [0, 64]
+// and their magnitudes into mag [k1][k2] (a 128 x 128 frame in shared
+// memory), each |Z[k2][k1]| with k2 in [1, 63] also at its mirror
+// [127 - k1][128 - k2]. Rows 0..63 as tiles of row_dft, row 64 one k1 per
+// thread of the first 128.
+template <typename Dft>
+__device__ __forceinline__ void row_dft_half_magnitude(const float* tr,
+                                                       const float* ti,
+                                                       Dft w1, float* mag) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float zr[4][4], zi[4][4];
+  row_dft<4>(tr, ti, w1, zr, zi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k1 = 4 * ty + i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k2 = 4 * tx + q;
+      const float m = magnitude(zr[i][q], zi[i][q]);
+      mag[k1 * kN2 + k2] = m;
+      if (k2 != 0) mag[(kN1 - 1 - k1) * kN2 + kN2 - k2] = m;
+    }
+  }
+  const int k1 = threadIdx.x;
+  if (k1 >= kN1) return;
+  constexpr int k2 = kN2 / 2;
+  float zr1 = 0.f, zi1 = 0.f;
+  for (int n1 = 0; n1 < kN1; ++n1) {
+    const float pr = tr[n1 * kTStride + k2];
+    const float pi = ti[n1 * kTStride + k2];
+    const float2 w = w1(k1, n1);
+    zr1 = fmaf(pr, w.x, zr1);
+    zr1 = fmaf(-pi, w.y, zr1);
+    zi1 = fmaf(pr, w.y, zi1);
+    zi1 = fmaf(pi, w.x, zi1);
+  }
+  mag[k1 * kN2 + k2] = magnitude(zr1, zi1);
+}
+
+// A frame of fp32 magnitudes in shared memory to out, rounded once to TOut.
+template <typename TOut>
+__device__ __forceinline__ void store_frame(const float* mag,
+                                            TOut* __restrict__ out) {
+#pragma unroll
+  for (int r = 0; r < kN / 4 / kThreads; ++r) {
+    const int i = threadIdx.x + r * kThreads;
+    const float4 v = reinterpret_cast<const float4*>(mag)[i];
+    const float m[4] = {v.x, v.y, v.z, v.w};
+    store4(out, 4 * i, m);
   }
 }
 

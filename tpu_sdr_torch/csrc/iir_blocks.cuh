@@ -1,5 +1,5 @@
-// The blocked composite IIR of one frame, shared by iir_summaries.cu and
-// spectrum_iir.cu. The 12th-order cascade is one m = 12 state linear system;
+// The blocked composite IIR of one frame, shared by iir_summaries.cu,
+// spectrum_iir.cu and spectrum_half.cu. The 12th-order cascade is one m = 12 state linear system;
 // a frame of 16384 samples is B = 128 blocks of L = 128 samples, and with
 // AL = A^L the block states follow
 //
@@ -64,6 +64,93 @@ __device__ __forceinline__ float block_chain(const float* __restrict__ al1t,
     z = acc + (live ? f[j * kM + lane] : 0.f);
   }
   return z;
+}
+
+// The composite IIR of one frame from its entry state, written over the
+// frame in shared memory. Per frame:
+//
+//   xw       = x * win                         (optional)
+//   y_zs[j]  = T xw[j]                         (128 x 128 Toeplitz, per block)
+//   f[j]     = P xw[j]; z_in from block_chain
+//   y[j]     = y_zs[j] + z_in[j] @ MT
+//
+// x: the frame (16384 fp32, 16-byte aligned); zs: its entry state (12
+// floats); h: the impulse response (column 0 of the Toeplitz T); pt = P^T
+// (128 x 12), mt = M^T (12 x 128), al1t = AL^T. xs receives y. scratch
+// (kIirScratchFloats, shared) holds h padded with 128 zeros in front
+// (T[i][k] = h[i - k] for i >= k), PT, MT, the forcing and z_in. The block
+// chain runs in warp 0 while the other 15 warps start their share of the
+// Toeplitz product; warp 0 starts its share after the chain. Ends with the
+// block synchronised.
+constexpr int kIirScratchFloats = 2 * kN1 + 4 * kBlocks * kM;
+
+__device__ __forceinline__ void iir_frame(const float* __restrict__ x,
+                                          const float* __restrict__ zs,
+                                          const float* __restrict__ win,
+                                          const float* __restrict__ h,
+                                          const float* __restrict__ pt,
+                                          const float* __restrict__ mt,
+                                          const float* __restrict__ al1t,
+                                          float* xs, float* scratch) {
+  float* hp = scratch;               // hp[128 + d] = h[d], hp[0..127] = 0
+  float* pts = hp + 2 * kN1;         // PT [k][a]
+  float* mts = pts + kN1 * kM;       // MT [a][i]
+  float* f = mts + kM * kN1;         // forcing [j][a]
+  float* z_in = f + kBlocks * kM;    // entry state of each block [j][a]
+
+  const int tid = threadIdx.x;
+  if (tid < 2 * kN1) hp[tid] = tid < kN1 ? 0.f : h[tid - kN1];
+  for (int i = tid; i < kN1 * kM; i += kThreads) {
+    pts[i] = pt[i];
+    mts[i] = mt[i];
+  }
+  load_frame(x, win, xs);
+  __syncthreads();
+  block_forcing(xs, pts, f);
+  __syncthreads();
+
+  const int tx = tid & 15;  // columns i = 16*c + tx
+  const int ty = tid >> 4;  // rows j = 4*ty + r
+  if (tid < 32) {
+    const float z0 = tid < kM ? zs[tid] : 0.f;
+    block_chain(al1t, f, z0, z_in);
+  }
+  // Zero-state response y_zs[j][i] = sum_k h[i - k] xw[j][k]; each row
+  // group starts its sum at k = ty so the two row groups of a warp read
+  // different banks.
+  float y[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) y[r][c] = 0.f;
+  for (int kk = 0; kk < kN1; ++kk) {
+    const int k = (kk + ty) & (kN1 - 1);
+    float xv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) xv[r] = xs[(4 * ty + r) * kN1 + k];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float t = hp[kN1 + 16 * c + tx - k];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) y[r][c] = fmaf(t, xv[r], y[r][c]);
+    }
+  }
+  __syncthreads();  // z_in is complete and every read of xw is done
+
+  // y = y_zs + z_in @ MT, written over the frame.
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 4 * ty + r;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int i = 16 * c + tx;
+      float s = 0.f;
+#pragma unroll
+      for (int a = 0; a < kM; ++a) s = fmaf(z_in[j * kM + a], mts[a * kN1 + i], s);
+      xs[j * kN1 + i] = y[r][c] + s;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace tpu_sdr

@@ -53,9 +53,9 @@ spectrum_bypass_kernel(const TIn* __restrict__ x,
   load_tables(tab, tabs);
   load_frame(x + base, win, xs);
   __syncthreads();
-  column_dft_twiddle<false>(xs, nullptr, tabs, twr, twi, tr, ti);
+  column_dft_twiddle<false>(xs, nullptr, w_n2(tabs), twr, twi, tr, ti);
   __syncthreads();
-  row_dft_magnitude(tr, ti, tabs, out + base);
+  row_dft_magnitude(tr, ti, w_n1(tabs), out + base);
 }
 
 template <typename TIn, typename TOut>

@@ -52,9 +52,9 @@ spectrum_complex_kernel(const TIn* __restrict__ xr,
   load_frame(xr + base, win, xrs);
   load_frame(xi + base, win, xis);
   __syncthreads();
-  column_dft_twiddle<true>(xrs, xis, tabs, twr, twi, tr, ti);
+  column_dft_twiddle<true>(xrs, xis, w_n2(tabs), twr, twi, tr, ti);
   __syncthreads();
-  row_dft_magnitude(tr, ti, tabs, out + base);
+  row_dft_magnitude(tr, ti, w_n1(tabs), out + base);
 }
 
 template <typename TIn, typename TOut>

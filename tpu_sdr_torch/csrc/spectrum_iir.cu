@@ -4,15 +4,11 @@
 // Replaces the TPU kernel tpu_sdr/kernels/pallas/iir_fft.py
 // spectrum_from_state (bypass=False form; body _spectrum_kernel with
 // _masked_scan). Per frame, from its entry state z_start (the fused
-// two-pass pipeline gets it from iir_summaries and the frame chain):
-//
-//   xw       = x * win                         (optional)
-//   y_zs[j]  = T xw[j]                         (128 x 128 Toeplitz, per block)
-//   f[j]     = P xw[j]; z_in from the block chain (iir_blocks.cuh)
-//   y[j]     = y_zs[j] + z_in[j] @ MT
-//
-// and then the DFT and magnitude of y (four_step.cuh), natural order. y
-// never leaves shared memory.
+// two-pass pipeline gets it from iir_summaries and the frame chain), the
+// composite IIR of iir_blocks.cuh (iir_frame: window, Toeplitz
+// zero-state response, forcing, block chain, state injection), then the DFT
+// and magnitude of y (four_step.cuh), natural order. y never leaves shared
+// memory.
 //
 // What bounds it on an H100: the function (window, a 12th-order IIR at
 // about 54 FLOP per sample as six biquads, an FFT and the magnitude) needs
@@ -41,7 +37,7 @@ using namespace tpu_sdr;
 
 constexpr size_t kSmemBytes =
     (size_t(kN) + kTwiddledFloats + kTableFloats) * sizeof(float);
-static_assert(2 * kN1 + 4 * kBlocks * kM <= kTwiddledFloats,
+static_assert(kIirScratchFloats <= kTwiddledFloats,
               "the IIR scratch must fit in the twiddled planes");
 
 template <typename TOut>
@@ -62,71 +58,14 @@ spectrum_iir_kernel(const float* __restrict__ x,
   float* tr = xs + kN;               // [n1][kTStride], k2 fastest
   float* ti = tr + kN1 * kTStride;
   float* tabs = ti + kN1 * kTStride;
-  // IIR scratch inside tr/ti, free until step 2 of the DFT.
-  float* hp = tr;                    // hp[128 + d] = h[d], hp[0..127] = 0
-  float* pts = hp + 2 * kN1;         // PT [k][a]
-  float* mts = pts + kN1 * kM;       // MT [a][i]
-  float* f = mts + kM * kN1;         // forcing [j][a]
-  float* z_in = f + kBlocks * kM;    // entry state of each block [j][a]
 
-  const int tid = threadIdx.x;
   const size_t frame = blockIdx.x;
   load_tables(tab, tabs);
-  if (tid < 2 * kN1) hp[tid] = tid < kN1 ? 0.f : h[tid - kN1];
-  for (int i = tid; i < kN1 * kM; i += kThreads) {
-    pts[i] = pt[i];
-    mts[i] = mt[i];
-  }
-  load_frame(x + frame * kN, win, xs);
+  // The IIR's scratch lies in tr/ti, free until step 2 of the DFT.
+  iir_frame(x + frame * kN, zs + frame * kM, win, h, pt, mt, al1t, xs, tr);
+  column_dft_twiddle<false>(xs, nullptr, w_n2(tabs), twr, twi, tr, ti);
   __syncthreads();
-  block_forcing(xs, pts, f);
-  __syncthreads();
-
-  const int tx = tid & 15;  // columns i = 16*c + tx
-  const int ty = tid >> 4;  // rows j = 4*ty + r
-  if (tid < 32) {
-    const float z0 = tid < kM ? zs[frame * kM + tid] : 0.f;
-    block_chain(al1t, f, z0, z_in);
-  }
-  // Zero-state response y_zs[j][i] = sum_k h[i - k] xw[j][k]; each row
-  // group starts its sum at k = ty so the two row groups of a warp read
-  // different banks.
-  float y[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) y[r][c] = 0.f;
-  for (int kk = 0; kk < kN1; ++kk) {
-    const int k = (kk + ty) & (kN1 - 1);
-    float xv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) xv[r] = xs[(4 * ty + r) * kN1 + k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float t = hp[kN1 + 16 * c + tx - k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) y[r][c] = fmaf(t, xv[r], y[r][c]);
-    }
-  }
-  __syncthreads();  // z_in is complete and every read of xw is done
-
-  // y = y_zs + z_in @ MT, written over the frame.
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = 4 * ty + r;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = 16 * c + tx;
-      float s = 0.f;
-#pragma unroll
-      for (int a = 0; a < kM; ++a) s = fmaf(z_in[j * kM + a], mts[a * kN1 + i], s);
-      xs[j * kN1 + i] = y[r][c] + s;
-    }
-  }
-  __syncthreads();
-  column_dft_twiddle<false>(xs, nullptr, tabs, twr, twi, tr, ti);
-  __syncthreads();
-  row_dft_magnitude(tr, ti, tabs, out + frame * kN);
+  row_dft_magnitude(tr, ti, w_n1(tabs), out + frame * kN);
 }
 
 template <typename TOut>

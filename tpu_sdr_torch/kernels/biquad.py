@@ -13,7 +13,10 @@ and evaluated per frame of B blocks x L samples:
 
 The heavy terms are dense constant matrix products (``torch.matmul``); the
 only sequential work is the per-frame chain z_{f+1} = A^(B*L) z_f + zhat[B-1],
-one 12-dim affine step per frame (``alb_step``).
+one 12-dim affine step per frame (``alb_step``). A per-channel bank
+(``precompute_composite_bank``) holds the same leaves with a leading channel
+axis; its products are batched over the channels
+(``sosfilt_blocked_composite_bank``).
 
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
@@ -104,7 +107,8 @@ def _composite_host_parts(sos: np.ndarray, block: int, frame_blocks: int):
 class BlockedSOSComposite:
     """Device constants of the composite cascade.
 
-    Leaves: T (L,L), M (L,m), P (m,L), APow (B,m,m), W (B*m,B*m), ALB (m,m).
+    Leaves: T (L,L), M (L,m), P (m,L), APow (B,m,m), W (B*m,B*m), ALB (m,m);
+    a per-channel bank has a leading channel axis C on each.
     """
 
     T: torch.Tensor
@@ -116,15 +120,15 @@ class BlockedSOSComposite:
 
     @property
     def block(self) -> int:
-        return self.T.shape[0]
+        return self.T.shape[-1]
 
     @property
     def state_dim(self) -> int:
-        return self.M.shape[1]
+        return self.M.shape[-1]
 
     @property
     def frame_blocks(self) -> int:
-        return self.APow.shape[0]
+        return self.APow.shape[-3]
 
 
 def _expand_block_toeplitz(alpows: torch.Tensor) -> torch.Tensor:
@@ -178,7 +182,9 @@ CANONICAL_FRAMES = 512
 
 
 def _canonical_matmul(a: torch.Tensor, bt: torch.Tensor, rows: int) -> torch.Tensor:
-    """a (..., K) @ bt (K, N), in calls of exactly ``rows`` rows of a.
+    """a (..., K) @ bt (K, N), in calls of exactly ``rows`` rows of a; or,
+    for a per-channel bank, a (C, ..., K) @ bt (C, K, N), channel by
+    channel in batched calls of exactly ``rows`` rows of each channel.
 
     A BLAS library picks its kernel, its split of K and its thread
     partition from the row count, so a row's bits can depend on how many
@@ -196,34 +202,35 @@ def _canonical_matmul(a: torch.Tensor, bt: torch.Tensor, rows: int) -> torch.Ten
     view of its first M rows, with no copy.
     """
     lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    M = a2.shape[0]
+    batch = bt.shape[:-2]  # () or (C,)
+    a2 = a.reshape(*batch, -1, a.shape[-1])
+    M = a2.shape[-2]
     if M % rows:
         a2 = nnf.pad(a2, (0, 0, 0, rows - M % rows))
-    if a2.shape[0] == rows:
+    if a2.shape[-2] == rows:
         out = a2 @ bt
     else:
-        out = a2.new_empty(a2.shape[0], bt.shape[-1])
-        for i in range(0, a2.shape[0], rows):
-            torch.matmul(a2[i : i + rows], bt, out=out[i : i + rows])
-    return out[:M].reshape(*lead, bt.shape[-1])
+        out = a2.new_empty(*batch, a2.shape[-2], bt.shape[-1])
+        for i in range(0, a2.shape[-2], rows):
+            torch.matmul(a2[..., i : i + rows, :], bt, out=out[..., i : i + rows, :])
+    return out[..., :M, :].reshape(*lead, bt.shape[-1])
 
 
-def _composite_frame_terms(op: BlockedSOSComposite, v):
+def _composite_frame_terms(op: BlockedSOSComposite, v, frames: int = CANONICAL_FRAMES):
     """Per-frame parallel work: v (..., F, B, L) windowed input blocks ->
-    (y_zs (..., F, B, L), zhat (..., F, B, m)).
+    (y_zs (..., F, B, L), zhat (..., F, B, m)); for a per-channel bank v is
+    (C, ..., F, B, L).
 
-    Every product runs through ``_canonical_matmul`` (the reference's
-    single-frame guard, generalised to any dispatch shape).
+    Every product runs through ``_canonical_matmul`` in calls of ``frames``
+    frames (the reference's single-frame guard, generalised to any dispatch
+    shape).
     """
     m = op.state_dim
     B = op.frame_blocks
-    rows = CANONICAL_FRAMES * B  # block rows of CANONICAL_FRAMES frames
-    y_zs = _canonical_matmul(v, op.T.T, rows)
-    f = _canonical_matmul(v, op.P.T, rows)  # (..., F, B, m)
-    zhat_flat = _canonical_matmul(
-        f.reshape(*f.shape[:-2], B * m), op.W.T, CANONICAL_FRAMES
-    )
+    rows = frames * B  # block rows of ``frames`` frames
+    y_zs = _canonical_matmul(v, op.T.mT, rows)
+    f = _canonical_matmul(v, op.P.mT, rows)  # (..., F, B, m)
+    zhat_flat = _canonical_matmul(f.reshape(*f.shape[:-2], B * m), op.W.mT, frames)
     return y_zs, zhat_flat.reshape(*f.shape[:-2], B, m)
 
 
@@ -251,20 +258,19 @@ def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor):
     return torch.stack(starts, dim=-2), z
 
 
-def _composite_emit(op, y_zs, zhat, z_starts):
-    """Assemble outputs from per-frame start states z_starts (..., F, m).
-
+def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
+    """Assemble outputs from per-frame start states z_starts (..., F, m)
+    (a bank's: (C, ..., F, m)), products in calls of ``frames`` frames.
     Returns y (..., F, B, L).
     """
     B, m = op.frame_blocks, op.state_dim
     lead = z_starts.shape[:-1]  # (..., F)
+    batch = op.APow.shape[:-3]  # () or (C,)
     # z_end[j] = APow[j] z_start + zhat[j]; z_in[0] = z_start, else z_end[j-1].
-    z_end = _canonical_matmul(
-        z_starts, op.APow.reshape(B * m, m).T, CANONICAL_FRAMES
-    )
+    z_end = _canonical_matmul(z_starts, op.APow.reshape(*batch, B * m, m).mT, frames)
     z_end = z_end.reshape(*lead, B, m) + zhat
     z_in = torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
-    return y_zs + _canonical_matmul(z_in, op.M.T, CANONICAL_FRAMES * B)
+    return y_zs + _canonical_matmul(z_in, op.M.mT, frames * B)
 
 
 def sosfilt_blocked_composite(
@@ -288,6 +294,74 @@ def sosfilt_blocked_composite(
 
     y = _composite_emit(op, y_zs, zhat, z_starts)
     return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)
+
+
+def precompute_composite_bank(
+    sos_bank: np.ndarray,
+    block: int = 128,
+    frame_blocks: int = 128,
+    *,
+    device="cuda",
+    dtype=torch.float32,
+) -> BlockedSOSComposite:
+    """Per-channel composite operators: sos_bank (C, S, 6) -> leaves with a
+    leading channel axis, built on ``device`` (host float64 parts per
+    channel; each channel's W expanded on the device). One (S, 6) design is
+    a 1-channel bank. About (L^2 + (B*m)^2) * 4 bytes a channel (9.5 MB at
+    the default shape).
+    """
+    sos_bank = np.asarray(sos_bank, np.float64)
+    if sos_bank.ndim == 2:
+        # (S, 6) -> (1, S, 6); np.atleast_3d would append the axis instead
+        sos_bank = sos_bank[None]
+    parts = [
+        _composite_host_parts(sos_bank[c], block, frame_blocks)
+        for c in range(sos_bank.shape[0])
+    ]
+    as_t = lambda k: torch.as_tensor(
+        np.stack([p[k] for p in parts]), dtype=dtype, device=device
+    )
+    ap = as_t(3)  # (C, B+1, m, m)
+    m = ap.shape[-1]
+    W = torch.empty((ap.shape[0], frame_blocks * m, frame_blocks * m), dtype=dtype, device=device)
+    for c in range(ap.shape[0]):
+        W[c] = _expand_block_toeplitz(ap[c])
+    return BlockedSOSComposite(T=as_t(0), M=as_t(1), P=as_t(2), APow=ap[:, 1:], W=W, ALB=ap[:, -1])
+
+
+def bank_frames(channels: int) -> int:
+    """Frames of each channel per batched product call of a bank: the
+    ``CANONICAL_FRAMES`` of one call shared among the bank's channels, so a
+    dispatch of 8 channels x 64 frames makes one call per product. The
+    channel count is fixed by the bank, so every dispatch calls each
+    product at one shape (chunked == one-shot)."""
+    return max(1, CANONICAL_FRAMES // channels)
+
+
+def sosfilt_blocked_composite_bank(
+    op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor
+):
+    """Per-channel-coefficients cascade: x (..., C, T), zi (..., C, S, 2) ->
+    (y (..., C, T), zf (..., C, S, 2)).
+
+    The math of ``sosfilt_blocked_composite`` with every constant taken per
+    channel: the channel axis leads each product (a batched call of
+    ``bank_frames(C)`` frames of every channel), and the frame chain steps
+    all channels at once (``alb_step`` broadcasts ALB (C, m, m)). One batched
+    call per product held chunked == one-shot on an H100 with less device
+    time than one call per channel (``scripts/torch_bank_call_shape.py``).
+    """
+    L, B, m = op.block, op.frame_blocks, op.state_dim
+    C = op.T.shape[0]
+    lead = x.shape[:-2]
+    F = x.shape[-1] // (B * L)
+    v = x.reshape(*lead, C, F, B, L).movedim(-4, 0)  # (C, ..., F, B, L)
+    frames = bank_frames(C)
+    y_zs, zhat = _composite_frame_terms(op, v, frames)
+    w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
+    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w)
+    y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
+    return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
 
 
 def pad_sos(sos: np.ndarray, n_sections: int) -> np.ndarray:

@@ -16,6 +16,9 @@ PyTorch version of the same function beside it:
   ``iir_summaries_plain``).
 - ``spectrum_mag_complex``: the magnitude spectrum of IQ frames given as re
   and im planes (``spectrum_complex.cu``; ``spectrum_complex_plain``).
+- ``spectrum_from_state(half_spectrum=True)``, either form: the DFT of rows
+  k2 in [0, 64] only and the mirror |X[N - k]| = |X[k]| of a real frame
+  (``spectrum_half.cu``; ``spectrum_half_plain``).
 
 Each public function runs its plain version exactly when its input lies on
 the CPU, and launches the kernel on a CUDA tensor; it never falls back.
@@ -41,7 +44,9 @@ PRECISIONS = ("highest", "high3", "default")
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # This module's kernels, by the name of their source (``csrc/<name>.cu``).
-KERNELS = ("spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex")
+KERNELS = (
+    "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex", "spectrum_half",
+)
 
 # Launches and plain calls of every kernel of the port (``launch.counts``).
 counts = launch.counts
@@ -275,13 +280,51 @@ def spectrum_iir_plain(
     block chain of ``_block_chain``, y = y_zs + z_in @ MT; then
     ``spectrum_bypass_plain`` of y without a window.
     """
+    return spectrum_bypass_plain(_iir_y(x, z_starts, plan, apply_window), plan, False, out_dtype)
+
+
+def _iir_y(x, z_starts, plan: PallasSOSPlan, apply_window: bool) -> torch.Tensor:
+    """The composite IIR of each frame from its entry state: (F, N) fp32."""
     xw = _blocks(x, plan, apply_window)
     rows = _rows(plan)
     y_zs = biquad._canonical_matmul(xw, plan.T.T, rows)
     f = biquad._canonical_matmul(xw, plan.PT, rows)
     z_in, _ = _block_chain(plan, f, z_starts.float())
     y = y_zs + biquad._canonical_matmul(z_in, plan.MT, rows)
-    return spectrum_bypass_plain(y.reshape(x.shape[0], -1), plan, False, out_dtype)
+    return y.reshape(x.shape[0], -1)
+
+
+def spectrum_half_plain(
+    x: torch.Tensor,
+    z_starts: torch.Tensor | None,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """The plain PyTorch version of ``spectrum_from_state(half_spectrum=
+    True)``: x (F, N) -> |DFT| (F, N), natural order.
+
+    z_starts None is the bypass form (window only), else the IIR form of
+    ``spectrum_iir_plain``. The four-step DFT runs on rows k2 in [0, n2/2]
+    of the column DFT only; the magnitudes, rounded once to ``out_dtype``,
+    fill out[k1, k2] for k2 <= n2/2 and are copied to the mirrored bins
+    out[k1, k2] = out[n1 - 1 - k1, n2 - k2] for k2 > n2/2.
+    """
+    if z_starts is None:
+        y = _blocks(x, plan, apply_window).reshape(x.shape[0], -1)
+    else:
+        y = _iir_y(x, z_starts, plan, apply_window)
+    p = plan.fft_plan
+    n2, n1 = plan.win.shape
+    h = n2 // 2 + 1
+    X = y.reshape(-1, n2, n1)
+    Yr, Yi = p["w2r"][:h] @ X, p["w2i"][:h] @ X
+    Tr = Yr * p["twr"][:h] - Yi * p["twi"][:h]
+    Ti = Yr * p["twi"][:h] + Yi * p["twr"][:h]
+    Zr, Zi = fft._cmatmul(Tr, Ti, p["w1r"].T, p["w1i"].T)  # (F, k2 < h, k1)
+    top = magnitude.magnitude(Zr, Zi).to(OUT_DTYPES[out_dtype]).transpose(1, 2)
+    mirror = top.flip(1)[:, :, 1 : h - 1].flip(2)  # out[n1-1-k1, n2-k2]
+    return torch.cat([top, mirror], dim=2).reshape(x.shape[0], -1)
 
 
 def spectrum_complex_plain(
@@ -333,6 +376,14 @@ def _check_state_dim(plan: PallasSOSPlan):
         raise ValueError(f"the IIR kernels take m = 12 states, got {plan.state_dim}")
 
 
+def _check_z_starts(z_starts: torch.Tensor, F: int, plan: PallasSOSPlan):
+    if tuple(z_starts.shape) != (F, plan.state_dim) or z_starts.dtype != torch.float32:
+        raise ValueError(
+            f"z_starts must be ({F}, {plan.state_dim}) float32, got "
+            f"{tuple(z_starts.shape)} {z_starts.dtype}"
+        )
+
+
 def spectrum_bypass_cuda(
     x: torch.Tensor,
     plan: PallasSOSPlan,
@@ -369,11 +420,7 @@ def spectrum_iir_cuda(
     built or launched."""
     F = _check_frames("x", x, plan, (torch.float32,))
     _check_state_dim(plan)
-    if tuple(z_starts.shape) != (F, plan.state_dim) or z_starts.dtype != torch.float32:
-        raise ValueError(
-            f"z_starts must be ({F}, {plan.state_dim}) float32, got "
-            f"{tuple(z_starts.shape)} {z_starts.dtype}"
-        )
+    _check_z_starts(z_starts, F, plan)
     tab, twr, twi = plan.kernel_constants
     h, pt, mt, al1t = plan.iir_constants
     win = launch.aligned(plan.win)
@@ -443,6 +490,42 @@ def spectrum_complex_cuda(
     return out
 
 
+def spectrum_half_cuda(
+    x: torch.Tensor,
+    z_starts: torch.Tensor | None,
+    plan: PallasSOSPlan,
+    apply_window: bool = True,
+    out_dtype: str = "float32",
+) -> torch.Tensor:
+    """Launch ``spectrum_half.cu`` on x (F, 16384) on a CUDA device: the
+    bypass form (z_starts None; x fp32 or bf16) or the IIR form from the
+    entry states z_starts (F, 12) fp32 (x fp32). Raises if the kernel cannot
+    be built or launched."""
+    iir = z_starts is not None
+    F = _check_frames("x", x, plan, (torch.float32,) if iir else (torch.float32, torch.bfloat16))
+    tab, twr, twi = plan.kernel_constants
+    win = launch.aligned(plan.win)
+    iir_leaves = {}
+    if iir:
+        _check_state_dim(plan)
+        _check_z_starts(z_starts, F, plan)
+        h, pt, mt, al1t = plan.iir_constants
+        iir_leaves = dict(z_starts=z_starts.contiguous(), h=h, PT=pt, MT=mt, AL1T=al1t)
+    _check_leaves(x.device, tab=tab, twr=twr, twi=twi, win=win, **iir_leaves)
+    ptr = lambda name: iir_leaves[name].data_ptr() if iir else None
+    x = launch.aligned(x)
+    out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
+    launch.launch(
+        "spectrum_half", x.device,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr("z_starts"),
+        win.data_ptr() if apply_window else None,
+        ptr("h"), ptr("PT"), ptr("MT"), ptr("AL1T"),
+        tab.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out.data_ptr(), int(out_dtype == "bfloat16"), F,
+    )
+    return out
+
+
 # ---------------------------------------------------------------- public functions
 
 
@@ -477,39 +560,50 @@ def spectrum_from_state(
 ) -> torch.Tensor:
     """x (F, N) frames + per-frame entry states (F, m) -> magnitudes (F, N).
 
-    The keywords are the reference's. Implemented: ``bypass=True`` (window,
-    DFT, magnitude; the entry states are then unused) and ``bypass=False``
-    (the composite IIR from each frame's entry state first; x must be
-    fp32), each with ``apply_window`` True/False, ``out_dtype``
-    "float32"/"bfloat16" (the fp32 result rounded once on store) and
-    ``flat_emit`` True/False (natural-order (F, N) either way).
+    The keywords are the reference's: ``bypass=True`` (window, DFT,
+    magnitude; the entry states are then unused) or ``bypass=False`` (the
+    composite IIR from each frame's entry state first; x must be fp32),
+    each with ``apply_window`` True/False, ``out_dtype`` "float32"/
+    "bfloat16" (the fp32 result rounded once on store), ``flat_emit``
+    True/False (natural-order (F, N) either way), ``half_spectrum`` (the DFT
+    of k2 in [0, 64] only, the other bins copied from their mirrors
+    |X[N - k]| = |X[k]|; not with ``flat_emit``) and ``blocked_output``
+    (the same bits as an (F, n1, n2) view; not with ``flat_emit``).
     ``precision`` ("highest" | "high3" | "default") and ``karatsuba`` are
     validated and accepted: the kernels compute in IEEE fp32 at every tier.
     ``interpret`` has no meaning for a CUDA kernel: the plain version runs
     exactly when x lies on the CPU, and ``interpret=True`` on a CUDA tensor
     raises.
-
-    Not ported yet (NotImplementedError): ``half_spectrum`` and
-    ``blocked_output`` (ROADMAP queue A, kernel row 4).
     """
     _check_options(precision, out_dtype)
-    if half_spectrum or blocked_output:
-        raise NotImplementedError(
-            "spectrum_from_state half_spectrum / blocked_output: ROADMAP "
-            "queue A (kernel row 4)"
-        )
+    if half_spectrum and flat_emit:
+        raise ValueError("flat_emit is not supported with half_spectrum")
+    if flat_emit and blocked_output:
+        raise ValueError("flat_emit and blocked_output are exclusive")
     F = _check_x(x, plan)
     if tuple(z_starts.shape) != (F, plan.state_dim):
         raise ValueError(
             f"z_starts must be ({F}, {plan.state_dim}), got {tuple(z_starts.shape)}"
         )
-    if bypass:
+    if half_spectrum:
+        zs = None if bypass else z_starts
+        if launch.on_cpu("spectrum_half", x, interpret):
+            out = spectrum_half_plain(x, zs, plan, apply_window, out_dtype)
+        else:
+            out = spectrum_half_cuda(x, zs, plan, apply_window, out_dtype)
+    elif bypass:
         if launch.on_cpu("spectrum_bypass", x, interpret):
-            return spectrum_bypass_plain(x, plan, apply_window, out_dtype)
-        return spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
-    if launch.on_cpu("spectrum_iir", x, interpret):
-        return spectrum_iir_plain(x, z_starts, plan, apply_window, out_dtype)
-    return spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
+            out = spectrum_bypass_plain(x, plan, apply_window, out_dtype)
+        else:
+            out = spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
+    elif launch.on_cpu("spectrum_iir", x, interpret):
+        out = spectrum_iir_plain(x, z_starts, plan, apply_window, out_dtype)
+    else:
+        out = spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
+    if blocked_output:
+        n2, n1 = plan.win.shape
+        return out.view(F, n1, n2)
+    return out
 
 
 def iir_summaries(

@@ -19,7 +19,7 @@ from tpu_sdr_torch.kernels.cuda import loader
 # The kernels, by the name of their source (``csrc/<name>.cu``).
 KERNELS = (
     "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex",
-    "fm_demod", "pfb_fold_dft",
+    "fm_demod", "pfb_fold_dft", "spectrum_half", "fft_mag_fused",
 )
 
 # Per kernel: launches of the CUDA kernel ("kernel") and calls of its plain
@@ -37,6 +37,8 @@ _SIGNATURES = {
     "spectrum_complex": "ppipppppiip",
     "fm_demod": "pppppppppppiiffffip",
     "pfb_fold_dft": "ppppppiiiip",
+    "spectrum_half": "pippppppppppiip",
+    "fft_mag_fused": "pppppppppip",
 }
 
 

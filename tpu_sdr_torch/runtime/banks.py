@@ -37,6 +37,32 @@ def prepare_sos(sos, n_sections: int) -> np.ndarray:
     return sos
 
 
+def prepare_bank(sos_bank, channels: int, n_sections: int) -> np.ndarray:
+    """Normalize a per-channel bank: (C, S, 6) array or list of designs
+    (orders may differ; each padded per channel), stability-validated.
+    """
+    if isinstance(sos_bank, (list, tuple)):
+        bank_list = [np.atleast_2d(np.asarray(s, np.float64)) for s in sos_bank]
+    else:
+        arr = np.asarray(sos_bank, np.float64)
+        if arr.ndim == 2:
+            # one (S, 6) design -> a 1-channel bank (np.atleast_3d would
+            # append the axis and mangle the rows)
+            arr = arr[None]
+        bank_list = [arr[c] for c in range(arr.shape[0])]
+    if len(bank_list) != channels:
+        raise ValueError(
+            f"bank has {len(bank_list)} channel filters; config has "
+            f"{channels} channels"
+        )
+    padded = []
+    for c, sos in enumerate(bank_list):
+        sos = biquad.pad_sos(sos, n_sections)
+        validate_stable(sos, label=f"channel {c}")
+        padded.append(sos)
+    return np.stack(padded)
+
+
 def build_bank(
     cfg: PipelineConfig, hann_w: torch.Tensor, fft_plan: dict, sos
 ) -> dict:
@@ -53,3 +79,13 @@ def build_bank(
     if cfg.pallas_geometry_ok():
         pp = iir_fft.build_plan(sos, hann_w, fft_plan, cfg.iir_block, fb)
     return {"op": op, "pp": pp}
+
+
+def build_channel_bank_op(
+    cfg: PipelineConfig, sos_bank_padded: np.ndarray, device
+) -> biquad.BlockedSOSComposite:
+    """Per-channel composite operator stack from a prepared (C, S, 6) bank,
+    built on ``device``."""
+    return biquad.precompute_composite_bank(
+        sos_bank_padded, cfg.iir_block, cfg.fft_size // cfg.iir_block, device=device
+    )

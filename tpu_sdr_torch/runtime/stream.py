@@ -1,10 +1,14 @@
 """The block-stream runtime: frames in, spectra out, state carried.
 
-The counterpart of ``tpu_sdr.runtime.stream`` for real input with
-frame-aligned hop (hop == fft_size). Datapath order, per frame:
+The counterpart of ``tpu_sdr.runtime.stream``. Datapath order, per frame,
+with frame-aligned hop (hop == fft_size):
 
     samples -> Hann window -> {bypass | fixed IIR12 | custom IIR12}
             -> 16K four-step DFT -> magnitude (+ optional outputs)
+
+With hop < fft_size (``_process_stream_hop``) the IIR runs on the raw
+continuous stream, and overlapped frames of it, with the carried history,
+are windowed and transformed (the STFT order).
 
 Magnitude output at the 128x128 geometry goes through the spectrum kernels
 (``kernels/cuda/iir_fft``): BYPASS windows inside the kernel; FIXED/CUSTOM
@@ -13,9 +17,10 @@ kernel with ``apply_window=False`` (the hybrid structure, every tier's
 default), or, with ``fused_two_pass`` at the f32/f32max tiers, run the IIR
 inside two kernels (``iir_summaries``, then ``spectrum_from_state`` from
 each frame's entry state) with only the 12-float frame chain between them.
-Complex (IQ) input runs as stacked re/im planes (``process_stream_complex``,
-kernel ``spectrum_mag_complex``). Other shapes and outputs take the plain
-four-step path.
+A per-channel CUSTOM bank (``upload_sos_bank``) always takes the hybrid
+branch. Complex (IQ) input runs as stacked re/im planes
+(``process_stream_complex``, kernel ``spectrum_mag_complex``). Other shapes
+and outputs take the plain four-step path.
 
 Precision: every matrix product of this module runs in IEEE fp32, at every
 tier. The pipeline checks that PyTorch's float32 matmul precision is
@@ -86,6 +91,14 @@ def check_matmul_precision(expected: str):
         )
 
 
+def _run_iir(op, xw: torch.Tensor, zi: torch.Tensor):
+    """The composite cascade, shared or per-channel bank (leading channel
+    axis on the leaves)."""
+    if op.T.ndim == 3:
+        return biquad.sosfilt_blocked_composite_bank(op, xw, zi)
+    return biquad.sosfilt_blocked_composite(op, xw, zi)
+
+
 def process_stream(
     x: torch.Tensor,
     state: StreamState,
@@ -103,16 +116,20 @@ def process_stream(
 
     (x, state, banks) -> (out dict, new state). ``mode_index``: 0 bypass /
     1 fixed / 2 custom. Each bank is a dict {"op": BlockedSOSComposite,
-    "pp": PallasSOSPlan or None}.
+    "pp": PallasSOSPlan or None}; a per-channel bank's op has a leading
+    channel axis. hop < fft_size runs ``_process_stream_hop``.
 
     Not ported yet (NotImplementedError): ``time_axis`` (ROADMAP queue A,
-    time sharding), hop < fft_size (queue A, hop < N).
+    time sharding).
     """
     if time_axis is not None:
-        raise NotImplementedError("time sharding: ROADMAP queue A")
+        raise NotImplementedError("time sharding: ROADMAP queue A (shard/)")
     n = cfg.fft_size
     if cfg.effective_hop != n:
-        raise NotImplementedError("hop < fft_size: ROADMAP queue A")
+        return _process_stream_hop(
+            x, state, bank_fixed, bank_custom, hann_w, plan,
+            mode_index=mode_index, cfg=cfg, outputs=outputs,
+        )
     t = x.shape[-1]
     n_frames = t // n
     lead = x.shape[:-1]  # (..., channels)
@@ -129,15 +146,16 @@ def process_stream(
         # per-tier precision, karatsuba and flat_emit keywords keep their
         # defaults here; only the store dtype differs by tier.
         kw = dict(bypass=True, out_dtype=_kernel_out_dtype(cfg))
+        banked = mode_index == 2 and bank["op"].T.ndim == 3
         if mode_index == 0:
             mag = iir_fft.spectrum_from_state(flat, zs(), pp, **kw)
             zf = state.sos_state
-        elif cfg.dtype in ("f32max", "f32") and cfg.fused_two_pass:
+        elif cfg.dtype in ("f32max", "f32") and cfg.fused_two_pass and not banked:
             # The fused two-pass pipeline: each frame's zero-state end state
             # from the summaries kernel, the 12-float frame chain, then the
             # IIR from each frame's entry state inside the spectrum kernel.
-            # A per-channel bank must take the hybrid branch once banks are
-            # ported (the reference's ``banked`` test, JAX stream.py).
+            # A per-channel bank takes the hybrid branch: the kernels hold
+            # one shared cascade (``pp``).
             m = pp.state_dim
             w = iir_fft.iir_summaries(flat, pp).reshape(*lead, n_frames, m)
             z_starts, z_final = biquad.frame_chain(
@@ -147,9 +165,7 @@ def process_stream(
             zf = z_final.reshape(*lead, m // 2, 2)
         else:
             xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
-            y, zf = biquad.sosfilt_blocked_composite(
-                bank["op"], xw, state.sos_state
-            )
+            y, zf = _run_iir(bank["op"], xw, state.sos_state)
             mag = iir_fft.spectrum_from_state(
                 _maybe_bf16_y(cfg, y).reshape(-1, n), zs(), pp,
                 apply_window=False, **kw,
@@ -164,7 +180,7 @@ def process_stream(
             zf = state.sos_state
         else:
             op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
-            y, zf = biquad.sosfilt_blocked_composite(op, xw, state.sos_state)
+            y, zf = _run_iir(op, xw, state.sos_state)
         # 3. Per-frame DFT of the real frames + output decode.
         frames = y.reshape(*lead, n_frames, n)
         fr, fi = fft.fft_4step(frames, None, plan)
@@ -174,6 +190,59 @@ def process_stream(
         sos_state=zf,
         window_phase=(state.window_phase + t) % n,
         frame_count=state.frame_count + n_frames,
+    )
+    return out, new_state
+
+
+def _process_stream_hop(
+    x, state, bank_fixed, bank_custom, hann_w, plan, *, mode_index, cfg, outputs,
+):
+    """Overlapped (STFT) framing: hop < fft_size, with carried history.
+
+    The IIR runs on the raw continuous stream; frames of fft_size samples,
+    hop apart, are cut from [history, y] and windowed and transformed. The
+    state carries the last (fft_size - hop) filtered samples, so chunked
+    streaming equals a one-shot run bit for bit. Magnitude output at the
+    128x128 geometry takes the spectrum kernel with the window inside it
+    (the raw frames, at every tier); other outputs the plain path.
+    """
+    n = cfg.fft_size
+    hop = cfg.effective_hop
+    t = x.shape[-1]
+    lead = x.shape[:-1]
+    n_frames = t // hop
+
+    # 1. IIR on the raw continuous stream.
+    if mode_index == 0:
+        y, zf = x, state.sos_state
+    else:
+        op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
+        y, zf = _run_iir(op, x, state.sos_state)
+
+    # 2. Overlapped frames from the left context + this chunk.
+    ext = torch.cat([state.history, y], dim=-1)  # (..., n - hop + t)
+    frames = ext.unfold(-1, n, hop)  # (..., F, n), a view
+    new_history = ext[..., t:].contiguous()
+
+    # 3. Window + DFT + decode.
+    if cfg.pallas_geometry_ok() and outputs == "magnitude":
+        pp = (bank_fixed if mode_index != 2 else bank_custom)["pp"]
+        flat = frames.reshape(-1, n)
+        zs = torch.zeros((flat.shape[0], pp.state_dim), dtype=torch.float32, device=x.device)
+        mag = iir_fft.spectrum_from_state(
+            flat, zs, pp, bypass=True, apply_window=True,
+            out_dtype=_kernel_out_dtype(cfg),
+        )
+        out = {"magnitude": mag.reshape(*lead, n_frames, n)}
+    else:
+        fr, fi = fft.fft_4step(frames * hann_w, None, plan)
+        out = _decode_outputs(cfg, fr, fi, outputs)
+
+    new_state = StreamState(
+        sos_state=zf,
+        window_phase=(state.window_phase + t) % n,
+        frame_count=state.frame_count + n_frames,
+        history=new_history,
     )
     return out, new_state
 
@@ -201,7 +270,7 @@ def process_stream_complex(
     linearity, X = FFT(re) + i*FFT(im).
     """
     if time_axis is not None:
-        raise NotImplementedError("time sharding: ROADMAP queue A")
+        raise NotImplementedError("time sharding: ROADMAP queue A (shard/)")
     n = cfg.fft_size
     if not (cfg.pallas_geometry_ok() and outputs == "magnitude" and cfg.effective_hop == n):
         out, new_state = process_stream(
@@ -221,7 +290,7 @@ def process_stream_complex(
         y, zf, apply_window = xs, state.sos_state, True
     else:
         xw = (xs.reshape(2, *lead, n_frames, n) * hann_w).reshape(2, *lead, t)
-        y, zf = biquad.sosfilt_blocked_composite(bank["op"], xw, state.sos_state)
+        y, zf = _run_iir(bank["op"], xw, state.sos_state)
         apply_window = False
     yr, yi = y[0], y[1]
     # bf16_io: only the filtered planes reach the kernel as bf16. In BYPASS
@@ -295,9 +364,17 @@ class SpectrumPipeline:
         )
 
     def upload_sos_bank(self, sos_bank):
-        raise NotImplementedError(
-            "per-channel filter banks (upload_sos_bank): ROADMAP queue A"
-        )
+        """Per-channel coefficient reload of the custom bank.
+
+        ``sos_bank``: (channels, sections, 6) array, or a list of
+        per-channel SOS arrays (orders may differ; each is padded to the
+        engine depth), stability-validated per channel. The bank keeps the
+        fixed bank's kernel plan for the spectrum after the IIR (a banked
+        CUSTOM dispatch takes the hybrid branch).
+        """
+        padded = banks.prepare_bank(sos_bank, self.cfg.channels, self.cfg.n_sections)
+        op = banks.build_channel_bank_op(self.cfg, padded, self.device)
+        self.bank_custom = {"op": op, "pp": self.bank_fixed["pp"]}
 
     def _check_iq_state(self, state: StreamState):
         expected = (2, self.cfg.channels, self.cfg.n_sections, 2)
