@@ -196,6 +196,41 @@ def test_spectrum_complex_kernel_matches_plain(cuda_plan, frames, apply_window, 
     assert snr_db(ref.float(), got.float()) >= SNR_FLOOR_DB[out_dtype]
 
 
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+@pytest.mark.parametrize("kind", ["bypass", "complex"])
+def test_radix_kernels_snr_vs_float64_fft(cuda_plan, frames, kind, apply_window):
+    """Rows 1 and 5 (radix FFTs) against a float64 NumPy FFT's magnitude at
+    F = 8, fp32 in and out: each kernel's SNR is at least its plain
+    version's (the dense four-step in fp32) minus 1 dB."""
+    xi_np = np.random.default_rng(7).standard_normal((8, N)).astype(np.float32)
+    x, xi = torch.as_tensor(frames, device="cuda"), torch.as_tensor(xi_np, device="cuda")
+    win = cuda_plan.win.reshape(-1).double().cpu().numpy() if apply_window else 1.0
+    if kind == "bypass":
+        got = iir_fft.spectrum_bypass_cuda(x, cuda_plan, apply_window)
+        plain = iir_fft.spectrum_bypass_plain(x, cuda_plan, apply_window)
+        z = frames.astype(np.float64)
+    else:
+        got = iir_fft.spectrum_complex_cuda(x, xi, cuda_plan, apply_window)
+        plain = iir_fft.spectrum_complex_plain(x, xi, cuda_plan, apply_window)
+        z = frames.astype(np.float64) + 1j * xi_np.astype(np.float64)
+    ref = torch.as_tensor(np.abs(np.fft.fft(z * win, axis=-1)))
+    assert snr_db(ref, got) >= snr_db(ref, plain) - 1.0
+
+
+def test_complex_kernel_takes_unaligned_view(cuda_plan, frames):
+    """Row 5 as row 1: planes that start off a 16-byte boundary give the
+    same bits as aligned ones (the wrapper copies them)."""
+    x = torch.as_tensor(frames, device="cuda")
+    buf = torch.empty(2 * x.numel() + 2, device="cuda")
+    buf[1 : 1 + x.numel()] = x.reshape(-1)
+    buf[x.numel() + 2 :] = x.flip(0).reshape(-1)
+    xr, xi = buf[1 : 1 + x.numel()].view(8, N), buf[x.numel() + 2 :].view(8, N)
+    assert xr.data_ptr() % 16 != 0
+    got = iir_fft.spectrum_complex_cuda(xr, xi, cuda_plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, iir_fft.spectrum_complex_cuda(x, x.flip(0).contiguous(), cuda_plan))
+
+
 def test_new_kernels_frames_independent_of_launch(cuda_plan, frames, entry_states):
     x = torch.as_tensor(frames, device="cuda")
     zs = torch.as_tensor(entry_states, device="cuda")

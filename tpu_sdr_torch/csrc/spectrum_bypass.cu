@@ -1,42 +1,109 @@
-// Window + 16384-point four-step DFT + magnitude, one thread block per frame.
+// Window + 16384-point four-step FFT + magnitude of real frames, one thread
+// block per frame.
 //
 // Replaces the TPU kernel tpu_sdr/kernels/pallas/iir_fft.py
 // spectrum_from_state (bypass=True form; body _spectrum_kernel -> _fft_mag,
-// _cdots). The DFT steps are those of four_step.cuh.
+// _cdots).
 //
 // What bounds it on an H100: the function (an FFT of a real frame and its
-// magnitude, about 0.64 MFLOP per frame) takes less time in arithmetic
-// than in its 64 KB read and 64 KB written (fp32), so its floor is memory
-// traffic at 3.35 TB/s. As written here (the DFT as two dense 128x128
-// products) a frame costs 2*128^3 real FMAs in step 1 and 4*128^3 in
-// step 3, 25.2 MFLOP, about 40 times the FFT's count: at 67 TFLOP/s fp32
-// on CUDA cores that is about 4 times the memory floor, so this kernel is
-// bound by the rate of fp32 FMAs, well above the function's floor; a radix
-// FFT is the way down. The design keeps everything else off the FMA path:
+// magnitude, about 0.6 MFLOP a frame) reads 64 KB and writes 64 KB a frame
+// (fp32); at 3.35 TB/s against 67 TFLOP/s fp32 its floor is memory
+// traffic. Dense 128-point DFTs (25.2 MFLOP a frame, as four_step.cuh's
+// kernels run them) would be bound by the fp32 FMA rate instead; the radix
+// FFTs of fft128.cuh do about 0.5 MFLOP a frame, so what is left is moving
+// the bytes and keeping enough frames in flight to hide their latency:
 //
-// - The frame (64 KB) and the twiddled intermediate (2 x 66 KB, padded
-//   rows) stay in shared memory (198 KiB of dynamic shared memory, one block
-//   per SM). Device memory sees each input byte once and each output byte
-//   once.
-// - The DFT matrices are four 128-entry tables in shared memory and each
-//   thread works on a register tile (four_step.cuh).
+// - No input staging: each thread loads its 16 rows of four consecutive
+//   columns straight into registers (16-byte loads, a warp reads 512
+//   contiguous bytes a row; 8-byte loads for bf16 input), times the window.
+// - Real input, Hermitian column FFT: columns 2P and 2P + 1 are one complex
+//   128-point FFT, Z = FFT(x[:, 2P] + i x[:, 2P+1]), split as
+//   Y_2P[k] = (Z[k] + conj Z[-k]) / 2 and Y_2P+1[k] = (Z[k] - conj Z[-k]) / 2i,
+//   and only rows k2 in [0, 64] are kept (Y[128 - k2] = conj Y[k2]). Stage
+//   2's thread t takes c = t and 16 - t (t = 0: c = 0 and 8), so Z[k] and
+//   Z[-k] meet in one thread: 9 rows for t = 0, 8 for the others.
+// - Rows 0..63 run as lanes of the 8 warps (two rounds), row 64 in 8 lanes
+//   of warp 0. The magnitudes go to shared memory in natural order, each
+//   |Z[k2][k1]| with k2 in [1, 63] also at its mirror [127 - k1][128 - k2]
+//   (|X[N - k]| = |X[k]|; a mirrored bin carries its partner's bits), and
+//   leave as 16-byte stores rounded once to the output type.
+// - Shared memory: the exchange buffer (32 KiB), the twiddled rows (65 x
+//   130 complex, 66 KiB, the magnitudes over them) and the tables: 100 KiB,
+//   two blocks (two frames) per SM; __launch_bounds__(256, 2) caps
+//   registers at 128 a thread.
 //
-// Arithmetic is IEEE fp32 with fp32 accumulation at every precision tier.
-// Each frame's result depends only on that frame: no atomics, a fixed
-// summation order, and nothing shared between blocks, so the bits of a
-// frame do not depend on how many frames a launch holds.
+// IEEE fp32 at every precision tier. Each frame's result depends only on
+// that frame: no atomics, a fixed order of operations, nothing shared
+// between blocks, so the bits of a frame do not depend on how many frames a
+// launch holds.
 
-#include "four_step.cuh"
+#include "fft128.cuh"
 
 namespace {
 
-using namespace tpu_sdr;
+using namespace tpu_sdr::fft128;
+using tpu_sdr::kN;
+using tpu_sdr::kN1;
+using tpu_sdr::kN2;
+using tpu_sdr::store4;
 
+constexpr int kRows = kN2 / 2 + 1;  // k2 in [0, 64]
 constexpr size_t kSmemBytes =
-    (size_t(kN) + kTwiddledFloats + kTableFloats) * sizeof(float);
+    size_t(kExchangeFloats + kRows * kRowStride + kTableFloats) * sizeof(float);
+
+// Rows k2 (of Z[k] with partner Z[kk] = Z[128 - k2]) of a column pair, split
+// into the two real columns n1 and n1 + 1, twiddled, into T.
+__device__ __forceinline__ void emit_rows(float* tw_rows, const float* __restrict__ twr,
+                                          const float* __restrict__ twi, int k2, int n1,
+                                          float2 zk, float2 zkk) {
+  const float2 ya = make_float2((zk.x + zkk.x) * 0.5f, (zk.y - zkk.y) * 0.5f);
+  const float2 yb = make_float2((zk.y + zkk.y) * 0.5f, (zkk.x - zk.x) * 0.5f);
+  const float2 a = __ldg(reinterpret_cast<const float2*>(twr + k2 * kN1 + n1));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(twi + k2 * kN1 + n1));
+  const float2 ta = make_float2(ya.x * a.x - ya.y * b.x, ya.x * b.x + ya.y * a.x);
+  const float2 tb = make_float2(yb.x * a.y - yb.y * b.y, yb.x * b.y + yb.y * a.y);
+  *reinterpret_cast<float4*>(tw_rows + k2 * kRowStride + 2 * n1) =
+      make_float4(ta.x, ta.y, tb.x, tb.y);
+}
+
+// Stage 2 of the column FFT of pair n1/2 and its split: thread t's rows.
+__device__ __forceinline__ void column_pair_rows(const float2* e, float* tw_rows,
+                                                 const float* __restrict__ twr,
+                                                 const float* __restrict__ twi, int t,
+                                                 int lane, int n1, W128 w) {
+  const int c0 = t == 0 ? 0 : t;
+  const int c1 = t == 0 ? 8 : 16 - t;
+  float2 za[8], zb[8];  // Z[c0 + 16d], Z[c1 + 16d]
+  column_stage2(e, c0, lane, w, za);
+  column_stage2(e, c1, lane, w, zb);
+  if (t == 0) {
+    // c = 0: Z[16d] with Z[16(8 - d)]; c = 8: Z[8 + 16d] with Z[8 + 16(7 - d)].
+#pragma unroll
+    for (int d = 0; d <= 4; ++d) emit_rows(tw_rows, twr, twi, 16 * d, n1, za[d], za[(8 - d) & 7]);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, 8 + 16 * d, n1, zb[d], zb[7 - d]);
+  } else {
+    // Z[t + 16d] with Z[16 - t + 16(7 - d)], and the other way round.
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, t + 16 * d, n1, za[d], zb[7 - d]);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, c1 + 16 * d, n1, zb[d], za[7 - d]);
+  }
+}
+
+// |Z[k2][t + 8v]| into the frame's magnitudes and, for k2 in [1, 63], at
+// the mirror.
+__device__ __forceinline__ void put_magnitudes(float* mag, int k2, int t, const float (&m)[16]) {
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    const int k1 = t + 8 * v;
+    mag[k1 * kN2 + k2] = m[v];
+    if (k2 != 0) mag[(kN1 - 1 - k1) * kN2 + kN2 - k2] = m[v];
+  }
+}
 
 template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 spectrum_bypass_kernel(const TIn* __restrict__ x,
                        const float* __restrict__ win,
                        const float* __restrict__ tab,
@@ -44,36 +111,86 @@ spectrum_bypass_kernel(const TIn* __restrict__ x,
                        const float* __restrict__ twi,
                        TOut* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // [n2][n1], the windowed frame
-  float* tr = xs + kN;               // [n1][kTStride], k2 fastest
-  float* ti = tr + kN1 * kTStride;
-  float* tabs = ti + kN1 * kTStride;
-
+  float2* e = reinterpret_cast<float2*>(smem);  // [slot][lane]
+  float* rows = smem + kExchangeFloats;         // T [k2][kRowStride], then |Z| [k1][k2]
+  float* tabs = rows + kRows * kRowStride;
+  const W128 wc{tabs, tabs + 128}, wr{tabs + 256, tabs + 384};
+  const int w = threadIdx.x / kLanes;  // a in the column and row stage 1, t in stage 2
+  const int lane = threadIdx.x % kLanes;
   const size_t base = size_t(blockIdx.x) * kN;
+
   load_tables(tab, tabs);
-  load_frame(x + base, win, xs);
+  // Rows n2 = w + 8b of columns 4*lane .. 4*lane + 3: pairs 2*lane, 2*lane + 1.
+  float2 z0[16], z1[16];
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    const int i = (w + 8 * b) * kN1 + 4 * lane;
+    float v[4];
+    load4(x + base, i, v);
+    if (win != nullptr) {
+      float wv[4];
+      load4(win, i, wv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] *= wv[q];
+    }
+    z0[b] = make_float2(v[0], v[1]);
+    z1[b] = make_float2(v[2], v[3]);
+  }
+  __syncthreads();  // tables
+  column_stage1(z0, w, wc);
+  exchange_store(e, z0, w, lane);
+  column_stage1(z1, w, wc);
   __syncthreads();
-  column_dft_twiddle<false>(xs, nullptr, w_n2(tabs), twr, twi, tr, ti);
+  column_pair_rows(e, rows, twr, twi, w, lane, 4 * lane, wc);
+  __syncthreads();  // every read of the first pair's slots done
+  exchange_store(e, z1, w, lane);
   __syncthreads();
-  row_dft_magnitude(tr, ti, w_n1(tabs), out + base);
+  column_pair_rows(e, rows, twr, twi, w, lane, 4 * lane + 2, wc);
+  __syncthreads();
+
+  const bool row64 = w == 0 && lane < 8;  // row 64: a' (stage 1) and t (stage 2) = lane
+  row_stage1(rows + lane * kRowStride, w, wr);
+  row_stage1(rows + (lane + 32) * kRowStride, w, wr);
+  if (row64) row_stage1(rows + 64 * kRowStride, lane, wr);
+  __syncthreads();
+  float m0[16], m1[16], m2[16];
+  row_stage2(rows + lane * kRowStride, w, wr, m0);
+  row_stage2(rows + (lane + 32) * kRowStride, w, wr, m1);
+  if (row64) row_stage2(rows + 64 * kRowStride, lane, wr, m2);
+  __syncthreads();  // the magnitudes overlay the rows
+  float* mag = rows;
+  put_magnitudes(mag, lane, w, m0);
+  put_magnitudes(mag, lane + 32, w, m1);
+  if (row64) {
+#pragma unroll
+    for (int v = 0; v < 16; ++v) mag[(lane + 8 * v) * kN2 + kN2 / 2] = m2[v];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kN / 4 / kThreads; ++r) {
+    const int i = threadIdx.x + r * kThreads;
+    const float4 v = reinterpret_cast<const float4*>(mag)[i];
+    const float m[4] = {v.x, v.y, v.z, v.w};
+    store4(out + base, 4 * i, m);
+  }
 }
 
 template <typename TIn, typename TOut>
 int launch(const void* x, const float* win, const float* tab, const float* twr,
            const float* twi, void* out, int frames, cudaStream_t stream) {
-  return launch_frames(spectrum_bypass_kernel<TIn, TOut>, kSmemBytes, frames,
-                       stream, static_cast<const TIn*>(x), win, tab, twr, twi,
-                       static_cast<TOut*>(out));
+  return tpu_sdr::fft128::launch_frames(spectrum_bypass_kernel<TIn, TOut>, kSmemBytes, frames,
+                               stream, static_cast<const TIn*>(x), win, tab, twr, twi,
+                               static_cast<TOut*>(out));
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (frames, 16384) fp32 or bf16; win: (16384,) fp32 or null (no window);
-// tab: (4, 128) fp32 = W_N2 row 1 re, im, W_N1 row 1 re, im;
-// twr, twi: (128, 128) fp32 twiddle planes [k2][n1];
-// out: (frames, 16384) fp32 or bf16. All contiguous, on the current device.
+// x: (frames, 16384) fp32 or bf16, 16-byte aligned; win: (16384,) fp32 or
+// null (no window); tab: (4, 128) fp32 = W_N2 row 1 re, im, W_N1 row 1 re,
+// im (W128^j); twr, twi: (128, 128) fp32 twiddle planes [k2][n1]; out:
+// (frames, 16384) fp32 or bf16. All contiguous, on the current device.
 // Returns the CUDA error code of the launch (0 on success).
 int tpu_sdr_spectrum_bypass(const void* x, int in_bf16, const float* win,
                             const float* tab, const float* twr,
