@@ -13,7 +13,8 @@ Phases (each raises on failure):
      SNR floors (and a relative-error bound for the IIR summaries' states);
      the half spectrum (both forms) with its mirrored bins bitwise equal to
      their partners and ``blocked_output`` the same bits, and
-     ``fft_mag_fused`` with the plan's planes and with planes scaled by 0.5;
+     ``fft_mag_fused`` with the plan's planes, planes scaled by 0.5 and
+     random planes;
      the FM kernel at 8 x 2^20 samples (atol 1e-6, and whether it is
      bitwise) and the PFB kernel at the channelizer's real and IQ shapes
      (1e-5 of the output scale);
@@ -54,9 +55,11 @@ Phases (each raises on failure):
        one-shot bitwise, the bank == 4 receivers bitwise;
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
-     main path's shape, and the least time the card could take for it; the
-     radix-FFT kernels (rows 1 and 5) and their plain versions against a
-     float64 FFT (the kernel at most 1 dB below its plain version); each
+     main path's shape, and the least time the card could take for it
+     (``fft_mag_fused`` also beside its dense tensor-core floor); rows 1,
+     2, 5 and 6 and their plain versions against a float64 reference (row 2
+     from rest: window, ``sosfilt``, FFT; the kernel at most 1 dB below its
+     plain version); each
      path's end-to-end dispatch time (the facade's with its device->host
      copy), compared paths in alternating turns;
   6. profile: device time per dispatch by kernel, launches per dispatch,
@@ -88,6 +91,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 
 N = 16384
 CHANNELS, FRAMES = 8, 64  # bench.py's headline dispatch shape
@@ -642,10 +646,10 @@ def fft64_snr(name: str, ref: torch.Tensor, kernel: torch.Tensor, plain: torch.T
     check(k >= p - 1.0, (name, "vs float64", k, p))
 
 
-def phase_timing(pp, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
+def phase_timing(pp, sos, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
     """Kernel, plain and library times and bounds at the main path's shape
     (F = 512, fp32 in and out, as the paths call each kernel), then each
-    path's dispatch wall time."""
+    path's dispatch wall time. ``sos``: the design of ``pp``."""
     from tpu_sdr_torch.kernels.cuda import iir_fft
 
     F = CHANNELS * FRAMES
@@ -697,6 +701,13 @@ def phase_timing(pp, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
            None,
            bound(F * N * 4 * 2 + F * m * 4 + consts_dft + consts_iir,
                  F * (N + 54 * N + fft_flops + 4 * N)))
+    # From rest (zs = 0), each frame is the float64 window (the kernel's
+    # fp32 values) -> sosfilt -> FFT.
+    zero = torch.zeros_like(zs)
+    w64 = pp.win.reshape(-1).double().cpu().numpy()
+    y64 = np.stack([sps.sosfilt(sos, f.astype(np.float64) * w64) for f in x.cpu().numpy()])
+    fft64_snr("spectrum_iir", torch.fft.fft(torch.as_tensor(y64, device="cuda")).abs(),
+              iir_fft.spectrum_iir_cuda(x, zero, pp), iir_fft.spectrum_iir_plain(x, zero, pp))
     # A complex FFT (5 N log2 N) and the magnitude; two planes in.
     record("spectrum_complex",
            lambda: iir_fft.spectrum_complex_cuda(x, xi, pp, False, "float32"),
@@ -1196,6 +1207,15 @@ def mirrored(out: torch.Tensor) -> bool:
     return torch.equal(g[:, :, 65:], g.flip(1)[:, :, 1:64].flip(2))
 
 
+def fused_planes(fplan: dict) -> dict:
+    """Row 6's plane sets: the plan's, the plan's x 0.5 (|X| / 8) and random
+    planes from a seeded NumPy generator (no DFT structure at all)."""
+    rng = np.random.default_rng(12)
+    return {"plan": fplan, "plan x0.5": {k: v * 0.5 for k, v in fplan.items()},
+            "random": {k: torch.as_tensor(rng.standard_normal(v.shape), dtype=torch.float32,
+                                          device="cuda") for k, v in fplan.items()}}
+
+
 def phase_half_and_fused_vs_plain(pp, fplan: dict) -> dict:
     """Rows 4 and 6 against their plain versions at F = 1, 8 and 512;
     returns the max abs error of each at F = 512 (the half kernel's bypass
@@ -1233,21 +1253,20 @@ def phase_half_and_fused_vs_plain(pp, fplan: dict) -> dict:
             blocked = all(torch.equal(run(half_spectrum=h, blocked_output=True), o.view(F, 128, 128))
                           for h, o in ((False, full), (True, half)))
             torch.cuda.synchronize()
-            # Row 4's computed bins were row 1's bits while both ran the dense
-            # DFT; row 1 (bypass) is a radix FFT now, so they agree within
-            # HALF_REL only. Row 2 (iir) is still dense.
+            # Row 4's computed bins were rows 1's and 2's bits while all three
+            # ran the dense DFT; rows 1 and 2 are radix FFTs now, so they agree
+            # within HALF_REL only.
             print(f"[3] spectrum_half {'bypass' if bypass else 'iir':6s} F={F:3d}: half vs full "
                   f"max_rel={rel:.2e} (tol {HALF_REL}; row 4's computed bins, k2 <= 64, held "
-                  f"against the full kernel within it: bitwise equality with row 1 ended "
-                  f"with its radix FFT; bitwise now: {same}); mirrored bins bitwise: "
+                  f"against the full kernel within it: bitwise equality with rows 1, 2 ended "
+                  f"with their radix FFTs; bitwise now: {same}); mirrored bins bitwise: "
                   f"{mirrored(half)}; blocked_output the same bits (full and half): {blocked}")
             check(rel < HALF_REL and mirrored(half) and blocked, ("half vs full", F, bypass))
-        for scale in (1.0, 0.5):
-            planes = {k: v * scale for k, v in fplan.items()}
-            err = _compare(f"fft_mag_fused F={F:3d} planes x{scale}",
+        for label, planes in fused_planes(fplan).items():
+            err = _compare(f"fft_mag_fused F={F:3d} {label:12s}",
                            spectrum.fft_mag_fused_cuda(x32, win, planes),
                            spectrum.fft_mag_fused_plain(x32, win, planes), SNR_FLOOR_DB["float32"])
-            if main and scale == 1.0:
+            if main and label == "plan":
                 errs["fft_mag_fused"] = err
     return errs
 
@@ -1488,6 +1507,17 @@ def phase_new_timing(pp, fplan: dict, x_np: np.ndarray, steps: dict) -> tuple[di
            lambda: torch.abs(torch.fft.fft(x * win)),
            bound(F * N * 4 * 2 + N * 4 + 6 * N * 4, F * (N + fft_flops + 4 * N)),
            "the plan's six planes")
+    # Arbitrary planes leave no FFT: the kernel's floor is its dense work,
+    # two complex 128^3 products a frame (2 real + 4 real GEMMs of 2 x 128^3
+    # FLOP), six bf16 passes each on the tensor cores.
+    dense = F * 6 * 2 * 128**3
+    floor_ms = 6 * dense / PEAK_BF16_FLOPS * 1e3
+    print(f"[5] fft_mag_fused dense floor: {dense / 1e9:.3f} GFLOP x 6 bf16 passes at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s = {floor_ms:.4f} ms -> kernel at "
+          f"{floor_ms / timing['fft_mag_fused']['ms']:.1%} of it (the bytes bound "
+          f"{timing['fft_mag_fused']['bound_ms']:.4f} ms assumes an FFT)")
+    fft64_snr("fft_mag_fused", torch.fft.fft(x.double() * win.double()).abs(),
+              spectrum.fft_mag_fused_cuda(x, win, fplan), spectrum.fft_mag_fused_plain(x, win, fplan))
 
     samples = CHANNELS * FRAMES * N
     walls = {}
@@ -1526,7 +1556,7 @@ def main():
     launches.update(phase_fused(pipes, x_np, sos_custom))
     launches["spectrum_complex"] = phase_iq(pipe, xc_np, sos_custom)
     steps = paths(pipe, pipes, x_np, xc_np)
-    walls, timing = phase_timing(pp, x_np, steps)
+    walls, timing = phase_timing(pp, sos_custom, x_np, steps)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
     fplan = pipe.plan

@@ -1,6 +1,6 @@
 """Where a spectrum kernel's time goes: phase timestamps inside one launch.
 
-    python3 scripts/torch_spectrum_phases.py [spectrum_bypass spectrum_complex ...]
+    python3 scripts/torch_spectrum_phases.py [spectrum_bypass spectrum_complex spectrum_iir fft_mag_fused]
 
 Builds an instrumented copy of each named kernel (``tpu_sdr_torch/csrc/
 <name>.cu``, default: the two radix-FFT kernels) under
@@ -10,8 +10,12 @@ kernel's own body, and at its end. Launches it once at the main path's
 shape (F = 512 frames, fp32 in and out, no window) after a warm-up, then
 prints per phase the mean and max SM cycles over the blocks, each block's
 life (mean, min, max ns) and how the blocks' start times spread over the
-launch (the waves). The instrumented copy is for reading the schedule only:
-its stores add a few cycles a phase. Needs one CUDA device.
+launch (the waves). ``spectrum_iir`` runs with zero entry states (its IIR,
+in a header, is one phase); ``fft_mag_fused`` with the plan's planes is
+persistent (a block walks several frames, six phases each), so a phase's
+statistics cover the blocks that reached it. The instrumented copy is for
+reading the schedule only: its stores add a few cycles a phase. Needs one
+CUDA device.
 """
 
 from __future__ import annotations
@@ -85,17 +89,24 @@ def build(name: str) -> ctypes.CDLL:
     return dll
 
 
-def run(name: str, pp) -> None:
+def run(name: str, pp, plan: dict) -> None:
     dll = build(name)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((F, N), device="cuda", generator=gen)
     xi = torch.randn((F, N), device="cuda", generator=gen)
+    zs = torch.zeros((F, 12), device="cuda")
     out = torch.empty((F, N), device="cuda")
     tab, twr, twi = pp.kernel_constants
     stream = torch.cuda.current_stream().cuda_stream
     consts = (tab.data_ptr(), twr.data_ptr(), twi.data_ptr(), out.data_ptr(), 0, F, stream)
     if name == "spectrum_complex":
         args = (x.data_ptr(), xi.data_ptr(), 0, None, *consts)
+    elif name == "spectrum_iir":
+        iir = [t.data_ptr() for t in pp.iir_constants]
+        args = (x.data_ptr(), zs.data_ptr(), None, *iir, *consts)
+    elif name == "fft_mag_fused":
+        planes = [plan[k].data_ptr() for k in ("w2r", "w2i", "twr", "twi", "w1r", "w1i")]
+        args = (x.data_ptr(), pp.win.data_ptr(), *planes, out.data_ptr(), F, stream)
     else:
         args = (x.data_ptr(), 0, None, *consts)
     fn = getattr(dll, f"tpu_sdr_{name}")
@@ -104,18 +115,23 @@ def run(name: str, pp) -> None:
     torch.cuda.synchronize()
     ts = np.zeros((F, MAX_PHASES, 2), dtype=np.uint64)
     assert dll.tpu_sdr_read_phases(ctypes.c_void_p(ts.ctypes.data)) == 0
-    used = int((ts[0, :, 0] != 0).sum())
-    cyc = ts[:, :used, 0].astype(np.int64)
-    ns = ts[:, :used, 1].astype(np.int64)
+    seen = ts[:, :, 0] != 0
+    blocks = np.flatnonzero(seen[:, 0])  # a persistent kernel runs fewer blocks than frames
+    used = int(seen[blocks].sum(axis=1).max())
+    cyc = ts[blocks, :used, 0].astype(np.int64)
+    ns = ts[blocks, :used, 1].astype(np.int64)
     d = np.diff(cyc, axis=1)
-    print(f"{name}: F={F}, {used - 1} phases (start, after each barrier, end)")
+    valid = seen[blocks, 1:used]
+    print(f"{name}: F={F}, {len(blocks)} blocks, {used - 1} phases (start, after each barrier, end)")
     for k in range(used - 1):
-        print(f"  phase {k:2d}: mean {d[:, k].mean():9.1f} cycles, max {d[:, k].max():7d}")
-    life = ns[:, -1] - ns[:, 0]
+        dk = d[valid[:, k], k]
+        print(f"  phase {k:2d}: mean {dk.mean():9.1f} cycles, max {dk.max():7d} ({dk.size} blocks)")
+    last = seen[blocks, :used].sum(axis=1) - 1
+    life = ns[np.arange(len(blocks)), last] - ns[:, 0]
     t0 = ns[:, 0].min()
     starts = np.sort(ns[:, 0] - t0)
     print(f"  block life: mean {life.mean():.0f} ns, min {life.min()}, max {life.max()}; "
-          f"launch span {ns[:, -1].max() - t0} ns")
+          f"launch span {(ns[:, 0] + life).max() - t0} ns")
     print(f"  block starts (ns after the first): quantiles 0/25/50/75/100 % "
           f"{[int(np.percentile(starts, q)) for q in (0, 25, 50, 75, 100)]}")
 
@@ -131,7 +147,7 @@ def main(argv: list[str]) -> None:
     pipe = SpectrumPipeline(PipelineConfig(channels=8))
     pipe.upload_sos(sps.butter(12, 0.25, output="sos"))
     for name in argv or ["spectrum_bypass", "spectrum_complex"]:
-        run(name, pipe.bank_custom["pp"])
+        run(name, pipe.bank_custom["pp"], pipe.plan)
 
 
 if __name__ == "__main__":

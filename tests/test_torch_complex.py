@@ -269,10 +269,37 @@ def test_process_planes_equals_process(pipes, mode):
 
 
 def test_process_planes_takes_2d_planes(port):
+    """(2, T) planes keep their axes: (frames, N), the same bits as the
+    channel of a (T,) complex input through ``process``."""
     x = _iq(np.random.default_rng(26), N)
     a, _ = port.process(x, _cstate(port), FilterMode.BYPASS)
     b, _ = port.process_planes(np.stack([x.real, x.imag]), _cstate(port), FilterMode.BYPASS)
-    assert torch.equal(a["magnitude"], b["magnitude"])
+    assert tuple(b["magnitude"].shape) == (1, N)
+    assert torch.equal(a["magnitude"][0], b["magnitude"])
+
+
+@pytest.mark.parametrize(
+    "xs_shape,batch_shape",
+    [((2, 2, 1, N), (2, 2)), ((2, N), (2,))],
+    ids=["batched-state", "2d-planes"],
+)
+def test_process_planes_shapes_match_jax(xs_shape, batch_shape):
+    """process_planes checks only the state's leading 2-axis and keeps the
+    input's own axes, as the reference does: the same output shape and
+    magnitudes (channels=1, BYPASS)."""
+    jp = JSpectrumPipeline(JPipelineConfig(channels=1))
+    p = SpectrumPipeline(PipelineConfig(channels=1), device="cpu")
+    xs = np.random.default_rng(27).standard_normal(xs_shape).astype(np.float32)
+    jout, jst = jp.process_planes(
+        jnp.asarray(xs), jp.initial_state(batch_shape=batch_shape), JFilterMode.BYPASS
+    )
+    out, st = p.process_planes(xs, p.initial_state(batch_shape=batch_shape), FilterMode.BYPASS)
+    ref = np.asarray(jout["magnitude"])
+    got = out["magnitude"]
+    assert tuple(got.shape) == ref.shape
+    assert snr_db(ref, got.numpy()) >= PARITY_FLOOR_DB["f32"]
+    assert tuple(st.sos_state.shape) == tuple(jst.sos_state.shape)
+    assert int(st.frame_count) == int(jst.frame_count) == 1
 
 
 @pytest.mark.parametrize(

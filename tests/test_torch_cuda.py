@@ -515,6 +515,65 @@ def test_fft_mag_fused_kernel_uses_the_given_planes(cuda_plan, frames):
         spectrum.fft_mag_fused(x, win, fft.plan_constants(64, 256, device="cuda"), n1=64, n2=256)
 
 
+def _random_planes(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    keys = ("w2r", "w2i", "twr", "twi", "w1r", "w1i")
+    return {k: torch.as_tensor(rng.standard_normal((128, 128)), dtype=torch.float32, device="cuda")
+            for k in keys}
+
+
+def test_fft_mag_fused_kernel_takes_random_planes(cuda_plan, frames):
+    """Row 6 computes with any planes, here with no DFT structure at all."""
+    from tpu_sdr_torch.kernels.cuda import spectrum
+
+    x = torch.as_tensor(frames, device="cuda")
+    win = window.hann_coefficients(N, device="cuda")
+    p = _random_planes(13)
+    launch.reset_counts()
+    got = spectrum.fft_mag_fused(x, win, p)
+    assert launch.counts["kernel"]["fft_mag_fused"] == 1
+    assert snr_db(spectrum.fft_mag_fused_plain(x, win, p), got) >= SNR_FLOOR_DB["float32"]
+
+
+def test_fft_mag_fused_frames_independent_of_launch(cuda_plan, frames):
+    """Row 6's blocks walk several frames each: a frame's bits do not
+    depend on how many frames share the launch."""
+    from tpu_sdr_torch.kernels.cuda import spectrum
+
+    x = torch.as_tensor(frames, device="cuda")
+    win = window.hann_coefficients(N, device="cuda")
+    for p in (fft.plan_constants(128, 128, device="cuda"), _random_planes(14)):
+        whole = spectrum.fft_mag_fused_cuda(x, win, p)
+        parts = torch.cat([spectrum.fft_mag_fused_cuda(c, win, p) for c in x.split(3)])
+        assert torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("kind", ["spectrum_iir", "fft_mag_fused"])
+def test_redesigned_kernels_snr_vs_float64(cuda_plan, frames, kind):
+    """Rows 2 and 6 against a float64 reference at F = 8, fp32 in and out:
+    each kernel's SNR is at least its plain version's minus 1 dB. Row 2
+    from rest (zero entry states): the float64 window (the kernel's fp32
+    values), scipy's sosfilt, the FFT; row 6 with the plan's planes: the
+    FFT of the windowed frame."""
+    from tpu_sdr_torch.kernels.cuda import spectrum
+
+    x = torch.as_tensor(frames, device="cuda")
+    win = cuda_plan.win.reshape(-1)
+    w64 = win.double().cpu().numpy()
+    if kind == "spectrum_iir":
+        zs = torch.zeros((x.shape[0], 12), device="cuda")
+        got = iir_fft.spectrum_iir_cuda(x, zs, cuda_plan)
+        plain = iir_fft.spectrum_iir_plain(x, zs, cuda_plan)
+        y = np.stack([sps.sosfilt(SOS, f.astype(np.float64) * w64) for f in frames])
+    else:
+        plan = fft.plan_constants(128, 128, device="cuda")
+        got = spectrum.fft_mag_fused_cuda(x, win, plan)
+        plain = spectrum.fft_mag_fused_plain(x, win, plan)
+        y = frames.astype(np.float64) * w64
+    ref = torch.as_tensor(np.abs(np.fft.fft(y, axis=-1)))
+    assert snr_db(ref, got) >= snr_db(ref, plain) - 1.0
+
+
 @pytest.mark.parametrize("mode", [FilterMode.BYPASS, FilterMode.CUSTOM], ids=lambda m: m.name)
 def test_hop_pipeline_on_card(cuda_plan, mode):
     """hop < N launches the spectrum kernel once per dispatch, is chunked ==

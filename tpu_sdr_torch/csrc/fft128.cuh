@@ -1,5 +1,6 @@
 // Radix FFTs of the 16384-point four-step spectrum, shared by
-// spectrum_bypass.cu (real frames) and spectrum_complex.cu (IQ frames).
+// spectrum_bypass.cu and spectrum_iir.cu (real frames) and
+// spectrum_complex.cu (IQ frames).
 // N = 128 x 128 as in four_step.cuh: per frame x[n], n = n1 + 128*n2,
 // viewed as X[n2][n1],
 //
@@ -135,7 +136,7 @@ __device__ __forceinline__ void column_stage2(const float2* e, int c, int lane,
 }
 
 // y * tw[k2][n1], the plan's twiddle planes read through the read-only
-// cache (the product of four_step.cuh's column_dft_twiddle).
+// cache (the product of four_step.cuh's column_dft_twiddle_half).
 __device__ __forceinline__ float2 twiddle(float2 y, const float* __restrict__ twr,
                                           const float* __restrict__ twi, int k2,
                                           int n1) {
@@ -180,6 +181,65 @@ __device__ __forceinline__ void row_stage2(const float* row, int t, W128 w,
   dft<16>(v, w);
 #pragma unroll
   for (int k = 0; k < 16; ++k) m[k] = magnitude(v[k].x, v[k].y);
+}
+
+// Real frames (spectrum_bypass.cu, spectrum_iir.cu): Hermitian column pairs.
+// Columns 2P and 2P + 1 are one complex 128-point FFT, Z = FFT(x[:, 2P] +
+// i x[:, 2P+1]), split as Y_2P[k] = (Z[k] + conj Z[-k]) / 2 and Y_2P+1[k] =
+// (Z[k] - conj Z[-k]) / 2i; only rows k2 in [0, 64] are kept (Y[128 - k2] =
+// conj Y[k2]). Stage 2's thread t takes c = t and 16 - t (t = 0: c = 0 and
+// 8), so Z[k] and Z[-k] meet in one thread.
+constexpr int kRealRows = kN2 / 2 + 1;  // k2 in [0, 64]
+
+// Rows k2 (of Z[k] with partner Z[kk] = Z[128 - k2]) of a column pair, split
+// into the two real columns n1 and n1 + 1, twiddled, into T.
+__device__ __forceinline__ void emit_rows(float* tw_rows, const float* __restrict__ twr,
+                                          const float* __restrict__ twi, int k2, int n1,
+                                          float2 zk, float2 zkk) {
+  const float2 ya = make_float2((zk.x + zkk.x) * 0.5f, (zk.y - zkk.y) * 0.5f);
+  const float2 yb = make_float2((zk.y + zkk.y) * 0.5f, (zkk.x - zk.x) * 0.5f);
+  const float2 a = __ldg(reinterpret_cast<const float2*>(twr + k2 * kN1 + n1));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(twi + k2 * kN1 + n1));
+  const float2 ta = make_float2(ya.x * a.x - ya.y * b.x, ya.x * b.x + ya.y * a.x);
+  const float2 tb = make_float2(yb.x * a.y - yb.y * b.y, yb.x * b.y + yb.y * a.y);
+  *reinterpret_cast<float4*>(tw_rows + k2 * kRowStride + 2 * n1) =
+      make_float4(ta.x, ta.y, tb.x, tb.y);
+}
+
+// Stage 2 of the column FFT of pair n1/2 and its split: thread t's rows.
+__device__ __forceinline__ void column_pair_rows(const float2* e, float* tw_rows,
+                                                 const float* __restrict__ twr,
+                                                 const float* __restrict__ twi, int t,
+                                                 int lane, int n1, W128 w) {
+  const int c0 = t == 0 ? 0 : t;
+  const int c1 = t == 0 ? 8 : 16 - t;
+  float2 za[8], zb[8];  // Z[c0 + 16d], Z[c1 + 16d]
+  column_stage2(e, c0, lane, w, za);
+  column_stage2(e, c1, lane, w, zb);
+  if (t == 0) {
+    // c = 0: Z[16d] with Z[16(8 - d)]; c = 8: Z[8 + 16d] with Z[8 + 16(7 - d)].
+#pragma unroll
+    for (int d = 0; d <= 4; ++d) emit_rows(tw_rows, twr, twi, 16 * d, n1, za[d], za[(8 - d) & 7]);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, 8 + 16 * d, n1, zb[d], zb[7 - d]);
+  } else {
+    // Z[t + 16d] with Z[16 - t + 16(7 - d)], and the other way round.
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, t + 16 * d, n1, za[d], zb[7 - d]);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, c1 + 16 * d, n1, zb[d], za[7 - d]);
+  }
+}
+
+// |Z[k2][t + 8v]| into the frame's magnitudes and, for k2 in [1, 63], at
+// the mirror.
+__device__ __forceinline__ void put_magnitudes(float* mag, int k2, int t, const float (&m)[16]) {
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    const int k1 = t + 8 * v;
+    mag[k1 * kN2 + k2] = m[v];
+    if (k2 != 0) mag[(kN1 - 1 - k1) * kN2 + kN2 - k2] = m[v];
+  }
 }
 
 // Four consecutive inputs as fp32: one 16-byte load (fp32) or 8-byte (bf16).

@@ -1,22 +1,21 @@
-// The 16384-point four-step DFT + magnitude of one frame, shared by the
-// spectrum kernels (spectrum_bypass.cu, spectrum_iir.cu, spectrum_complex.cu,
-// spectrum_half.cu, fft_mag_fused.cu). One 512-thread block owns one frame.
-// Per frame x[n], n = n1 + 128*n2, viewed as X[n2][n1]:
+// The 16384-point four-step DFT + magnitude of one frame as dense 128-point
+// DFTs on CUDA cores (the half spectrum of spectrum_half.cu), and the frame
+// helpers the other spectrum kernels share (load_frame, store4, magnitude,
+// launch_frames; through iir_blocks.cuh and fft128.cuh). One 512-thread
+// block owns one frame. Per frame x[n], n = n1 + 128*n2, viewed as
+// X[n2][n1]:
 //
 //   1. column DFTs  Y[k2][n1] = sum_n2 W2[k2][n2] * X[n2][n1]
 //   2. twiddle      T[k2][n1] = Y[k2][n1] * tw[k2][n1]
 //   3. row DFTs     Z[k2][k1] = sum_n1 T[k2][n1] * W1[k1][n1]
 //   4. store        out[128*k1 + k2] = |Z[k2][k1]|            (natural order)
 //
-// The DFT matrices come from a policy: TableDft reads W128[k*n] from a
-// 128-entry table in shared memory (it depends only on (k*n) mod 128; the
-// table is row 1 of the plan's DFT plane), PlaneDft reads the full (128,
-// 128) plane given by the caller through the read-only cache. The twiddle
-// planes are read once per element through the read-only cache. Each
-// thread holds a register tile, so one pair of coefficient loads feeds 8 to
-// 16 FMAs. Arithmetic is IEEE fp32 in a fixed order per output element, the
-// same in every variant, so a frame's bits do not depend on how many frames
-// a launch holds.
+// TableDft reads W[k][n] = W128[k*n mod 128] from a 128-entry table in
+// shared memory (row 1 of the plan's DFT plane). The twiddle planes are read
+// once per element through the read-only cache. Each thread holds a register
+// tile, so one pair of coefficient loads feeds 8 to 16 FMAs. Arithmetic is
+// IEEE fp32 in a fixed order per output element, so a frame's bits do not
+// depend on how many frames a launch holds.
 //
 // The half spectrum (real input): |X[N - k]| = |X[k]|, so only k2 in
 // [0, 64] is computed (steps 1-3 on 65 of the 128 rows of Y) and
@@ -38,8 +37,7 @@ constexpr int kN2 = 128;
 constexpr int kN = kN1 * kN2;
 constexpr int kThreads = 512;
 // Row stride of the transposed twiddled planes: 132 floats keeps the
-// float4 stores of step 2 and the float4 loads of step 3 free of bank
-// conflicts, and rows 16-byte aligned.
+// float4 loads of step 3 free of bank conflicts, and rows 16-byte aligned.
 constexpr int kTStride = 132;
 // Floats of the twiddled planes tr, ti ([n1][kTStride] each).
 constexpr int kTwiddledFloats = 2 * kN1 * kTStride;
@@ -54,15 +52,6 @@ struct TableDft {
   __device__ __forceinline__ float2 operator()(int k, int n) const {
     const int i = (k * n) & (kN1 - 1);
     return make_float2(re[i], im[i]);
-  }
-};
-
-// W[k][n] read from full (128, 128) planes in device memory, as given.
-struct PlaneDft {
-  const float* __restrict__ re;
-  const float* __restrict__ im;
-  __device__ __forceinline__ float2 operator()(int k, int n) const {
-    return make_float2(__ldg(re + k * kN1 + n), __ldg(im + k * kN1 + n));
   }
 };
 
@@ -108,14 +97,15 @@ __device__ __forceinline__ void load_tables(const float* __restrict__ tab,
 }
 
 // One frame (16384 samples, 16-byte aligned) into shared memory as fp32,
-// 8 samples per step, times the window when win is not null.
-template <typename TIn>
+// 8 samples per step of each of kT threads, times the window when win is
+// not null.
+template <typename TIn, int kT = kThreads>
 __device__ __forceinline__ void load_frame(const TIn* __restrict__ x,
                                            const float* __restrict__ win,
                                            float* xs) {
 #pragma unroll
-  for (int r = 0; r < kN / 8 / kThreads; ++r) {
-    const int i = threadIdx.x + r * kThreads;
+  for (int r = 0; r < kN / 8 / kT; ++r) {
+    const int i = threadIdx.x + r * kT;
     float v[8];
     load8(x, i, v);
     if (win != nullptr) {
@@ -130,18 +120,14 @@ __device__ __forceinline__ void load_frame(const TIn* __restrict__ x,
   }
 }
 
-// Steps 1 and 2: column DFTs of the frame in xr (real input) or xr + i*xi
-// (kComplex), twiddled and stored transposed as tr/ti [n1][k2]. Thread tile
-// k2 = kR*ty + i (i < kR), n1 = 16*c + tx: kR = 4 covers the 128 rows,
-// kR = 2 the rows 0..63 of the half spectrum. The column results stay in
-// registers until every thread has read its inputs, so with kComplex tr/ti
-// may overlay the input planes (the routine synchronises the block before
-// storing).
-template <bool kComplex, int kR = 4, typename Dft>
-__device__ __forceinline__ void column_dft_twiddle(
-    const float* xr, const float* xi, Dft w2,
-    const float* __restrict__ twr, const float* __restrict__ twi, float* tr,
-    float* ti) {
+// Steps 1 and 2 of the half spectrum: column DFTs of rows k2 in [0, 63] of
+// the real frame in xr, twiddled and stored transposed as tr/ti [n1][k2].
+// Thread tile k2 = 2*ty + i (i < 2), n1 = 16*c + tx.
+template <typename Dft>
+__device__ __forceinline__ void column_dft_twiddle_half(
+    const float* xr, Dft w2, const float* __restrict__ twr,
+    const float* __restrict__ twi, float* tr, float* ti) {
+  constexpr int kR = 2;
   const int tx = threadIdx.x & 15;  // 16 column groups
   const int ty = threadIdx.x >> 4;  // 32 row groups
   float yr[kR][8], yi[kR][8];
@@ -150,58 +136,36 @@ __device__ __forceinline__ void column_dft_twiddle(
 #pragma unroll
     for (int c = 0; c < 8; ++c) yr[i][c] = yi[i][c] = 0.f;
   for (int n2 = 0; n2 < kN2; ++n2) {
-    float xv[8], xv_i[8];
+    float xv[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      xv[c] = xr[n2 * kN1 + 16 * c + tx];
-      if constexpr (kComplex) xv_i[c] = xi[n2 * kN1 + 16 * c + tx];
-    }
+    for (int c = 0; c < 8; ++c) xv[c] = xr[n2 * kN1 + 16 * c + tx];
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const float2 w = w2(kR * ty + i, n2);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        if constexpr (kComplex) {
-          yr[i][c] = fmaf(w.x, xv[c], yr[i][c]);
-          yr[i][c] = fmaf(-w.y, xv_i[c], yr[i][c]);
-          yi[i][c] = fmaf(w.y, xv[c], yi[i][c]);
-          yi[i][c] = fmaf(w.x, xv_i[c], yi[i][c]);
-        } else {
-          yr[i][c] = fmaf(w.x, xv[c], yr[i][c]);
-          yi[i][c] = fmaf(w.y, xv[c], yi[i][c]);
-        }
+        yr[i][c] = fmaf(w.x, xv[c], yr[i][c]);
+        yi[i][c] = fmaf(w.y, xv[c], yi[i][c]);
       }
     }
   }
-  if constexpr (kComplex) __syncthreads();  // tr/ti overlay xr/xi
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int n1 = 16 * c + tx;
-    float vr[kR], vi[kR];
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int k2 = kR * ty + i;
       const float a = __ldg(twr + k2 * kN1 + n1);
       const float b = __ldg(twi + k2 * kN1 + n1);
-      vr[i] = yr[i][c] * a - yi[i][c] * b;
-      vi[i] = yr[i][c] * b + yi[i][c] * a;
-    }
-    if constexpr (kR == 4) {
-      store4(tr, n1 * kTStride + 4 * ty, vr);
-      store4(ti, n1 * kTStride + 4 * ty, vi);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        tr[n1 * kTStride + kR * ty + i] = vr[i];
-        ti[n1 * kTStride + kR * ty + i] = vi[i];
-      }
+      tr[n1 * kTStride + k2] = yr[i][c] * a - yi[i][c] * b;
+      ti[n1 * kTStride + k2] = yr[i][c] * b + yi[i][c] * a;
     }
   }
 }
 
 // Steps 1 and 2 for the single row k2 of a real input, one column n1 per
 // thread of the first 128 (the half spectrum's row 64); the same
-// arithmetic per element as column_dft_twiddle.
+// arithmetic per element as column_dft_twiddle_half.
 template <typename Dft>
 __device__ __forceinline__ void column_dft_twiddle_row(
     const float* xr, Dft w2, const float* __restrict__ twr,
@@ -221,36 +185,29 @@ __device__ __forceinline__ void column_dft_twiddle_row(
   ti[n1 * kTStride + k2] = yr * b + yi * a;
 }
 
-// Step 3: row DFTs of the twiddled planes into the thread's accumulators,
-// k1 = 4*ty + i and k2 = 4*tx + q (q < 4), then 64 + 4*tx + q (q >= 4)
-// when kJ = 8.
-template <int kJ, typename Dft>
+// Step 3: row DFTs of the twiddled planes' rows k2 in [0, 63] into the
+// thread's accumulators, k1 = 4*ty + i and k2 = 4*tx + q.
+template <typename Dft>
 __device__ __forceinline__ void row_dft(const float* tr, const float* ti,
-                                        Dft w1, float (&zr)[4][kJ],
-                                        float (&zi)[4][kJ]) {
+                                        Dft w1, float (&zr)[4][4],
+                                        float (&zi)[4][4]) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) zr[i][j] = zi[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) zr[i][j] = zi[i][j] = 0.f;
   for (int n1 = 0; n1 < kN1; ++n1) {
-    float pr[kJ], pi[kJ];
+    float pr[4], pi[4];
     const float4 ar0 = *reinterpret_cast<const float4*>(tr + n1 * kTStride + 4 * tx);
     const float4 ai0 = *reinterpret_cast<const float4*>(ti + n1 * kTStride + 4 * tx);
     pr[0] = ar0.x; pr[1] = ar0.y; pr[2] = ar0.z; pr[3] = ar0.w;
     pi[0] = ai0.x; pi[1] = ai0.y; pi[2] = ai0.z; pi[3] = ai0.w;
-    if constexpr (kJ == 8) {
-      const float4 ar1 = *reinterpret_cast<const float4*>(tr + n1 * kTStride + 64 + 4 * tx);
-      const float4 ai1 = *reinterpret_cast<const float4*>(ti + n1 * kTStride + 64 + 4 * tx);
-      pr[4] = ar1.x; pr[5] = ar1.y; pr[6] = ar1.z; pr[7] = ar1.w;
-      pi[4] = ai1.x; pi[5] = ai1.y; pi[6] = ai1.z; pi[7] = ai1.w;
-    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 w = w1(4 * ty + i, n1);
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) {
+      for (int j = 0; j < 4; ++j) {
         zr[i][j] = fmaf(pr[j], w.x, zr[i][j]);
         zr[i][j] = fmaf(-pi[j], w.y, zr[i][j]);
         zi[i][j] = fmaf(pr[j], w.y, zi[i][j]);
@@ -262,27 +219,6 @@ __device__ __forceinline__ void row_dft(const float* tr, const float* ti,
 
 __device__ __forceinline__ float magnitude(float re, float im) {
   return sqrtf(re * re + im * im);
-}
-
-// Steps 3 and 4: row DFTs and the magnitude of all 128 rows, stored in
-// natural order out[128*k1 + k2].
-template <typename TOut, typename Dft>
-__device__ __forceinline__ void row_dft_magnitude(const float* tr,
-                                                  const float* ti, Dft w1,
-                                                  TOut* __restrict__ out) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float zr[4][8], zi[4][8];
-  row_dft<8>(tr, ti, w1, zr, zi);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k1 = 4 * ty + i;
-    float m[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) m[j] = magnitude(zr[i][j], zi[i][j]);
-    store4(out, k1 * kN2 + 4 * tx, m);
-    store4(out, k1 * kN2 + 64 + 4 * tx, m + 4);
-  }
 }
 
 // Steps 3 and 4 of the half spectrum: the row DFTs of rows k2 in [0, 64]
@@ -297,7 +233,7 @@ __device__ __forceinline__ void row_dft_half_magnitude(const float* tr,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   float zr[4][4], zi[4][4];
-  row_dft<4>(tr, ti, w1, zr, zi);
+  row_dft(tr, ti, w1, zr, zi);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int k1 = 4 * ty + i;

@@ -47,60 +47,8 @@ using tpu_sdr::kN1;
 using tpu_sdr::kN2;
 using tpu_sdr::store4;
 
-constexpr int kRows = kN2 / 2 + 1;  // k2 in [0, 64]
 constexpr size_t kSmemBytes =
-    size_t(kExchangeFloats + kRows * kRowStride + kTableFloats) * sizeof(float);
-
-// Rows k2 (of Z[k] with partner Z[kk] = Z[128 - k2]) of a column pair, split
-// into the two real columns n1 and n1 + 1, twiddled, into T.
-__device__ __forceinline__ void emit_rows(float* tw_rows, const float* __restrict__ twr,
-                                          const float* __restrict__ twi, int k2, int n1,
-                                          float2 zk, float2 zkk) {
-  const float2 ya = make_float2((zk.x + zkk.x) * 0.5f, (zk.y - zkk.y) * 0.5f);
-  const float2 yb = make_float2((zk.y + zkk.y) * 0.5f, (zkk.x - zk.x) * 0.5f);
-  const float2 a = __ldg(reinterpret_cast<const float2*>(twr + k2 * kN1 + n1));
-  const float2 b = __ldg(reinterpret_cast<const float2*>(twi + k2 * kN1 + n1));
-  const float2 ta = make_float2(ya.x * a.x - ya.y * b.x, ya.x * b.x + ya.y * a.x);
-  const float2 tb = make_float2(yb.x * a.y - yb.y * b.y, yb.x * b.y + yb.y * a.y);
-  *reinterpret_cast<float4*>(tw_rows + k2 * kRowStride + 2 * n1) =
-      make_float4(ta.x, ta.y, tb.x, tb.y);
-}
-
-// Stage 2 of the column FFT of pair n1/2 and its split: thread t's rows.
-__device__ __forceinline__ void column_pair_rows(const float2* e, float* tw_rows,
-                                                 const float* __restrict__ twr,
-                                                 const float* __restrict__ twi, int t,
-                                                 int lane, int n1, W128 w) {
-  const int c0 = t == 0 ? 0 : t;
-  const int c1 = t == 0 ? 8 : 16 - t;
-  float2 za[8], zb[8];  // Z[c0 + 16d], Z[c1 + 16d]
-  column_stage2(e, c0, lane, w, za);
-  column_stage2(e, c1, lane, w, zb);
-  if (t == 0) {
-    // c = 0: Z[16d] with Z[16(8 - d)]; c = 8: Z[8 + 16d] with Z[8 + 16(7 - d)].
-#pragma unroll
-    for (int d = 0; d <= 4; ++d) emit_rows(tw_rows, twr, twi, 16 * d, n1, za[d], za[(8 - d) & 7]);
-#pragma unroll
-    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, 8 + 16 * d, n1, zb[d], zb[7 - d]);
-  } else {
-    // Z[t + 16d] with Z[16 - t + 16(7 - d)], and the other way round.
-#pragma unroll
-    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, t + 16 * d, n1, za[d], zb[7 - d]);
-#pragma unroll
-    for (int d = 0; d < 4; ++d) emit_rows(tw_rows, twr, twi, c1 + 16 * d, n1, zb[d], za[7 - d]);
-  }
-}
-
-// |Z[k2][t + 8v]| into the frame's magnitudes and, for k2 in [1, 63], at
-// the mirror.
-__device__ __forceinline__ void put_magnitudes(float* mag, int k2, int t, const float (&m)[16]) {
-#pragma unroll
-  for (int v = 0; v < 16; ++v) {
-    const int k1 = t + 8 * v;
-    mag[k1 * kN2 + k2] = m[v];
-    if (k2 != 0) mag[(kN1 - 1 - k1) * kN2 + kN2 - k2] = m[v];
-  }
-}
+    size_t(kExchangeFloats + kRealRows * kRowStride + kTableFloats) * sizeof(float);
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -113,7 +61,7 @@ spectrum_bypass_kernel(const TIn* __restrict__ x,
   extern __shared__ __align__(16) float smem[];
   float2* e = reinterpret_cast<float2*>(smem);  // [slot][lane]
   float* rows = smem + kExchangeFloats;         // T [k2][kRowStride], then |Z| [k1][k2]
-  float* tabs = rows + kRows * kRowStride;
+  float* tabs = rows + kRealRows * kRowStride;
   const W128 wc{tabs, tabs + 128}, wr{tabs + 256, tabs + 384};
   const int w = threadIdx.x / kLanes;  // a in the column and row stage 1, t in stage 2
   const int lane = threadIdx.x % kLanes;

@@ -68,7 +68,7 @@ spectrum_half_kernel(const TIn* __restrict__ x,
     load_frame(x + frame * kN, win, xs);
     __syncthreads();
   }
-  column_dft_twiddle<false, 2>(xs, nullptr, w_n2(tabs), twr, twi, tr, ti);
+  column_dft_twiddle_half(xs, w_n2(tabs), twr, twi, tr, ti);
   column_dft_twiddle_row(xs, w_n2(tabs), twr, twi, tr, ti, kN2 / 2);
   __syncthreads();
   row_dft_half_magnitude(tr, ti, w_n1(tabs), xs);

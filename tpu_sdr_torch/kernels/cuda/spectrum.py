@@ -3,8 +3,10 @@ counterpart of ``tpu_sdr.kernels.pallas.spectrum``).
 
 ``fft_mag_fused`` takes its window and all six plan planes as arguments and
 computes with them as given. On a CUDA tensor it launches
-``csrc/fft_mag_fused.cu`` (n1 = n2 = 128 only); on a CPU tensor it runs
-``fft_mag_fused_plain``, at any geometry.
+``csrc/fft_mag_fused.cu`` (n1 = n2 = 128 only: the products on the tensor
+cores, each fp32 operand split into three bf16 pieces, six piece products,
+as the TPU's precision="highest"); on a CPU tensor it runs
+``fft_mag_fused_plain`` (IEEE fp32), at any geometry.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def fft_mag_fused(
     ``fft.fft_4step`` + ``magnitude`` with the same plan. ``plan`` holds
     w2r, w2i (n2, n2), twr, twi (n2, n1) and w1r, w1i (n1, n1); the kernel
     computes with exactly these planes. ``precision`` is validated and
-    accepted (IEEE fp32 at every value); ``interpret`` as in
+    accepted; the kernel runs its six-pass split at every value, the plain
+    version IEEE fp32; ``interpret`` as in
     ``iir_fft.spectrum_from_state``. The CUDA kernel takes n1 = n2 = 128
     only; another geometry on a CUDA tensor raises ValueError.
     """

@@ -436,15 +436,20 @@ class SpectrumPipeline:
         mode: FilterMode = FilterMode.BYPASS,
         outputs: str = "magnitude",
     ):
-        """Complex (IQ) input as pre-split planes: xs (2, channels, T) or
-        (2, T) float32, re then im, e.g. a device-resident chunk split once.
-        Takes the state of ``initial_state(batch_shape=(2,))``."""
+        """Complex (IQ) input as pre-split planes: xs (2, ..., T) float32,
+        re then im, e.g. a device-resident chunk split once; the output keeps
+        xs's axes between the 2 and T ((2, T) gives (frames, N)). Takes a
+        re/im-stacked state (leading axis 2), e.g.
+        ``initial_state(batch_shape=(2,))``; as in the reference, only that
+        leading axis is checked."""
         xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
         if xs.ndim < 2 or xs.shape[0] != 2:
             raise ValueError(
                 f"xs must stack re/im as a leading 2-axis, got {tuple(xs.shape)}"
             )
-        self._check_iq_state(state)
-        if xs.ndim == 2:
-            xs = xs[:, None, :]
+        if state.sos_state.shape[:1] != (2,):
+            raise ValueError(
+                "plane-stacked input needs the re/im-stacked state: create it "
+                "with initial_state(batch_shape=(2,))"
+            )
         return self._run(xs, state, mode, outputs, complex_input=True)
