@@ -15,9 +15,12 @@ Phases (each raises on failure):
      their partners and ``blocked_output`` the same bits, and
      ``fft_mag_fused`` with the plan's planes, planes scaled by 0.5 and
      random planes;
-     the FM kernel at 8 x 2^20 samples (atol 1e-6, and whether it is
-     bitwise) and the PFB kernel at the channelizer's real and IQ shapes
-     (1e-5 of the output scale);
+     the FM kernel at 8 x 2^20 samples bit for bit (and within atol 1e-6),
+     one launch against three and twice in a row, and at its edge shapes
+     (one block; 1025 blocks; 1000 channels of one block); the PFB kernel at
+     the channelizer's real and IQ shapes with the channelizer's and random
+     planes (1e-5 of the output scale), and against float64 beside the plain
+     version (at most 1 dB below it);
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
@@ -56,7 +59,9 @@ Phases (each raises on failure):
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it
-     (``fft_mag_fused`` also beside its dense tensor-core floor); rows 1,
+     (``fft_mag_fused`` and ``pfb_fold_dft`` also beside their dense
+     tensor-core floors, ``fm_demod`` beside its chain's latency floor and
+     in three launches, each pass as the profiler saw it); rows 1,
      2, 5 and 6 and their plain versions against a float64 reference (row 2
      from rest: window, ``sosfilt``, FFT; the kernel at most 1 dB below its
      plain version); each
@@ -127,6 +132,7 @@ FM_FS, FM_DEV, FM_TAU, FM_TONE = 200e3, 75e3, 75e-6, 1e3
 # (1 - a) * audio, the 7-level tree (3 a level) and the emit (2): 57.
 FM_FLOPS_PER_SAMPLE = 57
 FM_KERNEL_ATOL = 1e-6  # the JAX kernel's own bound (tests/test_pallas_kernel.py)
+CHAIN_CYCLES_PER_BLOCK = 8  # FMUL then FADD, 4 cycles each, a 128-sample block
 FM_PATHS_ATOL = 2e-6  # kernel path vs default path (tests/test_demod.py)
 PFB_M, PFB_TAPS = 128, 8
 PFB_REL = 1e-5  # of max |re| (tests/test_pfb.py)
@@ -531,13 +537,15 @@ def dispatch_wall(step, reps: int = 5, calls: int = 10,
 # It lists the range on the device too; device_kernels leaves it out.
 STEP_RANGE = "chip_smoke step"
 # Per wrapper: its device kernels that end a launch, one per launch
-# (csrc/<name>.cu; fm_demod ends with its emit pass, or is its one
-# discriminator pass without de-emphasis).
+# (csrc/<name>.cu; fm_demod is one kernel with de-emphasis, its three passes
+# in one launch, or its one discriminator pass without; its three-launch
+# form ends with the emit pass).
 LAST_DEVICE_KERNEL = {
     "spectrum_bypass": ("spectrum_bypass_kernel",), "spectrum_iir": ("spectrum_iir_kernel",),
     "iir_summaries": ("iir_summaries_kernel",),
     "spectrum_complex": ("spectrum_complex_kernel",),
-    "fm_demod": ("fm_emit_kernel", "fm_disc_kernel"), "pfb_fold_dft": ("pfb_fold_dft_kernel",),
+    "fm_demod": ("fm_fused_kernel", "fm_emit_kernel", "fm_disc_kernel"),
+    "pfb_fold_dft": ("pfb_fold_dft_kernel",),
     "spectrum_half": ("spectrum_half_kernel",), "fft_mag_fused": ("fft_mag_fused_kernel",),
 }
 
@@ -820,44 +828,84 @@ def fm_planes() -> tuple:
     return re.float(), im.float()
 
 
+# The FM kernel's edge shapes (channels, T): one block; one stage of the
+# chain (csrc/affine_chain.cuh, 1024 blocks) plus one; more channels than
+# SMs, one block each.
+FM_EDGE_SHAPES = ((1, 128), (2, 1025 * 128), (1000, 128))
+# Row 8's products against float64: the kernel at most this far below its
+# plain version.
+SNR_VS_PLAIN_DB = 1.0
+
+
+def fm_inputs(c: int, t: int, gen) -> tuple:
+    re, im = (torch.randn((c, t), device="cuda", generator=gen) for _ in range(2))
+    pr, pi = (torch.randn((c, 1), device="cuda", generator=gen) for _ in range(2))
+    return re, im, pr, pi, 0.1 * torch.randn((c,), device="cuda", generator=gen)
+
+
 def phase_nb_kernels() -> dict:
     """The FM and PFB kernels against their plain versions at the main
-    paths' shapes; returns the max abs error of each as the path calls it."""
+    paths' shapes (FM also at its edge shapes, one launch against three and
+    twice in a row; PFB also with random planes and against float64);
+    returns the max abs error of each as the path calls it."""
     from tpu_sdr_torch.kernels.cuda import affine_scan, pfb_kernel
     from tpu_sdr_torch.kernels.pfb import Channelizer
 
     errs = {}
     gen = torch.Generator(device="cuda").manual_seed(22)
-    re, im = (torch.randn((NB_CH, NB_T), device="cuda", generator=gen) for _ in range(2))
-    pr, pi = (torch.randn((NB_CH, 1), device="cuda", generator=gen) for _ in range(2))
-    y0 = 0.1 * torch.randn((NB_CH,), device="cuda", generator=gen)
-    for pole in (float(np.exp(-1.0 / (FM_FS * FM_TAU))), None):
-        kw = dict(fs=FM_FS, dev=FM_DEV, pole=pole)
-        got = affine_scan.fm_demod_cuda(re, im, pr, pi, y0, **kw)
-        ref = affine_scan.fm_demod_plain(re, im, pr, pi, y0, **kw)
+    pole_kw = dict(fs=FM_FS, dev=FM_DEV, pole=float(np.exp(-1.0 / (FM_FS * FM_TAU))))
+    args = fm_inputs(NB_CH, NB_T, gen)
+    for kw in (pole_kw, {**pole_kw, "pole": None}):
+        got = affine_scan.fm_demod_cuda(*args, **kw)
+        ref = affine_scan.fm_demod_plain(*args, **kw)
         torch.cuda.synchronize()
         err = max((g - r).abs().max().item() for g, r in zip(got, ref))
         bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
-        print(f"[3] fm_demod {NB_CH} x {NB_T} pole={pole}: max_abs_err={err:.3e} "
+        print(f"[3] fm_demod {NB_CH} x {NB_T} pole={kw['pole']}: max_abs_err={err:.3e} "
               f"(atol {FM_KERNEL_ATOL}) bitwise={bitwise}")
         check(all(g.shape == r.shape for g, r in zip(got, ref)), "fm_demod shapes")
-        check(err <= FM_KERNEL_ATOL, ("fm_demod", pole, err))
+        check(bitwise and err <= FM_KERNEL_ATOL, ("fm_demod", kw["pole"], err))
         errs.setdefault("fm_demod", err)
+    three = affine_scan.fm_demod_cuda(*args, **pole_kw, one_launch=False)
+    again = affine_scan.fm_demod_cuda(*args, **pole_kw)
+    once = affine_scan.fm_demod_cuda(*args, **pole_kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(once, again, three))
+    print(f"[3] fm_demod {NB_CH} x {NB_T}: one launch twice in a row and three launches give "
+          f"the same bits: {same}")
+    check(same, "fm_demod launches")
+    for c, t in FM_EDGE_SHAPES:
+        edge = fm_inputs(c, t, gen)
+        got = affine_scan.fm_demod_cuda(*edge, **pole_kw)
+        ref = affine_scan.fm_demod_plain(*edge, **pole_kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
+        print(f"[3] fm_demod {c} x {t} (edge shape) with de-emphasis: bitwise={bitwise}")
+        check(bitwise, ("fm_demod edge", c, t))
     ch = Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True)
+    rand_planes = [torch.randn((PFB_M, PFB_M), device="cuda", generator=gen) for _ in range(2)]
     for label, batch, neg_b in (("real", NB_CH, True), ("IQ", 2 * NB_CH, False)):
         rows = torch.randn((batch, NB_T // PFB_M + PFB_TAPS - 1, PFB_M), device="cuda",
                            generator=gen)
-        a, b = pfb_kernel.pfb_fold_dft_cuda(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS, neg_b)
-        ra, rb = pfb_kernel.pfb_fold_dft_plain(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS,
-                                               PFB_M, neg_b)
-        torch.cuda.synchronize()
-        err = max((a - ra).abs().max().item(), (b - rb).abs().max().item())
-        rel = err / ra.abs().max().item()
-        bitwise = torch.equal(a, ra) and torch.equal(b, rb)
-        print(f"[3] pfb_fold_dft {label} rows {tuple(rows.shape)}: max_abs_err={err:.3e} "
-              f"rel={rel:.2e} (tol {PFB_REL}) bitwise={bitwise}")
-        check(rel <= PFB_REL, ("pfb_fold_dft", label, rel))
-        errs.setdefault("pfb_fold_dft", err)
+        folded = pfb_kernel.fold_rows(rows, ch._h2, PFB_TAPS).double()
+        for which, (cos, sin) in (("channelizer", (ch._cos, ch._sin)), ("random", rand_planes)):
+            a, b = pfb_kernel.pfb_fold_dft_cuda(rows, ch._h2, cos, sin, PFB_TAPS, neg_b)
+            ra, rb = pfb_kernel.pfb_fold_dft_plain(rows, ch._h2, cos, sin, PFB_TAPS, PFB_M, neg_b)
+            torch.cuda.synchronize()
+            err = max((a - ra).abs().max().item(), (b - rb).abs().max().item())
+            rel = err / ra.abs().max().item()
+            sign = -1.0 if neg_b else 1.0
+            snr = [(snr_db(folded @ cos.double(), a), snr_db(folded @ cos.double(), ra)),
+                   (snr_db(sign * (folded @ sin.double()), b),
+                    snr_db(sign * (folded @ sin.double()), rb))]
+            print(f"[3] pfb_fold_dft {label} rows {tuple(rows.shape)}, {which} planes: "
+                  f"max_abs_err={err:.3e} rel={rel:.2e} (tol {PFB_REL}); vs float64 A kernel "
+                  f"{snr[0][0]:.2f} dB plain {snr[0][1]:.2f} dB, B kernel {snr[1][0]:.2f} dB "
+                  f"plain {snr[1][1]:.2f} dB")
+            check(rel <= PFB_REL, ("pfb_fold_dft", label, which, rel))
+            check(all(k >= p - SNR_VS_PLAIN_DB for k, p in snr), ("pfb_fold_dft float64", snr))
+            if which == "channelizer":
+                errs.setdefault("pfb_fold_dft", err)
     return errs
 
 
@@ -1143,6 +1191,18 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
            lambda: affine_scan.fm_demod_plain(re, im, z, z, y0, **kw),
            bound(samples * 12 + NB_CH * 24, samples * FM_FLOPS_PER_SAMPLE),
            f"{NB_CH} x {NB_T}, de-emphasis on", plain_iters=2)
+    three = lambda: affine_scan.fm_demod_cuda(re, im, z, z, y0, **kw, one_launch=False)
+    print(f"[5] fm_demod in three launches (block maps, chain, emit): {cuda_ms(three):.4f} ms; "
+          f"{profiled(three)}")
+    # The chain's floor: one dependent multiply and add (4 cycles each) a
+    # 128-sample block, at the card's highest SM clock.
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    floor_ms = NB_T // 128 * CHAIN_CYCLES_PER_BLOCK / (mhz * 1e6) * 1e3
+    print(f"[5] fm_demod chain floor: {NB_T // 128} blocks x {CHAIN_CYCLES_PER_BLOCK} cycles at "
+          f"{mhz:.0f} MHz = {floor_ms:.4f} ms -> kernel at {floor_ms / timing['fm_demod']['ms']:.1%} "
+          f"of it (bytes bound {timing['fm_demod']['bound_ms']:.4f} ms)")
     nopole = {**kw, "pole": None}
     print(f"[5] fm_demod without de-emphasis: "
           f"{cuda_ms(lambda: affine_scan.fm_demod_cuda(re, im, z, z, y0, **nopole)):.4f} ms")
@@ -1172,8 +1232,14 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
                lambda: pfb_kernel.pfb_fold_dft_plain(rows, ch._h2, ch._cos, ch._sin, PFB_TAPS,
                                                      PFB_M, neg_b),
                b, f"{label}, rows {tuple(rows.shape)}")
-        print(f"[5] {name}: the dense products as written are "
-              f"{out_rows * PFB_M * 4 * PFB_M / 1e9:.3f} GFLOP")
+        # For arbitrary planes the floor is the dense work: two (rows, 128) @
+        # (128, 128) products, six bf16 passes each on the tensor cores.
+        dense = out_rows * PFB_M * 4 * PFB_M
+        floor_ms = 6 * dense / PEAK_BF16_FLOPS * 1e3
+        print(f"[5] {name} dense floor: {dense / 1e9:.3f} GFLOP x 6 bf16 passes at "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s = {floor_ms:.4f} ms -> kernel at "
+              f"{floor_ms / timing[name]['ms']:.1%} of it (the bytes bound "
+              f"{timing[name]['bound_ms']:.4f} ms)")
 
     walls = {}
     turns = lambda a, b, k: [a, b, b, a] * k

@@ -348,7 +348,17 @@ def _planes(c, t, seed):
                  for _ in range(2))
 
 
-@pytest.mark.parametrize("shape", [(3, 5 * 128), (8, 64 * 128)], ids=["3x640", "8x8192"])
+# (channels, T): the small shapes, the chain's edge shapes (one block; one
+# stage of csrc/affine_chain.cuh, 1024 blocks, less and plus one; many
+# channels of one block, more than the card has SMs) and the FM kernel
+# path's dispatch (8 x 2^20).
+FM_SHAPES = {"3x640": (3, 5 * 128), "8x8192": (8, 64 * 128), "1x128": (1, 128),
+             "2x1023blocks": (2, 1023 * 128), "2x1024blocks": (2, 1024 * 128),
+             "2x1025blocks": (2, 1025 * 128), "300x128": (300, 128), "1000x128": (1000, 128),
+             "8x2^20": (8, 1 << 20)}
+
+
+@pytest.mark.parametrize("shape", list(FM_SHAPES.values()), ids=list(FM_SHAPES))
 @pytest.mark.parametrize("pole", [None, FM_POLE], ids=["nopole", "pole"])
 def test_fm_kernel_equals_plain_bitwise(card, shape, pole):
     """The kernel does the plain version's fp32 operations in its order,
@@ -363,6 +373,19 @@ def test_fm_kernel_equals_plain_bitwise(card, shape, pole):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.shape == r.shape and torch.equal(g, r)
+
+
+def test_fm_kernel_twice_in_a_row_same_bits(card):
+    """Two launches in a row on the same inputs and stream give the same
+    bits, and the plain version's."""
+    re, im = _planes(8, 4096 * 128, seed=15)
+    z, y0 = torch.zeros((8, 1), device="cuda"), torch.zeros(8, device="cuda")
+    first = affine_scan.fm_demod_cuda(re, im, z, z, y0, pole=FM_POLE, **FM_KW)
+    second = affine_scan.fm_demod_cuda(re, im, z, z, y0, pole=FM_POLE, **FM_KW)
+    ref = affine_scan.fm_demod_plain(re, im, z, z, y0, pole=FM_POLE, **FM_KW)
+    torch.cuda.synchronize()
+    for a, b, r in zip(first, second, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
 
 
 def test_fm_demodulator_kernel_path_on_card(card):
@@ -388,7 +411,7 @@ def test_fm_demodulator_kernel_path_on_card(card):
     assert (ref - one).abs().max().item() <= 2e-6 * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("steps,taps", [(1, 8), (7, 2), (9, 1), (300, 33), (1000, 8)])
+@pytest.mark.parametrize("steps,taps", [(1, 8), (7, 2), (9, 1), (300, 33), (1000, 8), (70, 256)])
 def test_pfb_kernel_matches_plain(card, steps, taps):
     rng = np.random.default_rng(steps + taps)
     rows = torch.as_tensor(rng.standard_normal((2, steps + taps - 1, 128)).astype(np.float32),
@@ -404,6 +427,66 @@ def test_pfb_kernel_matches_plain(card, steps, taps):
         scale = ra.abs().max().item()
         assert (a - ra).abs().max().item() <= 1e-5 * scale
         assert (b - rb).abs().max().item() <= 1e-5 * scale
+
+
+def _pfb_inputs(steps, taps, planes, seed, batch=2):
+    """rows (batch, steps + taps - 1, 128), h2 and the (cos, sin) planes:
+    the Channelizer's, or seeded standard-normal ones."""
+    from tpu_sdr_torch.kernels.pfb import Channelizer
+
+    rng = np.random.default_rng(seed)
+    cuda = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    rows = cuda(rng.standard_normal((batch, steps + taps - 1, 128)))
+    ch = Channelizer(m=128, taps=taps, device="cuda")
+    if planes == "random":
+        return rows, ch._h2, cuda(rng.standard_normal((128, 128))), cuda(rng.standard_normal((128, 128)))
+    return rows, ch._h2, ch._cos, ch._sin
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0**-40, 2.0**40], ids=["1", "2^-40", "2^40"])
+@pytest.mark.parametrize("planes", ["channelizer", "random"])
+def test_pfb_kernel_planes_and_scales_match_plain(card, planes, scale):
+    """With the Channelizer's and with random planes, and rows scaled by
+    2^+-40: within 1e-5 of max |A| of the plain version."""
+    rows, h2, cos, sin = _pfb_inputs(300, 8, planes, seed=16)
+    rows = rows * scale
+    for neg_b in (False, True):
+        a, b = pfb_kernel.pfb_fold_dft_cuda(rows, h2, cos, sin, 8, neg_b)
+        ra, rb = pfb_kernel.pfb_fold_dft_plain(rows, h2, cos, sin, 8, 128, neg_b)
+        torch.cuda.synchronize()
+        tol = 1e-5 * ra.abs().max().item()
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        assert (a - ra).abs().max().item() <= tol and (b - rb).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("planes", ["channelizer", "random"])
+def test_pfb_kernel_snr_vs_float64(card, planes):
+    """Against the float64 function (the fp32 fold, both products in
+    float64), the kernel reaches at least the plain version's SNR - 1 dB."""
+    rows, h2, cos, sin = _pfb_inputs(2000, 8, planes, seed=17, batch=4)
+    folded = pfb_kernel.fold_rows(rows, h2, 8).double()
+    a, b = pfb_kernel.pfb_fold_dft_cuda(rows, h2, cos, sin, 8)
+    pa, pb = pfb_kernel.pfb_fold_dft_plain(rows, h2, cos, sin, 8, 128)
+    for got, plain, plane in ((a, pa, cos), (b, pb, sin)):
+        ref = folded @ plane.double()
+        assert snr_db(ref, got) >= snr_db(ref, plain) - 1.0
+
+
+def test_pfb_kernel_steps_independent_of_launch(card):
+    """A step's bits do not depend on the launch: the steps of one launch
+    equal those of launches over parts of the rows (each with its halo)."""
+    taps = 8
+    rows, h2, cos, sin = _pfb_inputs(1000, taps, "random", seed=18)
+    whole = pfb_kernel.pfb_fold_dft_cuda(rows, h2, cos, sin, taps, True)
+    cuts = (0, 1, 65, 200, 1000)
+    parts = [pfb_kernel.pfb_fold_dft_cuda(rows[:, lo : hi + taps - 1].contiguous(), h2, cos,
+                                          sin, taps, True)
+             for lo, hi in zip(cuts, cuts[1:])]
+    one_row = pfb_kernel.pfb_fold_dft_cuda(rows[1:].contiguous(), h2, cos, sin, taps, True)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(torch.cat([p[k] for p in parts], dim=1), whole[k])
+        assert torch.equal(one_row[k], whole[k][1:])
 
 
 @pytest.mark.parametrize("iq", [False, True], ids=["real", "iq"])

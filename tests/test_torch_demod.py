@@ -92,6 +92,41 @@ def test_fm_plain_carried_state_chunking_bitwise(pole):
         assert torch.equal(g, w)
 
 
+# The CUDA kernel's edge shapes, (channels, blocks of 128, the reference's
+# rows_per_tile): one block; one stage of the kernel's chain
+# (csrc/affine_chain.cuh, 1024 blocks) less one and plus one; many channels
+# of one block. tests/test_torch_cuda.py holds the kernel to the plain
+# version at these shapes, bit for bit.
+FM_EDGE_SHAPES = [(3, 1, 1), (2, 1023, 31), (2, 1025, 41), (300, 1, 1)]
+
+
+@pytest.mark.parametrize("c,blocks,rows", FM_EDGE_SHAPES)
+def test_fm_plain_edge_shapes_match_jax_and_chunk(c, blocks, rows):
+    """The plain version with de-emphasis at the kernel's edge shapes:
+    within the kernel bound of the JAX kernel in interpret mode, and two
+    chunks of ``blocks`` blocks == one call of twice as many, bit for bit."""
+    t = blocks * 128
+    re, im = (torch.tensor(a) for a in _planes((c, 2 * t), 5))
+    rng = np.random.default_rng(6)
+    pr, pi = (torch.tensor((0.5 * rng.standard_normal((c, 1))).astype(np.float32))
+              for _ in range(2))
+    y0 = torch.tensor((0.1 * rng.standard_normal(c)).astype(np.float32))
+    kw = dict(fs=2e5, dev=75e3, pole=0.9997)
+    head = (re[:, :t], im[:, :t], pr, pi, y0)
+    want = jscan.fm_demod_pallas(*(jnp.asarray(a.numpy()) for a in head), rows_per_tile=rows,
+                                 interpret=True, **kw)
+    got = affine_scan.fm_demod_pallas(*head, rows_per_tile=rows, **kw)
+    for g, w, name in zip(got, want, ("audio", "prev_re", "prev_im", "filt")):
+        assert tuple(g.shape) == np.shape(w), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=KERNEL_ATOL,
+                                   err_msg=name)
+    full = affine_scan.fm_demod_plain(re, im, pr, pi, y0, **kw)
+    tail = affine_scan.fm_demod_plain(re[:, t:], im[:, t:], *got[1:], **kw)
+    assert torch.equal(torch.cat([got[0], tail[0]], dim=1), full[0])
+    for g, w in zip(tail[1:], full[1:]):
+        assert torch.equal(g, w)
+
+
 def test_fm_kernel_validation_and_counts():
     re, im = (torch.tensor(a) for a in _planes((2, 64 * 128), 3))
     z, y0 = torch.zeros((2, 1)), torch.zeros(2)

@@ -346,7 +346,8 @@ def test_package_data_lists_the_headers():
     globs = data["tool"]["setuptools"]["package-data"]["tpu_sdr_torch"]
     assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs
     assert sorted(p.name for p in loader.SOURCE_DIR.glob("*.cuh")) == [
-        "error_string.cuh", "fft128.cuh", "four_step.cuh", "iir_blocks.cuh",
+        "affine_chain.cuh", "error_string.cuh", "fft128.cuh", "four_step.cuh", "iir_blocks.cuh",
+        "split_bf16.cuh",
     ]
     assert {"spectrum_half", "fft_mag_fused"} <= set(launch.KERNELS)
     assert set(iir_fft.KERNELS) <= set(launch.KERNELS)

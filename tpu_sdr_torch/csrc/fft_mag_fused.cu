@@ -58,18 +58,24 @@
 // reaches a fraction of that peak. Shared memory (dynamic): 224 KiB, one
 // block per SM; up to 255 registers a thread.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "error_string.cuh"
+#include "split_bf16.cuh"
 
 namespace {
+
+using split_bf16::add4;
+using split_bf16::kPieces;
+using split_bf16::mma;
+using split_bf16::mma6;
+using split_bf16::split_frag;
+using split_bf16::split_pair;
 
 constexpr int kN1 = 128;
 constexpr int kN = kN1 * kN1;
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kPieces = 3;
 constexpr int kStage = 132;  // row stride (floats) of the fp32 staging areas
 // Shared memory (16-byte units): T pieces [piece][re/im][m-tile][k-step][lane];
 // the xw pieces [piece][k-step][n-tile pair][lane] over its first half; the
@@ -80,41 +86,6 @@ constexpr int kTSlots = kPieces * 2 * 8 * 8 * 32;
 constexpr int kXSlots = kPieces * 8 * 8 * 32;
 constexpr size_t kSmemBytes = size_t(kTSlots + 8 * 8 * 32) * 16;
 static_assert(kXSlots * 16 + kN1 * kStage * 4 <= int(kSmemBytes), "staging fits beside the xw pieces");
-
-// Three bf16x2 words of a pair of floats (lo in the low half): word k holds
-// piece k of both.
-__device__ __forceinline__ void split_pair(float lo, float hi, uint32_t (&w)[kPieces]) {
-#pragma unroll
-  for (int k = 0; k < kPieces; ++k) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-    w[k] = *reinterpret_cast<const uint32_t*>(&p);
-    const float2 back = __bfloat1622float2(p);
-    lo = __fsub_rn(lo, back.x);
-    hi = __fsub_rn(hi, back.y);
-  }
-}
-
-// d += A B, m16n8k16, bf16 operands, fp32 accumulation.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The six piece products (A piece i, B piece j) with i + j <= 2 of one
-// k-step into acc, smallest first: A pieces a[i], B pieces (b0[j], b1[j]).
-__device__ __forceinline__ void mma6(float (&acc)[4], const uint32_t (&a)[kPieces][4],
-                                     const uint32_t (&b0)[kPieces],
-                                     const uint32_t (&b1)[kPieces]) {
-  mma(acc, a[2], b0[0], b1[0]);
-  mma(acc, a[1], b0[1], b1[1]);
-  mma(acc, a[0], b0[2], b1[2]);
-  mma(acc, a[1], b0[0], b1[0]);
-  mma(acc, a[0], b0[1], b1[1]);
-  mma(acc, a[0], b0[0], b1[0]);
-}
 
 // mma6 of two products into one accumulator, interleaved: at each of the
 // six steps, a's product and then c's.
@@ -138,11 +109,6 @@ __device__ __forceinline__ void mma6x2(float (&acc)[4], const uint32_t (&a)[kPie
   mma(acc, c[0], d0[0], d1[0]);
 }
 
-__device__ __forceinline__ void add4(float (&s)[4], const float (&t)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) s[c] = __fadd_rn(s[c], t[c]);
-}
-
 // The fp32 A fragment of rows r0, r0 + 8 and columns c0 + {0, 1}, c0 + 8 +
 // {0, 1} of a row-major (128, 128) plane, as four float2.
 __device__ __forceinline__ void load_frag(const float* __restrict__ m, int r0, int c0,
@@ -151,16 +117,6 @@ __device__ __forceinline__ void load_frag(const float* __restrict__ m, int r0, i
   v[1] = __ldg(reinterpret_cast<const float2*>(m + (r0 + 8) * kN1 + c0));
   v[2] = __ldg(reinterpret_cast<const float2*>(m + r0 * kN1 + c0 + 8));
   v[3] = __ldg(reinterpret_cast<const float2*>(m + (r0 + 8) * kN1 + c0 + 8));
-}
-
-__device__ __forceinline__ void split_frag(const float2 (&v)[4], uint32_t (&a)[kPieces][4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint32_t w[kPieces];
-    split_pair(v[q].x, v[q].y, w);
-#pragma unroll
-    for (int k = 0; k < kPieces; ++k) a[k][q] = w[k];
-  }
 }
 
 // 8 bytes from device to shared memory, through no register (cp.async).

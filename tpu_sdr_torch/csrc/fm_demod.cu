@@ -24,12 +24,21 @@
 //   pass 1 (one warp per 128-sample block, 4 samples a lane): the
 //     discriminator and the block's tree; writes only (A_last, B_last),
 //     8 bytes per block;
-//   pass 2 (one thread per channel): the chain over the channel's blocks in
-//     order; writes each block's entry state y_in and the carried state;
+//   pass 2 (one 256-thread block per channel, affine_chain.cuh): the chain
+//     over the channel's blocks in order, one lane walking maps that the
+//     other warps stream through shared memory; writes each block's entry
+//     state y_in and the carried state;
 //   pass 3 (as pass 1): recomputes the discriminator and the tree, reads
 //     y_in and writes y = A y_in + B.
 //
-// Without a pole only the discriminator runs (one pass).
+// The wrapper runs the three passes in one launch (fm_fused_kernel): blocks
+// take tickets in an order in which each waits only on blocks that hold
+// earlier tickets (flags and counters with release / acquire at GPU scope),
+// so pass 1's tiles of a channel run just ahead of its walker, and pass 3's
+// tiles follow the walkers stage by stage; the launch lasts about the chain
+// plus one tile of each other pass. The three passes can also run as three
+// launches (the same bits), which timing scripts compare with it. Without a
+// pole only the discriminator runs (one pass).
 //
 // Every multiply and add is __fmul_rn / __fadd_rn / __fsub_rn, so nvcc does
 // not contract them into FMAs: the arithmetic is the plain PyTorch version's
@@ -42,12 +51,14 @@
 // bound by memory (0.030 ms at 8 channels x 2^20 samples). Pass 3 re-reads
 // re/im (8 bytes a sample) rather than storing and reloading each sample's
 // (A, B), which would cost 16. Pass 2 is a dependent sequence of one
-// multiply and one add per block (8192 steps at 2^20 samples a channel),
-// latency-bound on few threads. Its times on the card are in PERF.md.
+// multiply and one add per block (8192 steps at 2^20 samples a channel):
+// its floor is that latency, about 8 cycles a block (0.033-0.037 ms at
+// 8192 blocks). Its times on the card are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "affine_chain.cuh"
 #include "error_string.cuh"
 
 namespace {
@@ -55,7 +66,6 @@ namespace {
 constexpr int kL = 128;            // samples per affine block
 constexpr int kWarps = 8;          // blocks (warps) per CTA
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChainThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Scale {
@@ -223,6 +233,46 @@ fm_disc_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// The final affine map (A_last, B_last) of block g of channel c (one warp).
+__device__ __forceinline__ void map_block(const float* __restrict__ re,
+                                          const float* __restrict__ im,
+                                          const float* __restrict__ prev_re,
+                                          const float* __restrict__ prev_im,
+                                          float2* __restrict__ ab, size_t gb, int c, int g,
+                                          const Scale& s) {
+  const size_t base = gb * kL;
+  float pr, pi;
+  prev_sample(re, im, prev_re, prev_im, base, c, g, &pr, &pi);
+  float A[4], B[4];
+  discriminate(re, im, base, pr, pi, s, B);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) B[j] = __fmul_rn(s.oma, B[j]);
+  block_tree(s.a, A, B);
+  if ((threadIdx.x & 31) == 31) ab[gb] = make_float2(A[3], B[3]);
+}
+
+// y = A y_in + B for the 128 samples of block g of channel c (one warp).
+__device__ __forceinline__ void emit_block(const float* __restrict__ re,
+                                           const float* __restrict__ im,
+                                           const float* __restrict__ prev_re,
+                                           const float* __restrict__ prev_im, float y,
+                                           float* __restrict__ audio, size_t gb, int c, int g,
+                                           const Scale& s) {
+  const size_t base = gb * kL;
+  float pr, pi;
+  prev_sample(re, im, prev_re, prev_im, base, c, g, &pr, &pi);
+  float A[4], B[4];
+  discriminate(re, im, base, pr, pi, s, B);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) B[j] = __fmul_rn(s.oma, B[j]);
+  block_tree(s.a, A, B);
+  float out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = __fadd_rn(__fmul_rn(A[j], y), B[j]);
+  reinterpret_cast<float4*>(audio + base)[threadIdx.x & 31] =
+      make_float4(out[0], out[1], out[2], out[3]);
+}
+
 // Pass 1: each block's final affine map (A_last, B_last).
 __global__ void __launch_bounds__(kThreads)
 fm_block_maps_kernel(const float* __restrict__ re, const float* __restrict__ im,
@@ -230,60 +280,37 @@ fm_block_maps_kernel(const float* __restrict__ re, const float* __restrict__ im,
                      const float* __restrict__ prev_im,
                      float2* __restrict__ ab, int channels, int blocks, Scale s) {
   const BlockPos p = block_pos(channels, blocks);
-  if (!p.live) return;
-  const size_t base = p.gb * kL;
-  float pr, pi;
-  prev_sample(re, im, prev_re, prev_im, base, p.c, p.g, &pr, &pi);
-  float A[4], B[4];
-  discriminate(re, im, base, pr, pi, s, B);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) B[j] = __fmul_rn(s.oma, B[j]);
-  block_tree(s.a, A, B);
-  if ((threadIdx.x & 31) == 31) ab[p.gb] = make_float2(A[3], B[3]);
+  if (p.live) map_block(re, im, prev_re, prev_im, ab, p.gb, p.c, p.g, s);
 }
 
-// Pass 2: the chain over each channel's blocks, in order. The maps of the
-// next kChainBatch blocks are loaded while the current batch is walked, so
-// the loop waits on the dependent multiply-add, not on memory.
-constexpr int kChainBatch = 32;
-
-__device__ __forceinline__ void load_maps(const float2* __restrict__ abc, int g0,
-                                          int blocks, float2 m[kChainBatch]) {
-#pragma unroll
-  for (int i = 0; i < kChainBatch; ++i) {
-    m[i] = g0 + i < blocks ? abc[g0 + i] : make_float2(1.f, 0.f);
-  }
-}
-
-__global__ void __launch_bounds__(kChainThreads)
-fm_chain_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                const float* __restrict__ y0, const float2* __restrict__ ab,
-                float* __restrict__ y_in, float* __restrict__ prev_re_out,
-                float* __restrict__ prev_im_out, float* __restrict__ filt_out,
-                int channels, int blocks) {
-  const int c = blockIdx.x * kChainThreads + threadIdx.x;
-  if (c >= channels) return;
-  const float2* abc = ab + size_t(c) * blocks;
-  float* yc = y_in + size_t(c) * blocks;
-  float y = y0[c];
-  float2 cur[kChainBatch], nxt[kChainBatch];
-  load_maps(abc, 0, blocks, cur);
-  for (int g0 = 0; g0 < blocks; g0 += kChainBatch) {
-    load_maps(abc, g0 + kChainBatch, blocks, nxt);
-#pragma unroll
-    for (int i = 0; i < kChainBatch; ++i) {
-      if (g0 + i < blocks) {
-        yc[g0 + i] = y;
-        y = __fadd_rn(__fmul_rn(cur[i].x, y), cur[i].y);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kChainBatch; ++i) cur[i] = nxt[i];
-  }
+// The carried state of channel c after the chain: its last sample and the
+// filter state y.
+__device__ __forceinline__ void carried_state(const float* __restrict__ re,
+                                              const float* __restrict__ im, int c, int blocks,
+                                              float y, float* __restrict__ prev_re_out,
+                                              float* __restrict__ prev_im_out,
+                                              float* __restrict__ filt_out) {
   const size_t last = (size_t(c) + 1) * blocks * kL - 1;
   filt_out[c] = y;
   prev_re_out[c] = re[last];
   prev_im_out[c] = im[last];
+}
+
+// Pass 2: the chain over each channel's blocks, in order, one block per
+// channel (affine_chain.cuh): its maps stream through shared memory while
+// one lane walks them; the entry states go out coalesced. Also writes the
+// carried state.
+__global__ void __launch_bounds__(affine_chain::kThreads)
+fm_chain_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                const float* __restrict__ y0, const float2* __restrict__ ab,
+                float* __restrict__ y_in, float* __restrict__ prev_re_out,
+                float* __restrict__ prev_im_out, float* __restrict__ filt_out,
+                int blocks) {
+  __shared__ affine_chain::Stages st;
+  const int c = blockIdx.x;
+  const float y = affine_chain::walk_chain(ab + size_t(c) * blocks, y_in + size_t(c) * blocks,
+                                           blocks, y0[c], st, affine_chain::NoHooks{});
+  if (threadIdx.x == 0) carried_state(re, im, c, blocks, y, prev_re_out, prev_im_out, filt_out);
 }
 
 // Pass 3: y = A y_in + B for every sample.
@@ -294,21 +321,119 @@ fm_emit_kernel(const float* __restrict__ re, const float* __restrict__ im,
                const float* __restrict__ y_in, float* __restrict__ audio,
                int channels, int blocks, Scale s) {
   const BlockPos p = block_pos(channels, blocks);
-  if (!p.live) return;
-  const size_t base = p.gb * kL;
-  float pr, pi;
-  prev_sample(re, im, prev_re, prev_im, base, p.c, p.g, &pr, &pi);
-  float A[4], B[4];
-  discriminate(re, im, base, pr, pi, s, B);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) B[j] = __fmul_rn(s.oma, B[j]);
-  block_tree(s.a, A, B);
-  const float y = y_in[p.gb];
-  float out[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[j] = __fadd_rn(__fmul_rn(A[j], y), B[j]);
-  reinterpret_cast<float4*>(audio + base)[threadIdx.x & 31] =
-      make_float4(out[0], out[1], out[2], out[3]);
+  if (p.live) emit_block(re, im, prev_re, prev_im, y_in[p.gb], audio, p.gb, p.c, p.g, s);
+}
+
+// ---- The three passes in one launch.
+//
+// Every block takes a ticket from a counter (zeroed before the launch) and
+// does the work of that ticket: for each channel in turn, its map tiles
+// (kTileBlocks blocks of pass 1 each) and then its walker (pass 2); after
+// all channels, the emit tiles (pass 3), block-major over the channels. A
+// map tile publishes a flag when its maps are stored; the walker's helpers
+// wait on the flags of the maps they load; the walker publishes how many
+// entry states are stored; an emit tile waits for its blocks' entry states.
+// Every wait is on a ticket that an earlier block holds, and map tiles never
+// wait, so every awaited block is running and the launch cannot deadlock,
+// however few blocks fit on the card at once.
+
+constexpr int kTileBlocks = 64;  // 128-sample blocks of a map or emit tile
+static_assert(affine_chain::kChunk % kTileBlocks == 0, "a stage holds whole map tiles");
+static_assert(affine_chain::kChunk / kTileBlocks <= affine_chain::kHelpers,
+              "a helper waits on one tile's flag");
+static_assert(kThreads == affine_chain::kThreads, "a fused block can be a walker");
+
+// Polls before a wait gives up and traps: a wait that never ends is a bug,
+// and a trap turns it into a launch error instead of a hung card.
+constexpr long long kMaxPolls = 1LL << 26;
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Wait until *p >= want.
+__device__ __forceinline__ void wait_at_least(const int* p, int want) {
+  unsigned ns = 32;
+  for (long long polls = 0; load_acquire(p) < want; ++polls) {
+    if (polls > kMaxPolls) __trap();
+    __nanosleep(ns);
+    ns = ns < 256 ? 2 * ns : ns;
+  }
+}
+
+// The walker's hooks: its helpers wait on the flags of the map tiles they
+// load, and thread 32 publishes the stored entry states.
+struct FusedHooks {
+  const int* flags;  // the channel's map tile flags
+  int* progress;     // the channel's stored entry states
+  __device__ void wait_maps(int lo, int hi) const {
+    const int first = lo / kTileBlocks;
+    const int h = threadIdx.x - 32;
+    if (first + h <= (hi - 1) / kTileBlocks) wait_at_least(flags + first + h, 1);
+    affine_chain::helpers_sync();
+  }
+  __device__ void stored(int count) const {
+    if (threadIdx.x == 32) {
+      __threadfence();
+      store_release(progress, count);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 4)
+fm_fused_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                const float* __restrict__ prev_re, const float* __restrict__ prev_im,
+                const float* __restrict__ y0, float* __restrict__ audio,
+                float* __restrict__ prev_re_out, float* __restrict__ prev_im_out,
+                float* __restrict__ filt_out, float2* __restrict__ ab,
+                float* __restrict__ y_in, int* __restrict__ sync, int channels, int blocks,
+                Scale s) {
+  __shared__ affine_chain::Stages st;
+  __shared__ int ticket;
+  const int tid = threadIdx.x;
+  if (tid == 0) ticket = atomicAdd(sync, 1);
+  __syncthreads();
+  const int id = ticket;
+  const int tiles = (blocks + kTileBlocks - 1) / kTileBlocks;  // map (or emit) tiles a channel
+  int* progress = sync + 1;                                     // [channels]
+  int* flags = sync + 1 + channels;                             // [channels][tiles]
+  const int w = tid >> 5;
+  if (id < channels * (tiles + 1)) {
+    const int c = id / (tiles + 1);
+    const int j = id % (tiles + 1);
+    if (j == tiles) {  // the walker of channel c
+      const FusedHooks hooks{flags + size_t(c) * tiles, progress + c};
+      const float y = affine_chain::walk_chain(ab + size_t(c) * blocks,
+                                               y_in + size_t(c) * blocks, blocks, y0[c], st,
+                                               hooks);
+      if (tid == 0) carried_state(re, im, c, blocks, y, prev_re_out, prev_im_out, filt_out);
+    } else {  // map tile j of channel c
+      for (int g = j * kTileBlocks + w; g < min(blocks, (j + 1) * kTileBlocks); g += kWarps)
+        map_block(re, im, prev_re, prev_im, ab, size_t(c) * blocks + g, c, g, s);
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        store_release(flags + size_t(c) * tiles + j, 1);
+      }
+    }
+  } else {  // emit tile j of channel c
+    const int e = id - channels * (tiles + 1);
+    const int j = e / channels;
+    const int c = e % channels;
+    const int end = min(blocks, (j + 1) * kTileBlocks);
+    if (tid == 0) wait_at_least(progress + c, end);
+    __syncthreads();
+    for (int g = j * kTileBlocks + w; g < end; g += kWarps) {
+      const size_t gb = size_t(c) * blocks + g;
+      emit_block(re, im, prev_re, prev_im, __ldcg(y_in + gb), audio, gb, c, g, s);
+    }
+  }
 }
 
 }  // namespace
@@ -317,18 +442,20 @@ extern "C" {
 
 // re, im: (channels, blocks * 128) fp32, 16-byte aligned; prev_re, prev_im,
 // y0: (channels,) fp32; audio: (channels, blocks * 128) fp32, 16-byte
-// aligned; prev_re_out, prev_im_out, filt_out: (channels,) fp32; ab:
-// (channels * blocks * 2,) fp32 and y_in: (channels * blocks,) fp32 scratch
-// (null without a pole). k_hz = fs / (2 pi), k_dev = 1 / dev, pole and
-// one_minus_pole as fp32; has_pole 0 skips the de-emphasis. All contiguous,
+// aligned; prev_re_out, prev_im_out, filt_out: (channels,) fp32. Scratch
+// (null without a pole): ab (channels * blocks * 2,) fp32, y_in (channels *
+// blocks,) fp32 and sync (1 + channels * (1 + ceil(blocks / 64)),) int32,
+// which the fused launch zeroes on the stream first. k_hz = fs / (2 pi),
+// k_dev = 1 / dev, pole and one_minus_pole as fp32; has_pole 0 skips the
+// de-emphasis; fused 1 runs the three passes in one launch. All contiguous,
 // on the current device. Returns the CUDA error code of the launches (0 on
 // success).
 int tpu_sdr_fm_demod(const float* re, const float* im, const float* prev_re,
                      const float* prev_im, const float* y0, float* audio,
                      float* prev_re_out, float* prev_im_out, float* filt_out,
-                     float* ab, float* y_in, int channels, int blocks,
+                     float* ab, float* y_in, int* sync, int channels, int blocks,
                      float k_hz, float k_dev, float pole, float one_minus_pole,
-                     int has_pole, void* stream) {
+                     int has_pole, int fused, void* stream) {
   if (channels <= 0 || blocks <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Scale s{k_hz, k_dev, pole, one_minus_pole};
@@ -341,13 +468,22 @@ int tpu_sdr_fm_demod(const float* re, const float* im, const float* prev_re,
     return int(cudaGetLastError());
   }
   float2* ab2 = reinterpret_cast<float2*>(ab);
+  if (fused) {
+    const size_t tiles = (size_t(blocks) + kTileBlocks - 1) / kTileBlocks;
+    cudaError_t err = cudaMemsetAsync(sync, 0, (1 + channels * (1 + tiles)) * sizeof(int), st);
+    if (err != cudaSuccess) return int(err);
+    fm_fused_kernel<<<unsigned(channels * (2 * tiles + 1)), kThreads, 0, st>>>(
+        re, im, prev_re, prev_im, y0, audio, prev_re_out, prev_im_out, filt_out, ab2, y_in,
+        sync, channels, blocks, s);
+    return int(cudaGetLastError());
+  }
   fm_block_maps_kernel<<<grid, kThreads, 0, st>>>(re, im, prev_re, prev_im, ab2,
                                                   channels, blocks, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const unsigned chain_grid = unsigned((channels + kChainThreads - 1) / kChainThreads);
-  fm_chain_kernel<<<chain_grid, kChainThreads, 0, st>>>(
-      re, im, y0, ab2, y_in, prev_re_out, prev_im_out, filt_out, channels, blocks);
+  fm_chain_kernel<<<channels, affine_chain::kThreads, 0, st>>>(re, im, y0, ab2, y_in,
+                                                               prev_re_out, prev_im_out,
+                                                               filt_out, blocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   fm_emit_kernel<<<grid, kThreads, 0, st>>>(re, im, prev_re, prev_im, y_in, audio,

@@ -4,9 +4,12 @@
 ``pfb_fold_dft`` folds ``taps`` shifted rows of a (B, steps + taps - 1, m)
 row array with the prototype h2 (taps, m) and returns A = folded @ cos and
 B = folded @ sin (B negated with ``neg_b``). On a CUDA tensor it launches
-``csrc/pfb_fold_dft.cu`` (m = 128); on a CPU tensor it runs
-``pfb_fold_dft_plain``, the same fold followed by the two products through
-``biquad._canonical_matmul``.
+``csrc/pfb_fold_dft.cu`` (m = 128): the fold in IEEE fp32, bit for bit the
+plain version's, and both products on the tensor cores with each fp32
+operand split into three bf16 pieces, six piece products a k-step
+(``csrc/split_bf16.cuh``; ``tests/test_torch_pfb_split.py`` models it). On
+a CPU tensor it runs ``pfb_fold_dft_plain``, the same fold followed by the
+two products in fp32 through ``biquad._canonical_matmul``.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ PRECISIONS = ("highest", "default")
 # bits do not depend on how many steps share the dispatch.
 PRODUCT_ROWS = 2048
 
-# The kernel keeps the group's rows and halo and its folded rows in shared
-# memory: (64 + taps - 1 + 64) rows of 512 bytes, at most 227 KB.
+# The longest prototype the kernel takes, in taps (the reference's
+# channelizers use 8 to 33).
 MAX_KERNEL_TAPS = 256
 
 
@@ -87,8 +90,9 @@ def pfb_fold_dft(rows, h2, cos, sin, taps: int, m: int, group: int = 256,
     ``neg_b``).
 
     ``group`` (the reference's steps per grid step) and ``precision`` are
-    validated and accepted: the kernel's group is its own and does not
-    change the result, and every precision computes in IEEE fp32.
+    validated and accepted: the kernel's tile is its own and does not
+    change the result, and every precision computes as "highest" does: the
+    plain version in IEEE fp32, the kernel with six bf16 piece products.
     ``interpret`` has no meaning for a CUDA kernel: the plain version runs
     exactly when rows lie on the CPU, and ``interpret=True`` on a CUDA
     tensor raises."""
