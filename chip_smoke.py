@@ -16,7 +16,7 @@ Phases (each raises on failure):
      ``fft_mag_fused`` with the plan's planes, planes scaled by 0.5 and
      random planes;
      the FM kernel at 8 x 2^20 samples bit for bit (and within atol 1e-6),
-     one launch against three and twice in a row, and at its edge shapes
+     twice in a row, and at its edge shapes
      (one block; 1025 blocks; 1000 channels of one block); the PFB kernel at
      the channelizer's real and IQ shapes with the channelizer's and random
      planes (1e-5 of the output scale), and against float64 beside the plain
@@ -60,8 +60,9 @@ Phases (each raises on failure):
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it
      (``fft_mag_fused`` and ``pfb_fold_dft`` also beside their dense
-     tensor-core floors, ``fm_demod`` beside its chain's latency floor and
-     in three launches, each pass as the profiler saw it); rows 1,
+     tensor-core floors, ``fm_demod`` beside its chain's latency floor; the
+     phases inside one launch of ``fm_demod`` and ``pfb_fold_dft`` from
+     ``scripts/torch_spectrum_phases.py``); rows 1,
      2, 5 and 6 and their plain versions against a float64 reference (row 2
      from rest: window, ``sosfilt``, FFT; the kernel at most 1 dB below its
      plain version); each
@@ -537,14 +538,13 @@ def dispatch_wall(step, reps: int = 5, calls: int = 10,
 # It lists the range on the device too; device_kernels leaves it out.
 STEP_RANGE = "chip_smoke step"
 # Per wrapper: its device kernels that end a launch, one per launch
-# (csrc/<name>.cu; fm_demod is one kernel with de-emphasis, its three passes
-# in one launch, or its one discriminator pass without; its three-launch
-# form ends with the emit pass).
+# (csrc/<name>.cu; fm_demod runs its three passes in one kernel with
+# de-emphasis, its discriminator alone without).
 LAST_DEVICE_KERNEL = {
     "spectrum_bypass": ("spectrum_bypass_kernel",), "spectrum_iir": ("spectrum_iir_kernel",),
     "iir_summaries": ("iir_summaries_kernel",),
     "spectrum_complex": ("spectrum_complex_kernel",),
-    "fm_demod": ("fm_fused_kernel", "fm_emit_kernel", "fm_disc_kernel"),
+    "fm_demod": ("fm_fused_kernel", "fm_disc_kernel"),
     "pfb_fold_dft": ("pfb_fold_dft_kernel",),
     "spectrum_half": ("spectrum_half_kernel",), "fft_mag_fused": ("fft_mag_fused_kernel",),
 }
@@ -866,13 +866,11 @@ def phase_nb_kernels() -> dict:
         check(all(g.shape == r.shape for g, r in zip(got, ref)), "fm_demod shapes")
         check(bitwise and err <= FM_KERNEL_ATOL, ("fm_demod", kw["pole"], err))
         errs.setdefault("fm_demod", err)
-    three = affine_scan.fm_demod_cuda(*args, **pole_kw, one_launch=False)
-    again = affine_scan.fm_demod_cuda(*args, **pole_kw)
     once = affine_scan.fm_demod_cuda(*args, **pole_kw)
+    again = affine_scan.fm_demod_cuda(*args, **pole_kw)
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(once, again, three))
-    print(f"[3] fm_demod {NB_CH} x {NB_T}: one launch twice in a row and three launches give "
-          f"the same bits: {same}")
+    same = all(torch.equal(a, b) for a, b in zip(once, again))
+    print(f"[3] fm_demod {NB_CH} x {NB_T}: two launches in a row give the same bits: {same}")
     check(same, "fm_demod launches")
     for c, t in FM_EDGE_SHAPES:
         edge = fm_inputs(c, t, gen)
@@ -1191,9 +1189,6 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
            lambda: affine_scan.fm_demod_plain(re, im, z, z, y0, **kw),
            bound(samples * 12 + NB_CH * 24, samples * FM_FLOPS_PER_SAMPLE),
            f"{NB_CH} x {NB_T}, de-emphasis on", plain_iters=2)
-    three = lambda: affine_scan.fm_demod_cuda(re, im, z, z, y0, **kw, one_launch=False)
-    print(f"[5] fm_demod in three launches (block maps, chain, emit): {cuda_ms(three):.4f} ms; "
-          f"{profiled(three)}")
     # The chain's floor: one dependent multiply and add (4 cycles each) a
     # 128-sample block, at the card's highest SM clock.
     mhz = float(subprocess.run(
@@ -1257,6 +1252,22 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
         print(f"[5] {a} faster than {b} in {wins} of {len(walls[a])} pairs (medians "
               f"{statistics.median(walls[a]) * 1e3:.4f} vs {statistics.median(walls[b]) * 1e3:.4f} ms)")
     return {label: statistics.median(v) for label, v in walls.items()}, timing
+
+def phase_nb_phases(pp, plan: dict):
+    """Where rows 7 and 8 spend one launch at the paths' shapes:
+    scripts/torch_spectrum_phases.py's instrumented copies (the FM kernel's
+    map tiles, walkers and emit tiles; the PFB kernel's fold, products and
+    waits)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_spectrum_phases.py"
+    spec = importlib.util.spec_from_file_location("torch_spectrum_phases", path)
+    phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(phases)
+    for name in ("fm_demod", "pfb_fold_dft"):
+        print(f"[5] {name}, phases inside one launch:")
+        phases.run(name, pp, plan)
 
 # ---------------------------------------------------------------- rows 4 and 6, hop, banks, facade
 
@@ -1645,6 +1656,7 @@ def main():
     nb_steps = nb_paths(planes, pfb_x, pfb_planes, rx, rx_x, rx_xs)
     nb_walls, nb_timing = phase_nb_timing(planes, nb_steps)
     timing.update(nb_timing)
+    phase_nb_phases(pp, fplan)
     phase_profile(nb_steps, nb_walls, {"FM default": 1, "Receiver wbfm": 1,
                                        "Receiver wbfm IQ": 1})
     records = [

@@ -8,7 +8,7 @@ archive`` into a directory that ``.gitignore`` lists) with the loader's nvcc
 flags, each against its own headers, under ``build/kernel_ab/``. Calls both
 libraries' entry points with the same inputs at the main path's shape (row
 6: 512 frames of 16384 with the plan's planes; row 7: 8 x 2^20 samples
-with de-emphasis, this checkout's kernel in one launch and in three; row 8:
+with de-emphasis; row 8:
 8 x 2^20 real samples or (2, 8, 2^20) IQ planes, taps 8, random planes),
 reports whether every output is bit for bit the same as OTHER_ROOT's, then
 times them in turns (other, this, this, other; CUDA events around 20
@@ -61,8 +61,7 @@ def build(root: Path, name: str, tag: str):
 
 
 def case(label: str):
-    """(source name, {parameter name: value} builder returning (args, outputs),
-    extra variants of this checkout {tag: {parameter: value}})."""
+    """(source name, a function that returns ({parameter name: value}, outputs))."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rand = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
     if label == "fft_mag_fused":
@@ -76,7 +75,7 @@ def case(label: str):
             return dict(x=x, win=win, out=out, frames=512, **{k: plan[k] for k in
                         ("w2r", "w2i", "twr", "twi", "w1r", "w1i")}), [out]
 
-        return label, args, {}
+        return label, args
     if label == "fm_demod":
         c, t = 8, 1 << 20
         re_, im_ = rand(c, t), rand(c, t)
@@ -89,12 +88,12 @@ def case(label: str):
                         prev_re_out=outs[1], prev_im_out=outs[2], filt_out=outs[3],
                         ab=torch.empty(c * t // 128 * 2, device="cuda"),
                         y_in=torch.empty(c * t // 128, device="cuda"),
-                        sync=torch.empty(1 + c * (1 + t // 128 // 64), dtype=torch.int32, device="cuda"),
+                        sync=torch.empty(1 + c * (1 + t // 128), dtype=torch.int32, device="cuda"),
                         channels=c, blocks=t // 128, k_hz=float(np.float32(200e3 / (2 * np.pi))),
                         k_dev=float(np.float32(1 / 75e3)), pole=float(pole),
-                        one_minus_pole=float(np.float32(1) - pole), has_pole=1, fused=1), outs
+                        one_minus_pole=float(np.float32(1) - pole), has_pole=1), outs
 
-        return label, args, {"three launches": {"fused": 0}}
+        return label, args
     batch = 16 if label == "pfb_fold_dft_iq" else 8
     rows, h2, cos, sin = rand(batch, 8192 + 7, 128), rand(8, 128), rand(128, 128), rand(128, 128)
 
@@ -103,7 +102,7 @@ def case(label: str):
         return dict(rows=rows, h2=h2, cos=cos, sin=sin, a=a, b=b, batch=batch, r_rows=8199,
                     taps=8, neg_b=int(batch == 8)), [a, b]
 
-    return "pfb_fold_dft", args, {}
+    return "pfb_fold_dft", args
 
 
 def bind(fn, names, values: dict):
@@ -140,29 +139,24 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     for label in labels:
-        src, make, extra = case(label)
-        (fo, no), (ft, nt) = build(other, src, "other"), build(REPO, src, "this")
-        variants = {"other": (fo, no, {}), "this": (ft, nt, {})}
-        variants.update({f"this, {tag}": (ft, nt, kw) for tag, kw in extra.items()})
+        src, make = case(label)
+        builds = {"other": build(other, src, "other"), "this": build(REPO, src, "this")}
         outs, calls = {}, {}
-        for tag, (fn, names, kw) in variants.items():
+        for tag, (fn, names) in builds.items():
             values, out = make()
-            calls[tag] = bind(fn, names, {**values, **kw})
+            calls[tag] = bind(fn, names, values)
             calls[tag]()
             torch.cuda.synchronize()
             outs[tag] = out
-        for tag in variants:
-            if tag != "other":
-                same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs[tag]))
-                diff = max((a - b).abs().max().item() for a, b in zip(outs["other"], outs[tag]))
-                print(f"{label} [{tag}]: bitwise equal to other={same} (max abs diff {diff:.3e})")
-        times = {tag: [] for tag in variants}
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+        diff = max((a - b).abs().max().item() for a, b in zip(outs["other"], outs["this"]))
+        print(f"{label}: bitwise equal={same} (max abs diff {diff:.3e})")
+        times = {"other": [], "this": []}
         for _ in range(TURNS):
-            for tag in ["other", *[t for t in variants if t != "other"] * 2, "other"]:
+            for tag in ("other", "this", "this", "other"):
                 times[tag].append(ms(calls[tag]))
         for tag, ts in times.items():
             print(f"{label} [{tag}]: ms {', '.join(f'{t:.4f}' for t in ts)}; median {np.median(ts):.4f}")
-
 
 if __name__ == "__main__":
     main(sys.argv[1:])

@@ -15,10 +15,11 @@ start times spread over the launch (the waves). ``spectrum_iir`` runs with
 zero entry states (its IIR, in a header, is one phase); ``fft_mag_fused``
 with the plan's planes is persistent (a block walks several frames, six
 phases each), so a phase's statistics cover the blocks that reached it.
-``fm_demod`` instruments the chain pass of the three-launch form
-(``fm_chain_kernel``, one block per channel; its barriers are in a header,
-so its one phase is the whole walk) and prints the walker's cycles per
-128-sample block. ``pfb_fold_dft`` (taps 8, real: 8 rows; random planes)
+``fm_demod`` (with de-emphasis) is one launch of map tiles, walkers and
+emit tiles taken by ticket: it prints each kind's start and end over the
+launch, the phases of the tiles (compute; an emit tile's wait for its
+entry states) and each walker's cycles per 128-sample block (the chain's
+barriers are in a header, so a walker's one phase is its whole walk). ``pfb_fold_dft`` (taps 8, real: 8 rows; random planes)
 is persistent over tiles of 64 steps and warp specialised: thread 0, a
 consumer, stamps the start (the first tile's rows, their fold by four
 consumer warps, the planes' split), each tile's products (from the barrier
@@ -48,10 +49,8 @@ N = 16384
 F = 512
 MAX_PHASES = 64
 MAX_BLOCKS = 4096
-# The source and the kernel of each name, where they are not <name>.cu and
-# <name>_kernel.
-SOURCE = {"fm_demod_fused": "fm_demod"}
-KERNEL = {"fm_demod": "fm_chain", "fm_demod_fused": "fm_fused"}
+# The kernel each name instruments, where it is not <name>_kernel.
+KERNEL = {"fm_demod": "fm_fused"}
 FM_C, FM_T = 8, 1 << 20
 
 PRELUDE = r"""
@@ -104,16 +103,15 @@ def build(name: str) -> ctypes.CDLL:
     out_dir = REPO / "build" / "spectrum_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / f"{name}.cu"
-    source = SOURCE.get(name, name)
-    cu.write_text(instrument((loader.SOURCE_DIR / f"{source}.cu").read_text(), KERNEL.get(name, name)))
+    cu.write_text(instrument((loader.SOURCE_DIR / f"{name}.cu").read_text(), KERNEL.get(name, name)))
     lib = out_dir / f"lib{name}.so"
     flags = [f for f in loader.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     subprocess.run([loader._nvcc(), *flags, f"-I{loader.SOURCE_DIR}", "-o", str(lib), str(cu)],
                    check=True)
     dll = ctypes.CDLL(str(lib))
     types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-    fn = getattr(dll, f"tpu_sdr_{source}")
-    fn.argtypes = [types[c] for c in launch._SIGNATURES[source]]
+    fn = getattr(dll, f"tpu_sdr_{name}")
+    fn.argtypes = [types[c] for c in launch._SIGNATURES[name]]
     fn.restype = ctypes.c_int
     return dll
 
@@ -136,7 +134,7 @@ def run(name: str, pp, plan: dict) -> None:
     elif name == "fft_mag_fused":
         planes = [plan[k].data_ptr() for k in ("w2r", "w2i", "twr", "twi", "w1r", "w1i")]
         args = (x.data_ptr(), pp.win.data_ptr(), *planes, out.data_ptr(), F, stream)
-    elif name.startswith("fm_demod"):  # de-emphasis on; three launches or one
+    elif name == "fm_demod":  # de-emphasis on
         re, im = x.reshape(FM_C, FM_T), xi.reshape(FM_C, FM_T)
         z = torch.zeros(FM_C, device="cuda")
         outs = [torch.empty((FM_C, FM_T), device="cuda"),
@@ -144,12 +142,11 @@ def run(name: str, pp, plan: dict) -> None:
         blocks = FM_T // 128
         ab, y_in = torch.empty(FM_C * blocks * 2, device="cuda"), torch.empty(FM_C * blocks, device="cuda")
         pole = float(np.float32(np.exp(-1.0 / (200e3 * 75e-6))))
-        sync = torch.empty(1 + FM_C * (1 + blocks // 64), dtype=torch.int32, device="cuda")
+        sync = torch.empty(1 + FM_C * (1 + blocks), dtype=torch.int32, device="cuda")
         args = (re.data_ptr(), im.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
                 *(o.data_ptr() for o in outs), ab.data_ptr(), y_in.data_ptr(), sync.data_ptr(),
                 FM_C, blocks, float(np.float32(200e3 / (2 * np.pi))), float(np.float32(1 / 75e3)),
-                pole, float(np.float32(1) - np.float32(pole)), 1, int(name == "fm_demod_fused"),
-                stream)
+                pole, float(np.float32(1) - np.float32(pole)), 1, stream)
     elif name == "pfb_fold_dft":  # taps 8, real input's 8 rows, random planes
         rows, h2, cos, sin = (torch.randn(shape, device="cuda", generator=gen)
                               for shape in ((8, 8199, 128), (8, 128), (128, 128), (128, 128)))
@@ -158,16 +155,16 @@ def run(name: str, pp, plan: dict) -> None:
                 b.data_ptr(), 8, 8199, 8, 1, stream)
     else:
         args = (x.data_ptr(), 0, None, *consts)
-    fn = getattr(dll, f"tpu_sdr_{SOURCE.get(name, name)}")
+    fn = getattr(dll, f"tpu_sdr_{name}")
     for _ in range(3):
         assert fn(*args) == 0
     torch.cuda.synchronize()
     ts = np.zeros((MAX_BLOCKS, MAX_PHASES, 2), dtype=np.uint64)
     assert dll.tpu_sdr_read_phases(ctypes.c_void_p(ts.ctypes.data)) == 0
-    if name == "fm_demod_fused":
+    if name == "fm_demod":
         ids = np.zeros(MAX_BLOCKS, dtype=np.int32)
         assert dll.tpu_sdr_read_ids(ctypes.c_void_p(ids.ctypes.data)) == 0
-        return fused_timeline(ts, ids)
+        return fm_timeline(ts, ids)
     seen = ts[:, :, 0] != 0
     blocks = np.flatnonzero(seen[:, 0])  # a persistent kernel runs fewer blocks than frames
     used = int(seen[blocks].sum(axis=1).max())
@@ -188,8 +185,6 @@ def run(name: str, pp, plan: dict) -> None:
         for k in range(used - 1):
             dk = d[valid[:, k], k]
             print(f"  phase {k:2d}: mean {dk.mean():9.1f} cycles, max {dk.max():7d} ({dk.size} blocks)")
-    if name == "fm_demod":
-        print(f"  the walker: {d[:, 0].mean() / (FM_T // 128):.2f} cycles a 128-sample block")
     last = seen[blocks, :used].sum(axis=1) - 1
     life = ns[np.arange(len(blocks)), last] - ns[:, 0]
     t0 = ns[:, 0].min()
@@ -200,7 +195,7 @@ def run(name: str, pp, plan: dict) -> None:
           f"{[int(np.percentile(starts, q)) for q in (0, 25, 50, 75, 100)]}")
 
 
-def fused_timeline(ts: np.ndarray, ids: np.ndarray) -> None:
+def fm_timeline(ts: np.ndarray, ids: np.ndarray) -> None:
     """The one-launch FM kernel's blocks by ticket (csrc/fm_demod.cu's order:
     each channel's map tiles and then its walker, then the emit tiles):
     their start and end (ns after the launch's first block) and phases
@@ -220,7 +215,7 @@ def fused_timeline(ts: np.ndarray, ids: np.ndarray) -> None:
     last = ns[np.arange(n), end_at] - t0
     first = ns[:, 0] - t0
     q = lambda a: [int(np.percentile(a, p)) for p in (0, 25, 50, 75, 100)]
-    print(f"fm_demod_fused: {n} blocks ({FM_C} x {tiles} map tiles of {tile} blocks, {FM_C} "
+    print(f"fm_demod: {n} blocks ({FM_C} x {tiles} map tiles of {tile} blocks, {FM_C} "
           f"walkers, {FM_C} x {tiles} emit tiles); launch span {last.max()} ns")
     for k in ("map", "walker", "emit"):
         sel = kind == k

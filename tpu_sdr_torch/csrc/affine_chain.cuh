@@ -15,9 +15,11 @@
 // the next kAhead maps already in registers, so that it waits on arithmetic
 // only (about 8 cycles a map on an H100: an FMUL and an FADD in sequence),
 // and writes each map's entry state to shared memory. One barrier a stage
-// of kChunk maps. Hooks let a caller make the helpers wait for maps that
-// other blocks of the same launch are still computing, and publish how far
-// the entry states are stored.
+// of kChunk maps. The caller's hooks make the helpers wait for maps that
+// other blocks of the same launch are still computing (hooks.wait_maps(lo,
+// hi), called by every helper before it loads maps [lo, hi)), and publish
+// how far the entry states are stored (hooks.stored(count), called by every
+// helper once every helper has stored its share of [0, count)).
 
 #pragma once
 
@@ -36,15 +38,6 @@ constexpr int kLoads = (kChunk + kHelpers - 1) / kHelpers;  // maps a helper loa
 struct Stages {
   float2 maps[2][kChunk + kAhead];
   float ys[2][kChunk];
-};
-
-// Hooks of a chain whose maps are all in device memory before the launch.
-struct NoHooks {
-  // Called by every helper before it loads maps [lo, hi).
-  __device__ void wait_maps(int, int) const {}
-  // Called by every helper once every helper has stored its share of the
-  // entry states [0, count).
-  __device__ void stored(int) const {}
 };
 
 // Walk the n <= kChunk maps m[0 .. n) from y: ys[g] = the state entering map

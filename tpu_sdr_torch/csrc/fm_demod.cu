@@ -19,26 +19,25 @@
 // blocks of the channel in order, then y = A y_in + B.
 //
 // The TPU runs its grid in order and carries the chain in VMEM from one step
-// to the next; Hopper blocks run in parallel, so the chain is its own pass:
+// to the next; Hopper blocks run in parallel, so the chain is a pass of its
+// own, between two that are parallel over blocks:
 //
 //   pass 1 (one warp per 128-sample block, 4 samples a lane): the
 //     discriminator and the block's tree; writes only (A_last, B_last),
 //     8 bytes per block;
-//   pass 2 (one 256-thread block per channel, affine_chain.cuh): the chain
+//   pass 2 (a 256-thread block per channel, affine_chain.cuh): the chain
 //     over the channel's blocks in order, one lane walking maps that the
 //     other warps stream through shared memory; writes each block's entry
 //     state y_in and the carried state;
 //   pass 3 (as pass 1): recomputes the discriminator and the tree, reads
 //     y_in and writes y = A y_in + B.
 //
-// The wrapper runs the three passes in one launch (fm_fused_kernel): blocks
-// take tickets in an order in which each waits only on blocks that hold
-// earlier tickets (flags and counters with release / acquire at GPU scope),
-// so pass 1's tiles of a channel run just ahead of its walker, and pass 3's
-// tiles follow the walkers stage by stage; the launch lasts about the chain
-// plus one tile of each other pass. The three passes can also run as three
-// launches (the same bits), which timing scripts compare with it. Without a
-// pole only the discriminator runs (one pass).
+// All three run in one launch (fm_fused_kernel): blocks take tickets in an
+// order in which each waits only on blocks that hold earlier tickets (flags
+// and counters with release / acquire at GPU scope), so a channel's walker
+// starts once its first maps are stored and pass 3's tiles follow the
+// walkers stage by stage. Without a pole only the discriminator runs (one
+// pass).
 //
 // Every multiply and add is __fmul_rn / __fadd_rn / __fsub_rn, so nvcc does
 // not contract them into FMAs: the arithmetic is the plain PyTorch version's
@@ -273,16 +272,6 @@ __device__ __forceinline__ void emit_block(const float* __restrict__ re,
       make_float4(out[0], out[1], out[2], out[3]);
 }
 
-// Pass 1: each block's final affine map (A_last, B_last).
-__global__ void __launch_bounds__(kThreads)
-fm_block_maps_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                     const float* __restrict__ prev_re,
-                     const float* __restrict__ prev_im,
-                     float2* __restrict__ ab, int channels, int blocks, Scale s) {
-  const BlockPos p = block_pos(channels, blocks);
-  if (p.live) map_block(re, im, prev_re, prev_im, ab, p.gb, p.c, p.g, s);
-}
-
 // The carried state of channel c after the chain: its last sample and the
 // filter state y.
 __device__ __forceinline__ void carried_state(const float* __restrict__ re,
@@ -294,34 +283,6 @@ __device__ __forceinline__ void carried_state(const float* __restrict__ re,
   filt_out[c] = y;
   prev_re_out[c] = re[last];
   prev_im_out[c] = im[last];
-}
-
-// Pass 2: the chain over each channel's blocks, in order, one block per
-// channel (affine_chain.cuh): its maps stream through shared memory while
-// one lane walks them; the entry states go out coalesced. Also writes the
-// carried state.
-__global__ void __launch_bounds__(affine_chain::kThreads)
-fm_chain_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                const float* __restrict__ y0, const float2* __restrict__ ab,
-                float* __restrict__ y_in, float* __restrict__ prev_re_out,
-                float* __restrict__ prev_im_out, float* __restrict__ filt_out,
-                int blocks) {
-  __shared__ affine_chain::Stages st;
-  const int c = blockIdx.x;
-  const float y = affine_chain::walk_chain(ab + size_t(c) * blocks, y_in + size_t(c) * blocks,
-                                           blocks, y0[c], st, affine_chain::NoHooks{});
-  if (threadIdx.x == 0) carried_state(re, im, c, blocks, y, prev_re_out, prev_im_out, filt_out);
-}
-
-// Pass 3: y = A y_in + B for every sample.
-__global__ void __launch_bounds__(kThreads)
-fm_emit_kernel(const float* __restrict__ re, const float* __restrict__ im,
-               const float* __restrict__ prev_re,
-               const float* __restrict__ prev_im,
-               const float* __restrict__ y_in, float* __restrict__ audio,
-               int channels, int blocks, Scale s) {
-  const BlockPos p = block_pos(channels, blocks);
-  if (p.live) emit_block(re, im, prev_re, prev_im, y_in[p.gb], audio, p.gb, p.c, p.g, s);
 }
 
 // ---- The three passes in one launch.
@@ -444,18 +405,17 @@ extern "C" {
 // y0: (channels,) fp32; audio: (channels, blocks * 128) fp32, 16-byte
 // aligned; prev_re_out, prev_im_out, filt_out: (channels,) fp32. Scratch
 // (null without a pole): ab (channels * blocks * 2,) fp32, y_in (channels *
-// blocks,) fp32 and sync (1 + channels * (1 + ceil(blocks / 64)),) int32,
-// which the fused launch zeroes on the stream first. k_hz = fs / (2 pi),
+// blocks,) fp32 and sync (1 + channels * (1 + blocks),) int32, of which the
+// launch zeroes the prefix it uses on the stream first. k_hz = fs / (2 pi),
 // k_dev = 1 / dev, pole and one_minus_pole as fp32; has_pole 0 skips the
-// de-emphasis; fused 1 runs the three passes in one launch. All contiguous,
-// on the current device. Returns the CUDA error code of the launches (0 on
-// success).
+// de-emphasis. All contiguous, on the current device. Returns the CUDA error
+// code of the launch (0 on success).
 int tpu_sdr_fm_demod(const float* re, const float* im, const float* prev_re,
                      const float* prev_im, const float* y0, float* audio,
                      float* prev_re_out, float* prev_im_out, float* filt_out,
                      float* ab, float* y_in, int* sync, int channels, int blocks,
                      float k_hz, float k_dev, float pole, float one_minus_pole,
-                     int has_pole, int fused, void* stream) {
+                     int has_pole, void* stream) {
   if (channels <= 0 || blocks <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Scale s{k_hz, k_dev, pole, one_minus_pole};
@@ -467,27 +427,12 @@ int tpu_sdr_fm_demod(const float* re, const float* im, const float* prev_re,
                                               filt_out, channels, blocks, s);
     return int(cudaGetLastError());
   }
-  float2* ab2 = reinterpret_cast<float2*>(ab);
-  if (fused) {
-    const size_t tiles = (size_t(blocks) + kTileBlocks - 1) / kTileBlocks;
-    cudaError_t err = cudaMemsetAsync(sync, 0, (1 + channels * (1 + tiles)) * sizeof(int), st);
-    if (err != cudaSuccess) return int(err);
-    fm_fused_kernel<<<unsigned(channels * (2 * tiles + 1)), kThreads, 0, st>>>(
-        re, im, prev_re, prev_im, y0, audio, prev_re_out, prev_im_out, filt_out, ab2, y_in,
-        sync, channels, blocks, s);
-    return int(cudaGetLastError());
-  }
-  fm_block_maps_kernel<<<grid, kThreads, 0, st>>>(re, im, prev_re, prev_im, ab2,
-                                                  channels, blocks, s);
-  cudaError_t err = cudaGetLastError();
+  const size_t tiles = (size_t(blocks) + kTileBlocks - 1) / kTileBlocks;
+  const cudaError_t err = cudaMemsetAsync(sync, 0, (1 + channels * (1 + tiles)) * sizeof(int), st);
   if (err != cudaSuccess) return int(err);
-  fm_chain_kernel<<<channels, affine_chain::kThreads, 0, st>>>(re, im, y0, ab2, y_in,
-                                                               prev_re_out, prev_im_out,
-                                                               filt_out, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  fm_emit_kernel<<<grid, kThreads, 0, st>>>(re, im, prev_re, prev_im, y_in, audio,
-                                            channels, blocks, s);
+  fm_fused_kernel<<<unsigned(channels * (2 * tiles + 1)), kThreads, 0, st>>>(
+      re, im, prev_re, prev_im, y0, audio, prev_re_out, prev_im_out, filt_out,
+      reinterpret_cast<float2*>(ab), y_in, sync, channels, blocks, s);
   return int(cudaGetLastError());
 }
 

@@ -22,7 +22,6 @@ from tpu_sdr_torch.kernels import demod
 from tpu_sdr_torch.kernels.cuda import launch
 
 L = 128  # the canonical affine block (matches kernels/demod)
-MAP_TILE_BLOCKS = 64  # blocks of a map tile of the one-launch kernel (csrc/fm_demod.cu)
 
 # atan(r) ~= r * P(r^2) on [0, 1]: the reference's degree-17 odd polynomial
 # (max |err| 1.3e-7 in f32 Horner), highest coefficient last; each value is
@@ -106,13 +105,9 @@ def fm_demod_plain(re, im, prev_re, prev_im, y0, *, fs: float, dev: float, pole)
     return (out.reshape(c, t), *prev, y)
 
 
-def fm_demod_cuda(re, im, prev_re, prev_im, y0, *, fs: float, dev: float, pole,
-                  one_launch: bool = True):
+def fm_demod_cuda(re, im, prev_re, prev_im, y0, *, fs: float, dev: float, pole):
     """Launch ``csrc/fm_demod.cu`` on (C, T) fp32 planes on a CUDA device.
-    With a pole, ``one_launch`` runs the block maps, the chain and the emit
-    pass in one launch; False runs them as three (the same bits; timing
-    scripts compare the two). Raises if the kernel cannot be built or
-    launched."""
+    Raises if the kernel cannot be built or launched."""
     c, t = re.shape
     dev_ = re.device
     shapes = {"re": (re, (c, t)), "im": (im, (c, t)), "prev_re": (prev_re, (c, 1)),
@@ -138,11 +133,11 @@ def fm_demod_cuda(re, im, prev_re, prev_im, y0, *, fs: float, dev: float, pole,
     blocks = t // L
     has_pole = pole is not None
     # the chain's scratch: each block's final map and its entry state, and
-    # the one launch's ticket counter, progress counts and map-tile flags
+    # the launch's ticket counter, progress counts and map-tile flags (at
+    # most one a block)
     ab = torch.empty((c * blocks * 2,), **f32) if has_pole else None
     y_in = torch.empty((c * blocks,), **f32) if has_pole else None
-    sync = (torch.empty((1 + c * (1 + -(-blocks // MAP_TILE_BLOCKS)),), dtype=torch.int32,
-                        device=dev_) if has_pole else None)
+    sync = torch.empty((1 + c * (1 + blocks),), dtype=torch.int32, device=dev_) if has_pole else None
     ptr = lambda v: None if v is None else v.data_ptr()
     launch.launch(
         "fm_demod", dev_,
@@ -150,7 +145,6 @@ def fm_demod_cuda(re, im, prev_re, prev_im, y0, *, fs: float, dev: float, pole,
         y0.data_ptr(), audio.data_ptr(), pr_out.data_ptr(), pi_out.data_ptr(),
         filt.data_ptr(), ptr(ab), ptr(y_in), ptr(sync), c, blocks,
         k_hz, k_dev, a if has_pole else 0.0, oma if has_pole else 0.0, int(has_pole),
-        int(one_launch),
     )
     return audio, pr_out, pi_out, filt
 

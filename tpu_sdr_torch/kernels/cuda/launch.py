@@ -35,7 +35,7 @@ _SIGNATURES = {
     "spectrum_iir": "pppppppppppiip",
     "iir_summaries": "pppppip",
     "spectrum_complex": "ppipppppiip",
-    "fm_demod": "ppppppppppppiiffffiip",
+    "fm_demod": "ppppppppppppiiffffip",
     "pfb_fold_dft": "ppppppiiiip",
     "spectrum_half": "pippppppppppiip",
     "fft_mag_fused": "pppppppppip",

@@ -26,8 +26,7 @@ PRECISIONS = ("highest", "default")
 # bits do not depend on how many steps share the dispatch.
 PRODUCT_ROWS = 2048
 
-# The longest prototype the kernel takes, in taps (the reference's
-# channelizers use 8 to 33).
+# The longest prototype the kernel takes, in taps.
 MAX_KERNEL_TAPS = 256
 
 
