@@ -5,16 +5,20 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (eight), built from
+  2. build: every CUDA kernel library of the port (seven), built from
      ``tpu_sdr_torch/csrc`` with nvcc, one process per source, all started
      together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card: the spectrum kernels at F = 1, 8 and 512 frames with the stated
      SNR floors (and a relative-error bound for the IIR summaries' states);
-     the half spectrum (both forms) with its mirrored bins bitwise equal to
-     their partners and ``blocked_output`` the same bits, and
-     ``fft_mag_fused`` with the plan's planes, planes scaled by 0.5 and
-     random planes;
+     the IIR summaries also against the float64 chain on the plan's own
+     constants, no worse than the plain version, on the pipelines' designs
+     and on two narrow low-passes (butter(12, 0.01) and butter(12, 0.002));
+     the half spectrum (both forms, which launch the bypass and IIR
+     kernels) against its plain version, equal to the full spectrum bit for
+     bit, its mirrored bins bitwise equal to their partners and
+     ``blocked_output`` the same bits; and ``fft_mag_fused`` with the plan's
+     planes, planes scaled by 0.5 and random planes;
      the FM kernel at 8 x 2^20 samples bit for bit (and within atol 1e-6),
      twice in a row, and at its edge shapes
      (one block; 1025 blocks; 1000 channels of one block); the PFB kernel at
@@ -61,8 +65,8 @@ Phases (each raises on failure):
      main path's shape, and the least time the card could take for it
      (``fft_mag_fused`` and ``pfb_fold_dft`` also beside their dense
      tensor-core floors, ``fm_demod`` beside its chain's latency floor; the
-     phases inside one launch of ``fm_demod`` and ``pfb_fold_dft`` from
-     ``scripts/torch_spectrum_phases.py``); rows 1,
+     phases inside one launch of ``fm_demod``, ``pfb_fold_dft`` and
+     ``iir_summaries`` from ``scripts/torch_spectrum_phases.py``); rows 1,
      2, 5 and 6 and their plain versions against a float64 reference (row 2
      from rest: window, ``sosfilt``, FFT; the kernel at most 1 dB below its
      plain version); each
@@ -105,6 +109,11 @@ DISPATCHES = 5
 SNR_FLOOR_DB = {"float32": 120.0, "bfloat16": 45.0}
 # iir_summaries: max |kernel - plain| over max |plain| of the frame-end states.
 STATE_REL_TOL = 1e-5
+# Its designs against the float64 chain: the pipelines' (CUSTOM, FIXED) and
+# two narrow low-passes (5 and 1 kHz at 1 MHz), where the fp32 chain of the
+# plain version drifts; the kernel (a direct product) no worse than it.
+NARROW_SOS = {"butter(12, 0.01)": sps.butter(12, 0.01, output="sos"),
+              "butter(12, 0.002)": sps.butter(12, 0.002, output="sos")}
 # The fused path's magnitudes against the hybrid path's (the same function,
 # the block prefix as a chain against a block-Toeplitz product).
 FUSED_VS_HYBRID_DB = 100.0
@@ -119,8 +128,12 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     "fm_demod": dict(name="fm_demod_pallas",
                      replaces="tpu_sdr/kernels/pallas/affine_scan.py:138"),
     "pfb_fold_dft": dict(name="pfb_fold_dft", replaces="tpu_sdr/kernels/pallas/pfb_kernel.py:73"),
+    # Row 4 launches row 1's kernel (the bypass form, timed) or row 2's
+    # (the IIR form, in its own fields).
     "spectrum_half": dict(name="spectrum_from_state[half_spectrum]",
-                          replaces=f"{JAX_KERNELS}:597"),
+                          replaces=f"{JAX_KERNELS}:597",
+                          source="tpu_sdr_torch/csrc/spectrum_bypass.cu",
+                          iir_form_source="tpu_sdr_torch/csrc/spectrum_iir.cu"),
     "fft_mag_fused": dict(name="fft_mag_fused", replaces="tpu_sdr/kernels/pallas/spectrum.py:63"),
 }
 
@@ -302,6 +315,45 @@ def phase_kernel_vs_plain(pp) -> dict:
         if main:
             errs["iir_summaries"] = (got - ref).abs().max().item()
     return errs
+
+
+def summaries64(x: torch.Tensor, pp) -> torch.Tensor:
+    """iir_summaries in float64 on the plan's own fp32 constants: window,
+    forcing, the block chain from rest."""
+    AL, P = pp.AL1T.double().T, pp.PT.double().T
+    xw = x.double() * pp.win.double().reshape(-1)
+    z = torch.zeros((x.shape[0], pp.state_dim), dtype=torch.float64, device=x.device)
+    for j in range(pp.win.shape[0]):
+        z = z @ AL.T + xw[:, 128 * j : 128 * (j + 1)] @ P.T
+    return z
+
+
+def phase_summaries_accuracy(pp):
+    """Row 3 against the float64 chain at F = 512 on the pipelines' designs
+    (also within STATE_REL_TOL of plain there) and the narrow low-passes:
+    the kernel's max error over max |state| at most the plain version's."""
+    from tpu_sdr_torch.control import golden
+    from tpu_sdr_torch.kernels import fft, window
+    from tpu_sdr_torch.kernels.cuda import iir_fft
+
+    F = CHANNELS * FRAMES
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((F, N)), dtype=torch.float32,
+                        device="cuda")
+    win, fplan = window.hann_coefficients(N, device="cuda"), fft.plan_constants(128, 128, device="cuda")
+    designs = {"CUSTOM butter(12, 0.25)": (pp, True),
+               "FIXED": (iir_fft.build_plan(golden.fixed_filter_sos(), win, fplan), True),
+               **{k: (iir_fft.build_plan(v, win, fplan), False) for k, v in NARROW_SOS.items()}}
+    for name, (plan, today) in designs.items():
+        ref = summaries64(x, plan)
+        got, plain = iir_fft.iir_summaries_cuda(x, plan), iir_fft.iir_summaries_plain(x, plan)
+        torch.cuda.synchronize()
+        err = lambda t: ((t.double() - ref).abs().max() / ref.abs().max()).item()
+        vs_plain = ((got - plain).abs().max() / plain.abs().max()).item()
+        print(f"[3] iir_summaries F={F} {name:22s} vs float64: kernel {err(got):.3e}, plain "
+              f"{err(plain):.3e} (max |state| {ref.abs().max().item():.3e}); kernel vs plain "
+              f"{vs_plain:.2e}" + (f" (tol {STATE_REL_TOL})" if today else ""))
+        check(err(got) <= err(plain), ("iir_summaries vs float64", name, err(got), err(plain)))
+        check(not today or vs_plain <= STATE_REL_TOL, ("iir_summaries vs plain", name, vs_plain))
 
 
 TONE_BINS = (1638, 4096)  # ~100 kHz (CUSTOM passband), 250 kHz (FIXED passband)
@@ -546,7 +598,8 @@ LAST_DEVICE_KERNEL = {
     "spectrum_complex": ("spectrum_complex_kernel",),
     "fm_demod": ("fm_fused_kernel", "fm_disc_kernel"),
     "pfb_fold_dft": ("pfb_fold_dft_kernel",),
-    "spectrum_half": ("spectrum_half_kernel",), "fft_mag_fused": ("fft_mag_fused_kernel",),
+    "spectrum_half": ("spectrum_bypass_kernel", "spectrum_iir_kernel"),
+    "fft_mag_fused": ("fft_mag_fused_kernel",),
 }
 
 
@@ -694,13 +747,20 @@ def phase_timing(pp, sos, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
     print(f"[5] spectrum_bypass with the window in the kernel: "
           f"{cuda_ms(lambda: iir_fft.spectrum_bypass_cuda(x, pp, True, 'float32')):.4f} ms")
     # Window, forcing (2 m operations a sample), the chain (128 steps of an
-    # m x m mat-vec and an add); 48 bytes out a frame.
+    # m x m mat-vec and an add); 48 bytes out a frame. The library call is
+    # the product with the plan's summary_matrix (IEEE fp32: TF32 off).
+    kw = pp.summary_matrix
     record("iir_summaries",
            lambda: iir_fft.iir_summaries_cuda(x, pp),
            lambda: iir_fft.iir_summaries_plain(x, pp),
-           None,
+           lambda: torch.matmul(x, kw.T),
            bound(F * N * 4 + F * m * 4 + N * 4 + L * m * 4 + m * m * 4,
                  F * (N + 2 * m * N + 128 * (2 * m * m + m))))
+    t = timing["iir_summaries"]
+    print(f"[5] iir_summaries against torch.matmul(x, summary_matrix.T): {t['ms']:.4f} ms "
+          f"against {t['library_ms']:.4f} ms (allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+          f"{torch.get_float32_matmul_precision()})")
     # Window, the 12th-order IIR as six biquads (9 operations a sample
     # each), the FFT of a real frame, magnitude.
     record("spectrum_iir",
@@ -1254,10 +1314,10 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
     return {label: statistics.median(v) for label, v in walls.items()}, timing
 
 def phase_nb_phases(pp, plan: dict):
-    """Where rows 7 and 8 spend one launch at the paths' shapes:
+    """Where rows 7, 8 and 3 spend one launch at the paths' shapes:
     scripts/torch_spectrum_phases.py's instrumented copies (the FM kernel's
     map tiles, walkers and emit tiles; the PFB kernel's fold, products and
-    waits)."""
+    waits; the summaries' groups of 16 frames and cluster barriers)."""
     import importlib.util
     from pathlib import Path
 
@@ -1265,7 +1325,7 @@ def phase_nb_phases(pp, plan: dict):
     spec = importlib.util.spec_from_file_location("torch_spectrum_phases", path)
     phases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(phases)
-    for name in ("fm_demod", "pfb_fold_dft"):
+    for name in ("fm_demod", "pfb_fold_dft", "iir_summaries"):
         print(f"[5] {name}, phases inside one launch:")
         phases.run(name, pp, plan)
 
@@ -1274,7 +1334,6 @@ def phase_nb_phases(pp, plan: dict):
 
 HOP = 8192  # hop < N: 128 spectra a channel from 64 frames' samples
 HOP_GOLDEN_REL = 1e-5  # of max |golden| (tests/test_hop.py)
-HALF_REL = 1e-5  # half against full spectrum (tests/test_pallas_kernel.py)
 BANK_DB = 0.05  # each channel of a bank against its golden (tests/test_filterbank.py)
 
 
@@ -1325,20 +1384,16 @@ def phase_half_and_fused_vs_plain(pp, fplan: dict) -> dict:
         for bypass in (True, False):
             run = lambda **kw: iir_fft.spectrum_from_state(x32, zs, pp, bypass=bypass, **kw)
             full, half = run(), run(half_spectrum=True)
-            rel = ((half - full).abs().max() / full.abs().max()).item()
-            same = torch.equal(half.view(F, 128, 128)[:, :, :65], full.view(F, 128, 128)[:, :, :65])
+            same = torch.equal(half, full)
             blocked = all(torch.equal(run(half_spectrum=h, blocked_output=True), o.view(F, 128, 128))
                           for h, o in ((False, full), (True, half)))
             torch.cuda.synchronize()
-            # Row 4's computed bins were rows 1's and 2's bits while all three
-            # ran the dense DFT; rows 1 and 2 are radix FFTs now, so they agree
-            # within HALF_REL only.
+            # Row 4 launches rows 1 and 2, whose kernels compute only rows k2
+            # <= 64 and copy the mirrored bins: half and full are the same bits.
             print(f"[3] spectrum_half {'bypass' if bypass else 'iir':6s} F={F:3d}: half vs full "
-                  f"max_rel={rel:.2e} (tol {HALF_REL}; row 4's computed bins, k2 <= 64, held "
-                  f"against the full kernel within it: bitwise equality with rows 1, 2 ended "
-                  f"with their radix FFTs; bitwise now: {same}); mirrored bins bitwise: "
+                  f"bitwise (row 4 launches rows 1, 2): {same}; mirrored bins bitwise: "
                   f"{mirrored(half)}; blocked_output the same bits (full and half): {blocked}")
-            check(rel < HALF_REL and mirrored(half) and blocked, ("half vs full", F, bypass))
+            check(same and mirrored(half) and blocked, ("half vs full", F, bypass))
         for label, planes in fused_planes(fplan).items():
             err = _compare(f"fft_mag_fused F={F:3d} {label:12s}",
                            spectrum.fft_mag_fused_cuda(x32, win, planes),
@@ -1363,11 +1418,13 @@ def phase_rows_4_6(pp, fplan: dict, x_np: np.ndarray) -> dict:
         half_iir = iir_fft.spectrum_from_state(x, zs, pp, half_spectrum=True)
         fused = spectrum.fft_mag_fused(x, win, fplan)
     torch.cuda.synchronize()
-    check_counts("rows 4 and 6", {"spectrum_half": 2 * DISPATCHES, "fft_mag_fused": DISPATCHES})
+    check_counts("rows 4 and 6", {"spectrum_half": 2 * DISPATCHES, "spectrum_bypass": DISPATCHES,
+                                  "spectrum_iir": DISPATCHES, "fft_mag_fused": DISPATCHES})
     check(mirrored(half) and mirrored(half_iir) and torch.isfinite(half_iir).all(), "rows 4, 6")
     shape = (CHANNELS, FRAMES, N)
     check_golden(f"half spectrum, bypass form, {DISPATCHES} calls each form, spectrum_half "
-                 f"launches {2 * DISPATCHES}", half.view(shape), x_np, None)
+                 f"launches {2 * DISPATCHES} (spectrum_bypass {DISPATCHES}, spectrum_iir "
+                 f"{DISPATCHES})", half.view(shape), x_np, None)
     check_golden(f"fft_mag_fused, {DISPATCHES} calls, launches {DISPATCHES}",
                  fused.view(shape), x_np, None)
     return {name: launch.counts["kernel"][name] for name in ("spectrum_half", "fft_mag_fused")}
@@ -1572,10 +1629,11 @@ def phase_new_timing(pp, fplan: dict, x_np: np.ndarray, steps: dict) -> tuple[di
            bound(F * N * 4 * 2 + consts_dft + N * 4, F * (N + fft_flops + 4 * N)),
            "bypass form, window in the kernel (the hop path's call of row 1)")
     zs = torch.zeros((F, 12), device="cuda")
+    timing["spectrum_half"]["iir_form_ms"] = cuda_ms(lambda: iir_fft.spectrum_half_cuda(x, zs, pp))
     print(f"[5] spectrum_half: without the window "
           f"{cuda_ms(lambda: iir_fft.spectrum_half_cuda(x, None, pp, False, 'float32')):.4f} ms "
           f"(row 1 without it: {cuda_ms(lambda: iir_fft.spectrum_bypass_cuda(x, pp, False)):.4f} "
-          f"ms); IIR form {cuda_ms(lambda: iir_fft.spectrum_half_cuda(x, zs, pp)):.4f} ms (row 2: "
+          f"ms); IIR form {timing['spectrum_half']['iir_form_ms']:.4f} ms (row 2: "
           f"{cuda_ms(lambda: iir_fft.spectrum_iir_cuda(x, zs, pp)):.4f} ms)")
     # Window, FFT of a real frame, magnitude; the six plan planes read once.
     record("fft_mag_fused",
@@ -1624,6 +1682,7 @@ def main():
     pipe.upload_sos(sos_custom)
     pp = pipe.bank_custom["pp"]
     errs = phase_kernel_vs_plain(pp)
+    phase_summaries_accuracy(pp)
     rng = np.random.default_rng(1)
     x_np = two_tone(rng)
     xc_np = two_tone_iq(rng)
@@ -1660,7 +1719,7 @@ def main():
     phase_profile(nb_steps, nb_walls, {"FM default": 1, "Receiver wbfm": 1,
                                        "Receiver wbfm IQ": 1})
     records = [
-        {**fixed, "route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu",
+        {"route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu", **fixed,
          "launches": launches[name], "max_abs_err": errs[name], **timing[name]}
         for name, fixed in RECORDS.items()
     ]

@@ -1,6 +1,7 @@
 """One kernel of two source trees on the same inputs: bits and times.
 
-    python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq]
+    python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq
+                                                  iir_summaries]
 
 Builds ``tpu_sdr_torch/csrc/<name>.cu`` of this checkout and of OTHER_ROOT
 (another checkout, for example the parent commit unpacked with ``git
@@ -8,9 +9,11 @@ archive`` into a directory that ``.gitignore`` lists) with the loader's nvcc
 flags, each against its own headers, under ``build/kernel_ab/``. Calls both
 libraries' entry points with the same inputs at the main path's shape (row
 6: 512 frames of 16384 with the plan's planes; row 7: 8 x 2^20 samples
-with de-emphasis; row 8:
-8 x 2^20 real samples or (2, 8, 2^20) IQ planes, taps 8, random planes),
-reports whether every output is bit for bit the same as OTHER_ROOT's, then
+with de-emphasis; row 8: 8 x 2^20 real samples or (2, 8, 2^20) IQ planes,
+taps 8, random planes; row 3: 512 frames with the plan of butter(12, 0.25),
+each tree's entry point given the arguments it names: the window and the
+chain's constants, or the plan's summary_matrix), reports whether every
+output is bit for bit the same as OTHER_ROOT's (and how far apart), then
 times them in turns (other, this, this, other; CUDA events around 20
 launches queued behind a spin kernel, as ``chip_smoke.py`` times). Needs one
 CUDA device.
@@ -74,6 +77,24 @@ def case(label: str):
             out = torch.empty_like(x)
             return dict(x=x, win=win, out=out, frames=512, **{k: plan[k] for k in
                         ("w2r", "w2i", "twr", "twi", "w1r", "w1i")}), [out]
+
+        return label, args
+    if label == "iir_summaries":
+        import scipy.signal as sps
+
+        from tpu_sdr_torch.kernels import fft, window
+        from tpu_sdr_torch.kernels.cuda import iir_fft
+
+        pp = iir_fft.build_plan(sps.butter(12, 0.25, output="sos"),
+                                window.hann_coefficients(16384, device="cuda"),
+                                fft.plan_constants(128, 128, device="cuda"))
+        x = rand(512, 16384)
+        _, pt, _, al1t = pp.iir_constants
+
+        def args():
+            out = torch.empty((512, 12), device="cuda")
+            return dict(x=x, win=pp.win, pt=pt, al1t=al1t, kw=pp.summary_matrix, out=out,
+                        frames=512), [out]
 
         return label, args
     if label == "fm_demod":
@@ -150,7 +171,9 @@ def main(argv):
             outs[tag] = out
         same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
         diff = max((a - b).abs().max().item() for a, b in zip(outs["other"], outs["this"]))
-        print(f"{label}: bitwise equal={same} (max abs diff {diff:.3e})")
+        scale = max(a.abs().max().item() for a in outs["other"])
+        print(f"{label}: bitwise equal={same} (max abs diff {diff:.3e}, of max |other| "
+              f"{diff / scale:.3e})")
         times = {"other": [], "this": []}
         for _ in range(TURNS):
             for tag in ("other", "this", "this", "other"):

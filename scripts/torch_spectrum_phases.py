@@ -1,13 +1,15 @@
 """Where a kernel's time goes: phase timestamps inside one launch.
 
-    python3 scripts/torch_spectrum_phases.py [spectrum_bypass spectrum_complex spectrum_iir
-                                              fft_mag_fused fm_demod pfb_fold_dft]
+    python3 scripts/torch_spectrum_phases.py [--root OTHER_ROOT] [spectrum_bypass
+        spectrum_complex spectrum_iir fft_mag_fused fm_demod pfb_fold_dft iir_summaries]
 
 Builds an instrumented copy of each named kernel (``tpu_sdr_torch/csrc/
-<name>.cu``, default: the two radix-FFT kernels) under
+<name>.cu`` of this checkout, or of OTHER_ROOT, another checkout such as
+the parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists; default: the two radix-FFT kernels) under
 ``build/spectrum_phases/``: thread 0 of every block records ``clock64`` and
-the global timer at the kernel's start, after each ``__syncthreads`` in the
-kernel's own body, and at its end. Launches it once at the main path's
+the global timer at the kernel's start, after each ``__syncthreads`` (and
+each cluster barrier) in the kernel's own body, and at its end. Launches it once at the main path's
 shape (F = 512 frames, fp32 in and out, no window; FM and PFB at 8 x 2^20
 samples) after a warm-up, then prints per phase the mean and max SM cycles
 over the blocks, each block's life (mean, min, max ns) and how the blocks'
@@ -24,7 +26,11 @@ is persistent over tiles of 64 steps and warp specialised: thread 0, a
 consumer, stamps the start (the first tile's rows, their fold by four
 consumer warps, the planes' split), each tile's products (from the barrier
 that hands it the tile's pieces to its stores) and its wait for the next
-tile's pieces, summed over the tiles by kind. The instrumented copy is for reading
+tile's pieces, summed over the tiles by kind. ``iir_summaries`` runs at F =
+512 with the plan of butter(12, 0.25), its arguments bound by the names in
+the source's C entry point (so another tree's form of the kernel runs
+too); its persistent clusters stamp after each batch's barriers. The
+instrumented copy is for reading
 the schedule only: its stores add a few cycles a phase. Needs one CUDA
 device.
 """
@@ -43,7 +49,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from tpu_sdr_torch.kernels.cuda import launch, loader  # noqa: E402
+from tpu_sdr_torch.kernels.cuda import loader  # noqa: E402
 
 N = 16384
 F = 512
@@ -83,6 +89,7 @@ def instrument(src: str, name: str) -> str:
     body = src.index("{\n", start) + 2
     end = src.index("\n}\n", body)
     inner = src[body:end].replace("__syncthreads();", "__syncthreads(); TPU_SDR_PHASE();")
+    inner = inner.replace("cluster.sync();", "cluster.sync(); TPU_SDR_PHASE();")
     # the PFB kernel's consumers: a stamp as each tile's products start and end
     inner = inner.replace("bar_sync(kFull + (i & 1), kThreads);",
                           "bar_sync(kFull + (i & 1), kThreads); TPU_SDR_PHASE();")
@@ -99,25 +106,35 @@ def instrument(src: str, name: str) -> str:
     return head[:line_end] + prelude + head[line_end:] + inner + src[end:]
 
 
-def build(name: str) -> ctypes.CDLL:
+def signature(src_dir: Path, name: str) -> list[str]:
+    """The parameter declarations of ``tpu_sdr_<name>`` in src_dir/<name>.cu."""
+    text = (src_dir / f"{name}.cu").read_text()
+    m = re.search(rf"int tpu_sdr_{name}\((.*?)\)\s*{{", text, re.S)
+    return [a.strip() for a in m.group(1).split(",")]
+
+
+def build(name: str, src_dir: Path) -> tuple[ctypes.CDLL, list[str]]:
+    """The instrumented library of src_dir/<name>.cu and the names of its
+    entry point's parameters."""
     out_dir = REPO / "build" / "spectrum_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / f"{name}.cu"
-    cu.write_text(instrument((loader.SOURCE_DIR / f"{name}.cu").read_text(), KERNEL.get(name, name)))
+    cu.write_text(instrument((src_dir / f"{name}.cu").read_text(), KERNEL.get(name, name)))
     lib = out_dir / f"lib{name}.so"
     flags = [f for f in loader.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([loader._nvcc(), *flags, f"-I{loader.SOURCE_DIR}", "-o", str(lib), str(cu)],
+    subprocess.run([loader._nvcc(), *flags, f"-I{src_dir}", "-o", str(lib), str(cu)],
                    check=True)
     dll = ctypes.CDLL(str(lib))
-    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    params = signature(src_dir, name)
     fn = getattr(dll, f"tpu_sdr_{name}")
-    fn.argtypes = [types[c] for c in launch._SIGNATURES[name]]
+    fn.argtypes = [ctypes.c_void_p if "*" in a else ctypes.c_float if a.startswith("float")
+                   else ctypes.c_int for a in params]
     fn.restype = ctypes.c_int
-    return dll
+    return dll, [a.split()[-1].lstrip("*") for a in params]
 
 
-def run(name: str, pp, plan: dict) -> None:
-    dll = build(name)
+def run(name: str, pp, plan: dict, src_dir: Path = loader.SOURCE_DIR) -> None:
+    dll, params = build(name, src_dir)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((F, N), device="cuda", generator=gen)
     xi = torch.randn((F, N), device="cuda", generator=gen)
@@ -153,6 +170,12 @@ def run(name: str, pp, plan: dict) -> None:
         a, b = (torch.empty((8, 8192, 128), device="cuda") for _ in range(2))
         args = (rows.data_ptr(), h2.data_ptr(), cos.data_ptr(), sin.data_ptr(), a.data_ptr(),
                 b.data_ptr(), 8, 8199, 8, 1, stream)
+    elif name == "iir_summaries":  # the arguments by name: any tree's form of the kernel
+        _, pt, _, al1t = pp.iir_constants
+        values = dict(x=x, win=pp.win, pt=pt, al1t=al1t, kw=pp.summary_matrix,
+                      out=torch.empty((F, 12), device="cuda"), frames=F, stream=stream)
+        args = tuple(v.data_ptr() if isinstance(v, torch.Tensor) else v
+                     for v in (values[p] for p in params))
     else:
         args = (x.data_ptr(), 0, None, *consts)
     fn = getattr(dll, f"tpu_sdr_{name}")
@@ -241,8 +264,11 @@ def main(argv: list[str]) -> None:
         capture_output=True, text=True).stdout.strip())
     pipe = SpectrumPipeline(PipelineConfig(channels=8))
     pipe.upload_sos(sps.butter(12, 0.25, output="sos"))
+    src_dir = loader.SOURCE_DIR
+    if argv[:1] == ["--root"]:
+        src_dir, argv = Path(argv[1]).resolve() / "tpu_sdr_torch" / "csrc", argv[2:]
     for name in argv or ["spectrum_bypass", "spectrum_complex"]:
-        run(name, pipe.bank_custom["pp"], pipe.plan)
+        run(name, pipe.bank_custom["pp"], pipe.plan, src_dir)
 
 
 if __name__ == "__main__":

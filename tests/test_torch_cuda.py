@@ -151,8 +151,17 @@ def test_plan_leaves_match_cpu_build(cuda_plan):
 # ------------------------------------------------ the IIR and complex kernels
 
 # iir_summaries: max |kernel - plain| over max |plain| of the (F, 12)
-# frame-end states, fp32 sums taken in different orders.
+# frame-end states, fp32 sums taken in different orders (the kernel's direct
+# product with the plan's summary_matrix against the plain block chain).
 STATE_REL_TOL = 1e-5
+# Row 3 against the float64 chain on the designs of the pipelines (SOS, the
+# FIXED design) and two narrow low-passes at fs = 1 MHz (5 and 1 kHz),
+# where the fp32 chain of the plain version drifts.
+SUMMARY_DESIGNS = {
+    "custom": SOS,
+    "butter12-5k": sps.butter(12, 0.01, output="sos"),
+    "butter12-1k": sps.butter(12, 0.002, output="sos"),
+}
 
 
 def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -165,12 +174,63 @@ def entry_states():
     return (0.1 * np.random.default_rng(6).standard_normal((8, 12))).astype(np.float32)
 
 
-def test_iir_summaries_kernel_matches_plain(cuda_plan, frames):
-    x = torch.as_tensor(frames, device="cuda")
+def _noise(frames: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((frames, N)).astype(np.float32), device="cuda")
+
+
+@pytest.mark.parametrize("F", [1, 15, 16, 17, 512])
+def test_iir_summaries_kernel_matches_plain(cuda_plan, F):
+    """Row 3 at frame counts around its 16-frame groups and at the main
+    path's 512."""
+    x = _noise(F, 20 + F)
     got = iir_fft.iir_summaries_cuda(x, cuda_plan)
     ref = iir_fft.iir_summaries_plain(x, cuda_plan)
-    assert got.shape == (8, 12) and got.dtype == torch.float32
+    assert got.shape == (F, 12) and got.dtype == torch.float32
     assert rel_err(ref, got) <= STATE_REL_TOL
+
+
+def test_iir_summaries_frame_bits_independent_of_count_and_place(cuda_plan):
+    """A frame's 12 floats do not depend on how many frames the launch
+    holds, nor on the cluster that takes it or its slot in that cluster's
+    batches."""
+    x = _noise(600, 30)
+    whole = iir_fft.iir_summaries_cuda(x, cuda_plan)
+    for a, b in ((0, 1), (5, 6), (3, 20), (15, 33), (17, 40), (1, 600), (99, 512)):
+        assert torch.equal(iir_fft.iir_summaries_cuda(x[a:b], cuda_plan), whole[a:b]), (a, b)
+    assert torch.equal(iir_fft.iir_summaries_cuda(x, cuda_plan), whole)
+
+
+@pytest.mark.parametrize("name", list(SUMMARY_DESIGNS))
+def test_iir_summaries_vs_float64(name):
+    """Against the float64 chain on the plan's own fp32 constants: the
+    kernel at least as close as the plain version, and within 1e-6 of max
+    |state|, also where the plain chain drifts (1e-4 and 1e-3 on the
+    narrow designs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    plan = iir_fft.build_plan(SUMMARY_DESIGNS[name], window.hann_coefficients(N, device="cuda"),
+                              fft.plan_constants(128, 128, device="cuda"))
+    x = _noise(64, 31)
+    AL, P = plan.AL1T.double().T, plan.PT.double().T
+    xw = x.double() * plan.win.double().reshape(-1)
+    z = torch.zeros((64, 12), dtype=torch.float64, device="cuda")
+    for j in range(128):
+        z = z @ AL.T + xw[:, 128 * j : 128 * (j + 1)] @ P.T
+    got = rel_err(z, iir_fft.iir_summaries_cuda(x, plan))
+    plain = rel_err(z, iir_fft.iir_summaries_plain(x, plan))
+    assert got <= plain and got <= 1e-6, (name, got, plain)
+
+
+def test_summary_matrix_matches_cpu_build(cuda_plan):
+    """K_w built in float64 on the card is the CPU build's, rounded once
+    either way (the two float64 products may round apart by one step)."""
+    cpu = iir_fft.build_plan(
+        SOS, window.hann_coefficients(N, device="cpu"), fft.plan_constants(128, 128, device="cpu"),
+    )
+    got, ref = cuda_plan.summary_matrix.cpu().double(), cpu.summary_matrix.double()
+    assert cuda_plan.summary_matrix.is_cuda
+    assert ((got - ref).abs() <= 2.0**-23 * ref.abs() + 1e-12 * ref.abs().max()).all()
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
@@ -577,7 +637,32 @@ def test_half_kernel_frames_independent_and_blocked(cuda_plan, frames, entry_sta
         assert torch.equal(whole, parts)
         assert torch.equal(run(x, zs, blocked_output=True).reshape(whole.shape), whole)
         full = iir_fft.spectrum_from_state(x, zs, cuda_plan, bypass=bypass)
-        assert ((whole - full).abs().max() / full.abs().max()).item() < 1e-5
+        assert torch.equal(whole, full)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("apply_window", [True, False], ids=["win", "nowin"])
+@pytest.mark.parametrize(
+    "form,in_dtype",
+    [("bypass", torch.float32), ("bypass", torch.bfloat16), ("iir", torch.float32)],
+    ids=["bypass-f32in", "bypass-bf16in", "iir-f32in"],
+)
+def test_half_spectrum_is_the_full_spectrum_bitwise(cuda_plan, frames, entry_states, form,
+                                                    in_dtype, apply_window, out_dtype):
+    """Row 4 launches rows 1 and 2, whose kernels transform rows k2 <= 64
+    and copy the mirrored bins: the half spectrum is the full one, bit for
+    bit, in every form and type, and counted under both names."""
+    x = torch.as_tensor(frames, device="cuda").to(in_dtype)
+    zs = torch.as_tensor(entry_states, device="cuda")
+    kw = dict(bypass=form == "bypass", apply_window=apply_window, out_dtype=out_dtype)
+    launch.reset_counts()
+    half = iir_fft.spectrum_from_state(x, zs, cuda_plan, half_spectrum=True, **kw)
+    kernel = "spectrum_bypass" if form == "bypass" else "spectrum_iir"
+    assert launch.counts["kernel"] == {**dict.fromkeys(launch.COUNTERS, 0),
+                                       kernel: 1, "spectrum_half": 1}
+    full = iir_fft.spectrum_from_state(x, zs, cuda_plan, **kw)
+    assert half.dtype == full.dtype == iir_fft.OUT_DTYPES[out_dtype]
+    assert torch.equal(half, full) and _mirror_ok(half)
 
 
 def test_fft_mag_fused_kernel_uses_the_given_planes(cuda_plan, frames):

@@ -346,10 +346,12 @@ def test_package_data_lists_the_headers():
     globs = data["tool"]["setuptools"]["package-data"]["tpu_sdr_torch"]
     assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs
     assert sorted(p.name for p in loader.SOURCE_DIR.glob("*.cuh")) == [
-        "affine_chain.cuh", "error_string.cuh", "fft128.cuh", "four_step.cuh", "iir_blocks.cuh",
+        "affine_chain.cuh", "error_string.cuh", "fft128.cuh", "frame.cuh", "iir_blocks.cuh",
         "split_bf16.cuh",
     ]
-    assert {"spectrum_half", "fft_mag_fused"} <= set(launch.KERNELS)
+    # The half spectrum launches the bypass and IIR kernels: a counter, no source.
+    assert "fft_mag_fused" in launch.KERNELS and "spectrum_half" not in launch.KERNELS
+    assert set(launch.COUNTERS) == set(launch.KERNELS) | {"spectrum_half"}
     assert set(iir_fft.KERNELS) <= set(launch.KERNELS)
     for name in launch.KERNELS:
         assert (loader.SOURCE_DIR / f"{name}.cu").is_file()

@@ -1,7 +1,7 @@
 // The C entry point every kernel library exports beside its launcher: the
 // message of a CUDA error code, for the Python wrapper's exception. Each
 // kernel source is its own shared library and includes this header once
-// (directly or through four_step.cuh), so each library exports one copy.
+// (directly or through frame.cuh), so each library exports one copy.
 
 #pragma once
 

@@ -1,7 +1,7 @@
 // Radix FFTs of the 16384-point four-step spectrum, shared by
 // spectrum_bypass.cu and spectrum_iir.cu (real frames) and
 // spectrum_complex.cu (IQ frames).
-// N = 128 x 128 as in four_step.cuh: per frame x[n], n = n1 + 128*n2,
+// N = 128 x 128 as in frame.cuh: per frame x[n], n = n1 + 128*n2,
 // viewed as X[n2][n1],
 //
 //   1. column FFTs  Y[k2][n1] = sum_n2 W128^(k2*n2) X[n2][n1]
@@ -36,7 +36,7 @@
 
 #pragma once
 
-#include "four_step.cuh"
+#include "frame.cuh"
 
 namespace tpu_sdr {
 namespace fft128 {
@@ -136,7 +136,7 @@ __device__ __forceinline__ void column_stage2(const float2* e, int c, int lane,
 }
 
 // y * tw[k2][n1], the plan's twiddle planes read through the read-only
-// cache (the product of four_step.cuh's column_dft_twiddle_half).
+// cache.
 __device__ __forceinline__ float2 twiddle(float2 y, const float* __restrict__ twr,
                                           const float* __restrict__ twi, int k2,
                                           int n1) {

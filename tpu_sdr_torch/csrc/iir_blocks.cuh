@@ -1,9 +1,7 @@
-// The blocked composite IIR of one frame, shared by iir_summaries.cu,
-// spectrum_half.cu (512 threads, iir_frame) and spectrum_iir.cu (256
-// threads, iir_frame_radix). The 12th-order cascade is one m = 12 state
-// linear system;
-// a frame of 16384 samples is B = 128 blocks of L = 128 samples, and with
-// AL = A^L the block states follow
+// The blocked composite IIR of one frame, run by spectrum_iir.cu
+// (iir_frame_radix) before its FFT. The 12th-order cascade is one m = 12
+// state linear system; a frame of 16384 samples is B = 128 blocks of L = 128
+// samples, and with AL = A^L the block states follow
 //
 //   f[j]     = P xw[j]                        (forcing, f = xw @ PT)
 //   z_in[0]  = z_start
@@ -16,11 +14,12 @@
 // hold the 12 state components and read each other's through shuffles, a
 // 12 x 12 mat-vec per block, about 18 K FMAs per frame. The order is fixed
 // per frame, so the result does not depend on how many frames a launch
-// holds.
+// holds. (iir_summaries.cu, which needs only z_end from rest, takes it as
+// one product with the plan's summary_matrix instead.)
 
 #pragma once
 
-#include "four_step.cuh"
+#include "frame.cuh"
 
 namespace tpu_sdr {
 
@@ -32,7 +31,7 @@ constexpr int kBlocks = kN / kN1;  // 128 blocks of 128 samples
 // (q < 3). Each thread starts its sum at k = j, so the 8 blocks of a warp
 // read 8 different banks of xs, and pt's rows (12 floats apart) spread over
 // all 32 banks.
-template <int kT = kThreads>
+template <int kT>
 __device__ __forceinline__ void block_forcing(const float* xs, const float* pt,
                                               float* f) {
   const int a = threadIdx.x & 3;
@@ -51,28 +50,26 @@ __device__ __forceinline__ void block_forcing(const float* xs, const float* pt,
 
 // The block chain of one frame, run by one whole warp (threadIdx.x < 32).
 // Lane a < 12 enters with z_start[a] in z; al1t is AL^T (12 x 12, global),
-// f the forcing (128 x 12, shared). Stores z_in (128 x 12, shared) unless it
-// is null and returns, in lane a < 12, the state after the frame.
-__device__ __forceinline__ float block_chain(const float* __restrict__ al1t,
-                                             const float* f, float z,
-                                             float* z_in) {
+// f the forcing (128 x 12, shared). Stores z_in (128 x 12, shared), the
+// state entering each block.
+__device__ __forceinline__ void block_chain(const float* __restrict__ al1t,
+                                            const float* f, float z, float* z_in) {
   const int lane = threadIdx.x & 31;
   const bool live = lane < kM;
   float al[kM];  // row `lane` of AL
 #pragma unroll
   for (int b = 0; b < kM; ++b) al[b] = live ? __ldg(al1t + b * kM + lane) : 0.f;
   for (int j = 0; j < kBlocks; ++j) {
-    if (z_in != nullptr && live) z_in[j * kM + lane] = z;
+    if (live) z_in[j * kM + lane] = z;
     float acc = 0.f;
 #pragma unroll
     for (int b = 0; b < kM; ++b) acc = fmaf(al[b], __shfl_sync(0xffffffffu, z, b), acc);
     z = acc + (live ? f[j * kM + lane] : 0.f);
   }
-  return z;
 }
 
 // The composite IIR of one frame from its entry state, written over the
-// frame in shared memory. Per frame:
+// frame in shared memory, by a 256-thread block. Per frame:
 //
 //   xw       = x * win                         (optional)
 //   y_zs[j]  = T xw[j]                         (128 x 128 Toeplitz, per block)
@@ -84,91 +81,16 @@ __device__ __forceinline__ float block_chain(const float* __restrict__ al1t,
 // (128 x 12), mt = M^T (12 x 128), al1t = AL^T. xs receives y. scratch
 // (kIirScratchFloats, shared) holds h padded with 128 zeros in front
 // (T[i][k] = h[i - k] for i >= k), PT, MT, the forcing and z_in. The block
-// chain runs in warp 0 while the other 15 warps start their share of the
-// Toeplitz product; warp 0 starts its share after the chain. Ends with the
-// block synchronised.
-constexpr int kIirScratchFloats = 2 * kN1 + 4 * kBlocks * kM;
-
-__device__ __forceinline__ void iir_frame(const float* __restrict__ x,
-                                          const float* __restrict__ zs,
-                                          const float* __restrict__ win,
-                                          const float* __restrict__ h,
-                                          const float* __restrict__ pt,
-                                          const float* __restrict__ mt,
-                                          const float* __restrict__ al1t,
-                                          float* xs, float* scratch) {
-  float* hp = scratch;               // hp[128 + d] = h[d], hp[0..127] = 0
-  float* pts = hp + 2 * kN1;         // PT [k][a]
-  float* mts = pts + kN1 * kM;       // MT [a][i]
-  float* f = mts + kM * kN1;         // forcing [j][a]
-  float* z_in = f + kBlocks * kM;    // entry state of each block [j][a]
-
-  const int tid = threadIdx.x;
-  if (tid < 2 * kN1) hp[tid] = tid < kN1 ? 0.f : h[tid - kN1];
-  for (int i = tid; i < kN1 * kM; i += kThreads) {
-    pts[i] = pt[i];
-    mts[i] = mt[i];
-  }
-  load_frame(x, win, xs);
-  __syncthreads();
-  block_forcing(xs, pts, f);
-  __syncthreads();
-
-  const int tx = tid & 15;  // columns i = 16*c + tx
-  const int ty = tid >> 4;  // rows j = 4*ty + r
-  if (tid < 32) {
-    const float z0 = tid < kM ? zs[tid] : 0.f;
-    block_chain(al1t, f, z0, z_in);
-  }
-  // Zero-state response y_zs[j][i] = sum_k h[i - k] xw[j][k]; each row
-  // group starts its sum at k = ty so the two row groups of a warp read
-  // different banks.
-  float y[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) y[r][c] = 0.f;
-  for (int kk = 0; kk < kN1; ++kk) {
-    const int k = (kk + ty) & (kN1 - 1);
-    float xv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) xv[r] = xs[(4 * ty + r) * kN1 + k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float t = hp[kN1 + 16 * c + tx - k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) y[r][c] = fmaf(t, xv[r], y[r][c]);
-    }
-  }
-  __syncthreads();  // z_in is complete and every read of xw is done
-
-  // y = y_zs + z_in @ MT, written over the frame.
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = 4 * ty + r;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = 16 * c + tx;
-      float s = 0.f;
-#pragma unroll
-      for (int a = 0; a < kM; ++a) s = fmaf(z_in[j * kM + a], mts[a * kN1 + i], s);
-      xs[j * kN1 + i] = y[r][c] + s;
-    }
-  }
-  __syncthreads();
-}
-
-// iir_frame for a 256-thread block (spectrum_iir.cu): the same function,
-// window, forcing, block chain (warp 0) and state injection, with the
-// zero-state product laid out for warps: warp w takes rows j = 16w + r (r <
+// chain runs in warp 0 while the other 7 warps start their share of the
+// zero-state product, laid out for warps: warp w takes rows j = 16w + r (r <
 // 16) across all 128 columns i = 32c + lane (c < 4), so each xs load is a
 // broadcast and each h load 32 consecutive floats. The product skips the
 // zeros above T's diagonal by column blocks of 32: for k in [32kb, 32kb +
 // 32) only the column blocks c >= kb are summed (within c = kb the padded
 // zeros of h remain, adding exact zeros), about 5/8 of the 2.1 M FMAs a
-// frame. Each y_zs[j][i] sums k in increasing order from 0. Same layout
-// and contract as iir_frame: xs receives y, scratch holds kIirScratchFloats,
-// and it ends with the block synchronised.
+// frame. Each y_zs[j][i] sums k in increasing order from 0. Ends with the
+// block synchronised.
+constexpr int kIirScratchFloats = 2 * kN1 + 4 * kBlocks * kM;
 constexpr int kRadixThreads = 256;
 
 __device__ __forceinline__ void iir_frame_radix(const float* __restrict__ x,
@@ -191,7 +113,7 @@ __device__ __forceinline__ void iir_frame_radix(const float* __restrict__ x,
     pts[i] = pt[i];
     mts[i] = mt[i];
   }
-  load_frame<float, kRadixThreads>(x, win, xs);
+  load_frame<kRadixThreads>(x, win, xs);
   __syncthreads();
   block_forcing<kRadixThreads>(xs, pts, f);
   __syncthreads();

@@ -3,15 +3,17 @@
 //
 // Replaces the TPU kernel tpu_sdr/kernels/pallas/iir_fft.py
 // spectrum_from_state (bypass=True form; body _spectrum_kernel -> _fft_mag,
-// _cdots).
+// _cdots), and its half_spectrum=True bypass form: the kernel computes only
+// rows k2 in [0, 64] and copies the mirrored bins, which is that form's
+// function (below).
 //
 // What bounds it on an H100: the function (an FFT of a real frame and its
 // magnitude, about 0.6 MFLOP a frame) reads 64 KB and writes 64 KB a frame
 // (fp32); at 3.35 TB/s against 67 TFLOP/s fp32 its floor is memory
-// traffic. Dense 128-point DFTs (25.2 MFLOP a frame, as four_step.cuh's
-// kernels run them) would be bound by the fp32 FMA rate instead; the radix
-// FFTs of fft128.cuh do about 0.5 MFLOP a frame, so what is left is moving
-// the bytes and keeping enough frames in flight to hide their latency:
+// traffic. Dense 128-point DFTs (25.2 MFLOP a frame) would be bound by the
+// fp32 FMA rate instead; the radix FFTs of fft128.cuh do about 0.5 MFLOP a
+// frame, so what is left is moving the bytes and keeping enough frames in
+// flight to hide their latency:
 //
 // - No input staging: each thread loads its 16 rows of four consecutive
 //   columns straight into registers (16-byte loads, a warp reads 512

@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel tpu_sdr/kernels/pallas/iir_fft.py
 // spectrum_from_state (bypass=False form; body _spectrum_kernel with
-// _masked_scan). Per frame, from its entry state z_start (the fused
-// two-pass pipeline gets it from iir_summaries and the frame chain), the
+// _masked_scan), and its half_spectrum=True IIR form (the FFT below keeps
+// rows k2 in [0, 64] and copies the mirrored bins). Per frame, from its
+// entry state z_start (the fused two-pass pipeline gets it from
+// iir_summaries and the frame chain), the
 // composite IIR of iir_blocks.cuh (iir_frame_radix: window, Toeplitz
 // zero-state response, forcing, block chain, state injection), then the
 // radix FFT and magnitude of y as spectrum_bypass.cu computes them for a

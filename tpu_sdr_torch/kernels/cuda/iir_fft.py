@@ -2,8 +2,8 @@
 ``tpu_sdr.kernels.pallas.iir_fft``).
 
 ``build_plan`` builds every constant of the reference plan. Four kernels,
-each a hand-written CUDA source in ``tpu_sdr_torch/csrc/`` with a plain
-PyTorch version of the same function beside it:
+each a hand-written CUDA source in ``tpu_sdr_torch/csrc/``, and five
+functions, each with a plain PyTorch version beside it:
 
 - ``spectrum_from_state(bypass=True)``: optional Hann window, the
   16384-point four-step DFT and the magnitude, natural order
@@ -12,13 +12,15 @@ PyTorch version of the same function beside it:
   run inside the kernel from each frame's entry state (``spectrum_iir.cu``;
   ``spectrum_iir_plain``).
 - ``iir_summaries``: each frame's zero-state IIR end state, which seeds the
-  frame chain of the fused two-pass pipeline (``iir_summaries.cu``;
-  ``iir_summaries_plain``).
+  frame chain of the fused two-pass pipeline: the kernel takes it as one
+  product with the plan's ``summary_matrix`` (``iir_summaries.cu``), the
+  plain version as the block chain (``iir_summaries_plain``).
 - ``spectrum_mag_complex``: the magnitude spectrum of IQ frames given as re
   and im planes (``spectrum_complex.cu``; ``spectrum_complex_plain``).
 - ``spectrum_from_state(half_spectrum=True)``, either form: the DFT of rows
-  k2 in [0, 64] only and the mirror |X[N - k]| = |X[k]| of a real frame
-  (``spectrum_half.cu``; ``spectrum_half_plain``).
+  k2 in [0, 64] only and the mirror |X[N - k]| = |X[k]| of a real frame,
+  which is what the bypass and IIR kernels compute, so it launches them
+  (``spectrum_half_cuda``; ``spectrum_half_plain``).
 
 Each public function runs its plain version exactly when its input lies on
 the CPU, and launches the kernel on a CUDA tensor; it never falls back.
@@ -44,9 +46,7 @@ PRECISIONS = ("highest", "high3", "default")
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # This module's kernels, by the name of their source (``csrc/<name>.cu``).
-KERNELS = (
-    "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex", "spectrum_half",
-)
+KERNELS = ("spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex")
 
 # Launches and plain calls of every kernel of the port (``launch.counts``).
 counts = launch.counts
@@ -130,6 +130,26 @@ class PallasSOSPlan:
             self.MT.contiguous(),
             self.AL1T.contiguous(),
         )
+
+
+    @functools.cached_property
+    def summary_matrix(self) -> torch.Tensor:
+        """K_w (m, N) fp32, the map from a raw frame to its zero-state end
+        state: ``iir_summaries(x) = x @ K_w.T`` in exact arithmetic.
+
+        Block j of the frame reaches the end state through AL^(B-1-j) P, so
+        K_w[:, L j + k] = (AL^(B-1-j) P)[:, k] * win[L j + k]. Computed in
+        float64 on the plan's device from its own fp32 AL1T, PT and win (the
+        same function on the same plan), and rounded once. Built on first
+        use and cached with the plan.
+        """
+        AL = self.AL1T.double().T
+        P = self.PT.double().T  # (m, L)
+        powers = [P]  # AL^d P
+        for _ in range(self.win.shape[0] - 1):
+            powers.append(AL @ powers[-1])
+        K = torch.stack(powers[::-1], dim=1).reshape(self.state_dim, -1)
+        return (K * self.win.double().reshape(-1)).float().contiguous()
 
 
 def build_plan(
@@ -442,20 +462,16 @@ def spectrum_iir_cuda(
 
 
 def iir_summaries_cuda(x: torch.Tensor, plan: PallasSOSPlan) -> torch.Tensor:
-    """Launch ``iir_summaries.cu`` on x (F, 16384) fp32 on a CUDA device.
+    """Launch ``iir_summaries.cu`` on x (F, 16384) fp32 on a CUDA device:
+    x @ plan.summary_matrix.T, each frame summed in the kernel's fixed order.
     Raises if the kernel cannot be built or launched."""
     F = _check_frames("x", x, plan, (torch.float32,))
     _check_state_dim(plan)
-    _, pt, _, al1t = plan.iir_constants
-    win = launch.aligned(plan.win)
-    _check_leaves(x.device, win=win, PT=pt, AL1T=al1t)
+    kw = plan.summary_matrix
+    _check_leaves(x.device, summary_matrix=kw)
     x = launch.aligned(x)
     out = torch.empty((F, plan.state_dim), dtype=torch.float32, device=x.device)
-    launch.launch(
-        "iir_summaries", x.device,
-        x.data_ptr(), win.data_ptr(), pt.data_ptr(), al1t.data_ptr(),
-        out.data_ptr(), F,
-    )
+    launch.launch("iir_summaries", x.device, x.data_ptr(), kw.data_ptr(), out.data_ptr(), F)
     return out
 
 
@@ -497,32 +513,18 @@ def spectrum_half_cuda(
     apply_window: bool = True,
     out_dtype: str = "float32",
 ) -> torch.Tensor:
-    """Launch ``spectrum_half.cu`` on x (F, 16384) on a CUDA device: the
-    bypass form (z_starts None; x fp32 or bf16) or the IIR form from the
-    entry states z_starts (F, 12) fp32 (x fp32). Raises if the kernel cannot
-    be built or launched."""
-    iir = z_starts is not None
-    F = _check_frames("x", x, plan, (torch.float32,) if iir else (torch.float32, torch.bfloat16))
-    tab, twr, twi = plan.kernel_constants
-    win = launch.aligned(plan.win)
-    iir_leaves = {}
-    if iir:
-        _check_state_dim(plan)
-        _check_z_starts(z_starts, F, plan)
-        h, pt, mt, al1t = plan.iir_constants
-        iir_leaves = dict(z_starts=z_starts.contiguous(), h=h, PT=pt, MT=mt, AL1T=al1t)
-    _check_leaves(x.device, tab=tab, twr=twr, twi=twi, win=win, **iir_leaves)
-    ptr = lambda name: iir_leaves[name].data_ptr() if iir else None
-    x = launch.aligned(x)
-    out = torch.empty((F, x.shape[1]), dtype=OUT_DTYPES[out_dtype], device=x.device)
-    launch.launch(
-        "spectrum_half", x.device,
-        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr("z_starts"),
-        win.data_ptr() if apply_window else None,
-        ptr("h"), ptr("PT"), ptr("MT"), ptr("AL1T"),
-        tab.data_ptr(), twr.data_ptr(), twi.data_ptr(),
-        out.data_ptr(), int(out_dtype == "bfloat16"), F,
-    )
+    """The half spectrum of x (F, 16384) on a CUDA device: the bypass form
+    (z_starts None; x fp32 or bf16) launches ``spectrum_bypass.cu``, the IIR
+    form from the entry states z_starts (F, 12) fp32 (x fp32)
+    ``spectrum_iir.cu``. Both kernels transform rows k2 in [0, 64] only and
+    give each mirrored bin its partner's bits, which is this function, so
+    half and full spectra are the same bits. Counts the launch under
+    "spectrum_half" too. Raises if the kernel cannot be built or launched."""
+    if z_starts is None:
+        out = spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
+    else:
+        out = spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
+    launch.counts["kernel"]["spectrum_half"] += 1
     return out
 
 

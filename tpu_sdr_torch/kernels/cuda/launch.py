@@ -19,13 +19,18 @@ from tpu_sdr_torch.kernels.cuda import loader
 # The kernels, by the name of their source (``csrc/<name>.cu``).
 KERNELS = (
     "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex",
-    "fm_demod", "pfb_fold_dft", "spectrum_half", "fft_mag_fused",
+    "fm_demod", "pfb_fold_dft", "fft_mag_fused",
 )
+# The half spectrum (``iir_fft.spectrum_from_state(half_spectrum=True)``)
+# has a plain version of its own and launches spectrum_bypass's or
+# spectrum_iir's kernel.
+COUNTERS = KERNELS + ("spectrum_half",)
 
-# Per kernel: launches of the CUDA kernel ("kernel") and calls of its plain
-# version on CPU tensors ("plain"), made by the wrappers. Read and reset
-# (``reset_counts``) by callers that check which path a run took.
-counts = {"kernel": dict.fromkeys(KERNELS, 0), "plain": dict.fromkeys(KERNELS, 0)}
+# Per counter: launches of the CUDA kernel ("kernel") and calls of its plain
+# version on CPU tensors ("plain"), made by the wrappers. A half-spectrum
+# launch counts under "spectrum_half" and under the kernel it runs. Read and
+# reset (``reset_counts``) by callers that check which path a run took.
+counts = {"kernel": dict.fromkeys(COUNTERS, 0), "plain": dict.fromkeys(COUNTERS, 0)}
 
 # ctypes argument types of each library's entry point ``tpu_sdr_<name>``
 # (p: pointer or stream, i: int, f: float), in the order of its C signature
@@ -33,11 +38,10 @@ counts = {"kernel": dict.fromkeys(KERNELS, 0), "plain": dict.fromkeys(KERNELS, 0
 _SIGNATURES = {
     "spectrum_bypass": "pipppppiip",
     "spectrum_iir": "pppppppppppiip",
-    "iir_summaries": "pppppip",
+    "iir_summaries": "pppip",
     "spectrum_complex": "ppipppppiip",
     "fm_demod": "ppppppppppppiiffffip",
     "pfb_fold_dft": "ppppppiiiip",
-    "spectrum_half": "pippppppppppiip",
     "fft_mag_fused": "pppppppppip",
 }
 
