@@ -339,7 +339,8 @@ def phase_summaries_accuracy(pp):
     F = CHANNELS * FRAMES
     x = torch.as_tensor(np.random.default_rng(9).standard_normal((F, N)), dtype=torch.float32,
                         device="cuda")
-    win, fplan = window.hann_coefficients(N, device="cuda"), fft.plan_constants(128, 128, device="cuda")
+    win = window.hann_coefficients(N, device="cuda")
+    fplan = fft.plan_constants(128, 128, device="cuda")
     designs = {"CUSTOM butter(12, 0.25)": (pp, True),
                "FIXED": (iir_fft.build_plan(golden.fixed_filter_sos(), win, fplan), True),
                **{k: (iir_fft.build_plan(v, win, fplan), False) for k, v in NARROW_SOS.items()}}

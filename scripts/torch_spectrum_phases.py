@@ -9,9 +9,10 @@ the parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists; default: the two radix-FFT kernels) under
 ``build/spectrum_phases/``: thread 0 of every block records ``clock64`` and
 the global timer at the kernel's start, after each ``__syncthreads`` (and
-each cluster barrier) in the kernel's own body, and at its end. Launches it once at the main path's
-shape (F = 512 frames, fp32 in and out, no window; FM and PFB at 8 x 2^20
-samples) after a warm-up, then prints per phase the mean and max SM cycles
+each cluster barrier) in the kernel's own body, and at its end. Launches it
+once at the main path's shape (F = 512 frames, fp32 in and out, no window;
+FM and PFB at 8 x 2^20 samples) after a warm-up, then prints per phase the
+mean and max SM cycles
 over the blocks, each block's life (mean, min, max ns) and how the blocks'
 start times spread over the launch (the waves). ``spectrum_iir`` runs with
 zero entry states (its IIR, in a header, is one phase); ``fft_mag_fused``
@@ -30,9 +31,8 @@ tile's pieces, summed over the tiles by kind. ``iir_summaries`` runs at F =
 512 with the plan of butter(12, 0.25), its arguments bound by the names in
 the source's C entry point (so another tree's form of the kernel runs
 too); its persistent clusters stamp after each batch's barriers. The
-instrumented copy is for reading
-the schedule only: its stores add a few cycles a phase. Needs one CUDA
-device.
+instrumented copy is for reading the schedule only: its stores add a few
+cycles a phase. Needs one CUDA device.
 """
 
 from __future__ import annotations

@@ -131,7 +131,6 @@ class PallasSOSPlan:
             self.AL1T.contiguous(),
         )
 
-
     @functools.cached_property
     def summary_matrix(self) -> torch.Tensor:
         """K_w (m, N) fp32, the map from a raw frame to its zero-state end
