@@ -5,9 +5,10 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (seven), built from
-     ``tpu_sdr_torch/csrc`` with nvcc, one process per source, all started
-     together;
+  2. build: every CUDA kernel library of the port (nine), built from
+     ``tpu_sdr_torch/csrc`` with nvcc, and the native Q15 host filter
+     (``tpu_sdr_torch/native/q15_filter.cpp``) with the host C++ compiler,
+     one process per source, all started together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card: the spectrum kernels at F = 1, 8 and 512 frames with the stated
      SNR floors (and a relative-error bound for the IIR summaries' states);
@@ -24,7 +25,12 @@ Phases (each raises on failure):
      (one block; 1025 blocks; 1000 channels of one block); the PFB kernel at
      the channelizer's real and IQ shapes with the channelizer's and random
      planes (1e-5 of the output scale), and against float64 beside the plain
-     version (at most 1 dB below it);
+     version (at most 1 dB below it); the Q15 kernels bit for bit: the
+     scaled integer FFT (``q15_fft``) at F = 1, 8 and 64 frames, with and
+     without the RTL window, on random int16 frames and full-scale tones,
+     and the saturating Q15 cascade (``sosfilt_q15``, window included) on 1
+     and 4 rows of 2 frames with a carried state, also against
+     ``golden.sosfilt_q15_intended``;
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
@@ -60,6 +66,18 @@ Phases (each raises on failure):
        kernel of the port: all counts 0), then nbfm, am, usb, lsb, stereo
        and a 4-station ``ReceiverBank``: tones recovered, chunked ==
        one-shot bitwise, the bank == 4 receivers bitwise;
+     - the Q15 path at the reference's width (1 channel, N = 16384, 6
+       sections): ``Q15Pipeline`` all-device and split (filtered, bypass),
+       two chunks of 2 frames with the state carried, the wire words equal
+       to ``fft_q15_np(sosfilt_q15_intended(rtl_window_q15(x)))`` bit for
+       bit (the CLI selftest's check); ``display_frame`` == the last frame;
+       ``Q15Stream`` at depth 1 and 3 == sequential ``process()`` calls;
+     - the host runtime: ``StreamFeeder`` over a ``SyntheticSource``
+       feeding ``SpectrumPipeline.process`` (8 chunks of 8 x 131072) ==
+       the chunks passed directly; ``WelchPSD.compute`` and ``compute_iq``
+       against ``scipy.signal.welch`` in float64 within 1e-5 of the peak
+       (mean and median, even and odd segment counts); ``decimate_db``'s
+       five detectors against NumPy;
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it
@@ -71,7 +89,10 @@ Phases (each raises on failure):
      from rest: window, ``sosfilt``, FFT; the kernel at most 1 dB below its
      plain version); each
      path's end-to-end dispatch time (the facade's with its device->host
-     copy), compared paths in alternating turns;
+     copy), compared paths in alternating turns; the Q15 kernels (K1 at F
+     = 64, K2 at 1 row x 2 frames beside its chain's latency floor), the
+     Q15 paths' wall per 16384-sample chunk and ``Q15Stream``'s steady
+     rate at depth 1;
   6. profile: device time per dispatch by kernel, launches per dispatch,
      and the device's idle share, per path and mode, as torch.profiler saw
      them (it can lose an event or two; the port's kernels are checked
@@ -135,6 +156,10 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
                           source="tpu_sdr_torch/csrc/spectrum_bypass.cu",
                           iir_form_source="tpu_sdr_torch/csrc/spectrum_iir.cu"),
     "fft_mag_fused": dict(name="fft_mag_fused", replaces="tpu_sdr/kernels/pallas/spectrum.py:63"),
+    # The Q15 path's two kernels replace jitted XLA code (no Pallas kernel).
+    "q15_fft": dict(name="fft_q15 (window_fft_q15)", replaces="tpu_sdr/kernels/fft_q15.py:149"),
+    "sosfilt_q15": dict(name="sosfilt_q15_scan (sosfilt_q15_window)",
+                        replaces="tpu_sdr/kernels/biquad.py:746"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -191,6 +216,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def max_sm_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+
 def bound(bytes_moved: float, flops: float) -> dict:
     """The least time the card could take: each input read once and each
     output written once at the memory rate, or the function's operations at
@@ -231,18 +263,23 @@ def phase_device() -> str:
 
 
 def phase_build():
+    from tpu_sdr_torch.kernels import native_q15
     from tpu_sdr_torch.kernels.cuda import launch, loader
 
     def build(name):
         t0 = time.perf_counter()
-        log = loader.build(name, force=True)
+        if name == "q15_filter (host C++)":
+            log = native_q15.build(force=True)
+        else:
+            log = loader.build(name, force=True)
         return name, time.perf_counter() - t0, log
 
+    names = (*launch.KERNELS, "q15_filter (host C++)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(launch.KERNELS)) as pool:
-        built = list(pool.map(build, launch.KERNELS))
-    print(f"[2] built {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc, in parallel)")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    print(f"[2] built {len(launch.KERNELS)} kernel libraries and the native Q15 filter in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc and the host C++ compiler, in parallel)")
     for name, seconds, log in built:
         print(f"[2] {name}: {seconds:.2f} s")
         for line in log.splitlines():
@@ -601,6 +638,7 @@ LAST_DEVICE_KERNEL = {
     "pfb_fold_dft": ("pfb_fold_dft_kernel",),
     "spectrum_half": ("spectrum_bypass_kernel", "spectrum_iir_kernel"),
     "fft_mag_fused": ("fft_mag_fused_kernel",),
+    "q15_fft": ("q15_fft_kernel",), "sosfilt_q15": ("sosfilt_q15_kernel",),
 }
 
 
@@ -1252,9 +1290,7 @@ def phase_nb_timing(planes, steps: dict) -> tuple[dict, dict]:
            f"{NB_CH} x {NB_T}, de-emphasis on", plain_iters=2)
     # The chain's floor: one dependent multiply and add (4 cycles each) a
     # 128-sample block, at the card's highest SM clock.
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    mhz = max_sm_mhz()
     floor_ms = NB_T // 128 * CHAIN_CYCLES_PER_BLOCK / (mhz * 1e6) * 1e3
     print(f"[5] fm_demod chain floor: {NB_T // 128} blocks x {CHAIN_CYCLES_PER_BLOCK} cycles at "
           f"{mhz:.0f} MHz = {floor_ms:.4f} ms -> kernel at {floor_ms / timing['fm_demod']['ms']:.1%} "
@@ -1673,6 +1709,385 @@ def phase_new_timing(pp, fplan: dict, x_np: np.ndarray, steps: dict) -> tuple[di
     return {label: statistics.median(v) for label, v in walls.items()}, timing
 
 
+# ---------------------------------------------------------------- the Q15 path and the host runtime
+
+
+# The Q15 path's width: the reference's own (one channel, N = 16384, 6
+# sections). Its coefficients: a designed low-pass's int8 x64 wire words
+# (three sections, padded with identity sections by upload_sos_q).
+Q15_SOS_Q = np.array([[1, 2, 1, 64, -73, 21], [64, 128, 64, 64, -84, 33],
+                      [64, 127, 64, 64, -106, 65]], np.int64)
+Q15_KERNEL_FRAMES = (1, 8, 64)
+Q15_CHUNKS = 6  # Q15Stream's chunks of one frame, at depth 1 and 3
+FEED_CHUNKS = 8  # StreamFeeder -> SpectrumPipeline.process
+FEED_FRAMES = 8  # frames a channel in one fed chunk (8 channels)
+WELCH_REL = 1e-5  # of the peak, against scipy.signal.welch in float64
+# K2's dependent chain in cycles (4 a dependent integer operation): a
+# (sample, section) step from the accumulator to the clipped output is an
+# IMAD, a shift and an add for the rounding, a shift and two min/max (24);
+# a step to the next sample of a section adds the state update's IMAD (4).
+# The longest path through the T x S grid: S steps down and T - 1 across.
+Q15_STEP_CYCLES, Q15_STATE_CYCLES = 24, 4
+
+
+def q15_tones(frames: int, seed: int) -> np.ndarray:
+    """One channel of int16 samples: two tones at 0.45 of full scale each
+    (bins 1638 and 4096) plus noise, so the sum reaches the rails."""
+    n = np.arange(frames * N)
+    x = sum(0.45 * 32767 * np.sin(2 * np.pi * k * n / N) for k in TONE_BINS)
+    x = x + 300 * np.random.default_rng(seed).standard_normal(n.size)
+    return np.clip(np.round(x), -32768, 32767).astype(np.int16)
+
+
+def q15_kernel_inputs(frames: int, kind: str, seed: int) -> torch.Tensor:
+    """(frames, N) int16 on the card: random N(0, 6000) or full-scale tones
+    (a different bin each frame, clipped at the rails)."""
+    if kind == "random":
+        x = np.random.default_rng(seed).standard_normal((frames, N)) * 6000
+    else:
+        k = 1 + (np.arange(frames)[:, None] * 977) % (N // 2 - 1)
+        x = 32767 * np.cos(2 * np.pi * k * np.arange(N) / N + 0.3)
+    return torch.as_tensor(np.clip(np.round(x), -32768, 32767).astype(np.int16), device="cuda")
+
+
+def padded_q15_sos() -> np.ndarray:
+    sos = np.tile(np.array([64, 0, 0, 64, 0, 0], np.int64), (6, 1))
+    sos[: len(Q15_SOS_Q)] = Q15_SOS_Q
+    return sos
+
+
+def phase_q15_kernels() -> dict:
+    """K1 (q15_fft) and K2 (sosfilt_q15) against their plain versions on the
+    card, bit for bit; K2 also against golden.sosfilt_q15_intended. Returns
+    each one's max abs error at the main path's shape (K1 at F = 64 without
+    the window, as the filtered paths call it; K2 on 1 row of 2 frames)."""
+    from tpu_sdr_torch.control import golden
+    from tpu_sdr_torch.kernels import biquad, fft_q15, window
+
+    rom = window.hann_q16_rom(N, device="cuda")
+    errs = {}
+    for F in Q15_KERNEL_FRAMES:
+        for kind in ("random", "tone"):
+            x = q15_kernel_inputs(F, kind, 60 + F)
+            for bypass in (True, False):
+                r = rom if bypass else None
+                got = fft_q15.window_fft_q15_cuda(x, rom=r)
+                ref = fft_q15.window_fft_q15_plain(x, rom=r)
+                torch.cuda.synchronize()
+                same = all(g.dtype == p.dtype and torch.equal(g, p) for g, p in zip(got, ref))
+                err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, ref))
+                print(f"[3] q15_fft F={F:2d} {kind:6s} {'window+fft' if bypass else 'fft':10s}: "
+                      f"re, im, |X| bitwise equal to the plain version: {same} (max_abs_err {err})")
+                check(same, ("q15_fft", F, kind, bypass))
+                if F == 64 and kind == "random" and not bypass:
+                    errs["q15_fft"] = err
+    sos = padded_q15_sos()
+    sos_t = torch.as_tensor(sos, dtype=torch.int32, device="cuda")
+    rom_np = golden.hann_q16_rom(N)
+    for rows in (1, 4):
+        x_np = np.stack([q15_tones(2, 80 + r) for r in range(rows)])
+        zi_np = np.random.default_rng(81).integers(-20000, 20000, (rows, 6, 2)).astype(np.int32)
+        x, zi = torch.as_tensor(x_np, device="cuda"), torch.as_tensor(zi_np, device="cuda")
+        got = biquad.sosfilt_q15_cuda(sos_t, x, zi, rom=rom)
+        ref = biquad.sosfilt_q15_plain(sos_t, x, zi, rom=rom)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, p) for g, p in zip(got, ref))
+        err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, ref))
+        oracle = True
+        for r in range(rows):
+            xw = golden.rtl_window_q15(x_np[r])
+            y, zf = golden.sosfilt_q15_intended(sos, xw, zi_np[r])
+            oracle &= (np.array_equal(got[1][r].cpu().numpy(), xw)
+                       and np.array_equal(got[0][r].cpu().numpy(), y)
+                       and np.array_equal(got[2][r].cpu().numpy().astype(np.int64), zf))
+        print(f"[3] sosfilt_q15 {rows} row(s) x 2 frames, window + 6 sections, carried state: "
+              f"windowed, filtered and state bitwise equal to the plain version: {same} (max_abs_err "
+              f"{err}); to golden.sosfilt_q15_intended: {oracle}")
+        check(same and oracle, ("sosfilt_q15", rows))
+        if rows == 1:
+            errs["sosfilt_q15"] = err
+    return errs
+
+
+def phase_q15_path() -> tuple[dict, dict]:
+    """Q15Pipeline on the card at the reference's width: the all-device path
+    and the live split (filtered and bypass), two chunks of 2 frames with the
+    state carried, against the CLI selftest's oracle chain
+    fft_q15_np(sosfilt_q15_intended(rtl_window_q15(x))) bit for bit; then
+    display_frame. Returns (launches of K1 and K2 in the path's run, the
+    pipelines)."""
+    from tpu_sdr_torch import PipelineConfig
+    from tpu_sdr_torch.control import golden
+    from tpu_sdr_torch.kernels import fft_q15
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.runtime.q15 import Q15Pipeline
+
+    cfg = PipelineConfig(channels=1)
+    x = q15_tones(4, 90)
+    xw = golden.rtl_window_q15(x)
+    filt, zf_ref = golden.sosfilt_q15_intended(padded_q15_sos(), xw)
+    wire = fft_q15.fft_q15_np(filt.reshape(4, N))
+    wire_bypass = fft_q15.fft_q15_np(xw.reshape(4, N))
+    dev = Q15Pipeline(cfg)
+    split = Q15Pipeline(cfg, device_fft=True)
+    for p in (dev, split):
+        p.upload_sos_q(Q15_SOS_Q)
+    host = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    launch.reset_counts()
+    results = {}
+    for label, pipe, bypass in (("all-device", dev, False), ("split filtered", split, False),
+                                ("split bypass", split, True)):
+        zi, outs = None, []
+        for c in range(2):
+            out, zi = pipe.process(x[c * 2 * N:(c + 1) * 2 * N], zi, bypass=bypass)
+            outs.append({k: host(v) for k, v in out.items()})
+        results[label] = (outs, host(zi))
+    torch.cuda.synchronize()
+    launches = {k: launch.counts["kernel"][k] for k in ("q15_fft", "sosfilt_q15")}
+    check_counts("Q15 path", {"q15_fft": 6, "sosfilt_q15": 2})
+    for label, (outs, zf) in results.items():
+        ref = wire_bypass if label == "split bypass" else wire
+        re = np.concatenate([o["spectrum_re_q15"].reshape(-1, N) for o in outs])
+        im = np.concatenate([o["spectrum_im_q15"].reshape(-1, N) for o in outs])
+        mag = np.concatenate([o["magnitude"].reshape(-1, N) for o in outs])
+        ok = np.array_equal(re, ref[0]) and np.array_equal(im, ref[1])
+        fr, fi = ref[0].astype(np.float32), ref[1].astype(np.float32)
+        mag_ref = np.sqrt(fr * fr + fi * fi)
+        mag_rel = float((np.abs(mag - mag_ref) / np.maximum(mag_ref, 1.0)).max())
+        if label != "split bypass":
+            ok &= (np.array_equal(np.concatenate([o["windowed_q15"].reshape(-1) for o in outs]), xw)
+                   and np.array_equal(np.concatenate([o["filtered_q15"].reshape(-1) for o in outs]),
+                                      filt)
+                   and np.array_equal(zf.reshape(6, 2).astype(np.int64), zf_ref))
+        print(f"[4] Q15 {label:14s} 1 ch x 2 chunks of 2 frames (N = {N}, 6 sections), state "
+              f"carried ({zf.dtype}): wire words re/im{'' if label == 'split bypass' else ', windowed, filtered, state'} "
+              f"bitwise equal to the oracle chain: {ok}; |X| against NumPy's fp32 sqrt(re^2 + im^2): "
+              f"bitwise {mag_rel == 0}, max rel err {mag_rel:.1e} (tol 1e-6)")
+        check(ok and mag_rel <= 1e-6, ("Q15 path", label))
+    print(f"[4] Q15 path launches: q15_fft {launches['q15_fft']} (2 a path), sosfilt_q15 "
+          f"{launches['sosfilt_q15']} (the all-device path's 2), plain 0")
+    for bypass in (False, True):
+        out, _ = split.process(x[: 2 * N], bypass=bypass, display=True)
+        disp = out["display_frame"]
+        last = torch.stack([out["spectrum_re_q15"][..., -1, :].float(),
+                            out["spectrum_im_q15"][..., -1, :].float(), out["magnitude"][..., -1, :]],
+                           dim=-2)
+        same = disp.shape == (1, 3, N) and torch.equal(disp, last)
+        print(f"[4] Q15 split {'bypass' if bypass else 'filtered'} display_frame {tuple(disp.shape)} "
+              f"== the last frame's [re, im, |X|]: {same}")
+        check(same, ("display_frame", bypass))
+    return launches, {"all-device": dev, "split": split}
+
+
+def phase_q15_stream(split):
+    """Q15Stream over the split pipeline: at depth 1 and 3 bitwise equal to
+    sequential process() calls, then its steady rate at depth 1 (filtered,
+    the magnitude fetched each chunk). Runs after the profiles: its worker
+    thread launches on the card."""
+    from tpu_sdr_torch.runtime.q15 import Q15Stream
+
+    host = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    chunks = [q15_tones(1, 100 + i) for i in range(Q15_CHUNKS)]
+    zi, refs = None, []
+    for c in chunks:
+        o, zi = split.process(c, zi)
+        refs.append({k: host(v) for k, v in o.items()})
+    for depth in (1, 3):
+        stream = Q15Stream(split, fetch=("magnitude", "spectrum_re_q15", "spectrum_im_q15"),
+                           depth=depth)
+        got = [r for c in chunks if (r := stream.push(c)) is not None]
+        while (r := stream.flush()) is not None:
+            got.append(r)
+        stream.close()
+        same = len(got) == len(refs) and all(
+            np.array_equal(o[k], ref[k]) for (o, _), ref in zip(got, refs)
+            for k in ("magnitude", "spectrum_re_q15", "spectrum_im_q15", "filtered_q15"))
+        print(f"[4] Q15Stream depth {depth}: {Q15_CHUNKS} chunks of 1 frame bitwise equal to "
+              f"sequential process() calls: {same}")
+        check(same, ("Q15Stream", depth))
+    chunks = [q15_tones(1, 130 + i) for i in range(8)]
+    reps = 64
+
+    def streamed() -> float:
+        stream = Q15Stream(split, depth=1)
+        t0 = time.perf_counter()
+        for i in range(reps):
+            stream.push(chunks[i % len(chunks)])
+        while stream.flush() is not None:
+            pass
+        dt = time.perf_counter() - t0
+        stream.close()
+        return dt
+
+    def sequential() -> float:
+        zi = None
+        t0 = time.perf_counter()
+        for i in range(reps):
+            out, zi = split.process(chunks[i % len(chunks)], zi)
+            out["magnitude"].cpu().numpy()
+        return time.perf_counter() - t0
+
+    streamed(), sequential()  # warm-up
+    for label in ("stream", "sequential", "sequential", "stream"):
+        dt = streamed() if label == "stream" else sequential()
+        what = ("Q15Stream depth 1" if label == "stream"
+                else "sequential process() + the magnitude's fetch")
+        print(f"[5] {what}, filtered: {reps} chunks of {N} in {dt * 1e3:.2f} ms -> "
+              f"{reps * N / dt / 1e6:.3f} MSPS ({dt / reps * 1e3:.4f} ms a chunk)")
+
+
+def phase_host_runtime(pipe, sos_custom):
+    """StreamFeeder -> SpectrumPipeline.process against the same chunks
+    passed directly; WelchPSD against scipy.signal.welch in float64;
+    decimate_db's five detectors against NumPy."""
+    import scipy.signal as sps_
+
+    from tpu_sdr_torch import FilterMode
+    from tpu_sdr_torch.runtime import StreamFeeder, WelchPSD, waterfall
+    from tpu_sdr_torch.runtime.source import SyntheticSource
+
+    kw = dict(tones_hz=((100e3, 0.4), (250e3, 0.3)), noise=0.01, channels=CHANNELS, seed=5)
+    t_chunk = FEED_FRAMES * N
+    feeder = StreamFeeder(SyntheticSource(**kw), chunk_samples=t_chunk, depth=2).start()
+    st = pipe.initial_state()
+    fed = []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(FEED_CHUNKS):
+            out, st = pipe.process(feeder.get(), st, FilterMode.CUSTOM)
+            fed.append(out["magnitude"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / FEED_CHUNKS
+    finally:
+        feeder.stop()
+    ref_src = SyntheticSource(**kw)
+    st = pipe.initial_state()
+    direct = []
+    for _ in range(FEED_CHUNKS):
+        out, st = pipe.process(torch.as_tensor(ref_src.read(t_chunk), device="cuda"), st,
+                               FilterMode.CUSTOM)
+        direct.append(out["magnitude"])
+    same = all(torch.equal(a, b) for a, b in zip(fed, direct))
+    print(f"[4] StreamFeeder (depth 2, pinned buffers {len(feeder._pinned)}) -> SpectrumPipeline."
+          f"process CUSTOM, {FEED_CHUNKS} chunks of {CHANNELS} x {t_chunk}: staged "
+          f"{feeder.chunks_staged}, wall {wall * 1e3:.4f} ms a chunk (source, copy and dispatch); "
+          f"bitwise equal to the chunks passed directly: {same}")
+    check(same and feeder.chunks_staged >= FEED_CHUNKS, "feeder")
+    rng = np.random.default_rng(6)
+    t = np.arange(16 * N) / 1e6
+    x = (0.7 * np.sin(2 * np.pi * 123e3 * t) + 0.05 * rng.standard_normal(t.size) + 0.3
+         ).astype(np.float32)
+    z = (np.exp(2j * np.pi * -200e3 * t) + 0.1 * (rng.standard_normal(t.size)
+                                                  + 1j * rng.standard_normal(t.size))
+         ).astype(np.complex64)
+    for average in ("mean", "median"):
+        for noverlap in (None, 0):
+            est = WelchPSD(nperseg=N, noverlap=noverlap, average=average)
+            nseg = est.segment_count(t.size)
+            got = est.compute(x).cpu().numpy()
+            _, ref = sps_.welch(x.astype(np.float64), fs=1e6, nperseg=N, noverlap=noverlap,
+                                average=average)
+            rel = np.abs(got - ref).max() / ref.max()
+            got_iq = est.compute_iq(z.real.copy(), z.imag.copy()).cpu().numpy()
+            _, ref_iq = sps_.welch(z.astype(np.complex128), fs=1e6, nperseg=N, noverlap=noverlap,
+                                   average=average, return_onesided=False)
+            rel_iq = np.abs(got_iq - ref_iq).max() / ref_iq.max()
+            print(f"[4] WelchPSD nperseg {N} {average:6s} nseg {nseg} "
+                  f"({'even' if nseg % 2 == 0 else 'odd'}): compute max_err/peak {rel:.2e}, "
+                  f"compute_iq {rel_iq:.2e} vs scipy float64 (tol {WELCH_REL})")
+            check(rel < WELCH_REL and rel_iq < WELCH_REL, ("welch", average, noverlap))
+    mag = direct[-1]
+    host = mag.double().cpu().numpy().reshape(*mag.shape[:-1], 1024, N // 1024)
+    refs = {"peak": host.max(-1), "minpeak": host.min(-1), "avg": host.mean(-1),
+            "rms": np.sqrt((host * host).mean(-1)), "sample": host[..., 0]}
+    for det, ref in refs.items():
+        lin = waterfall.decimate_db(mag, 1024, db=False, detector=det).double().cpu().numpy()
+        db = waterfall.decimate_db(mag, 1024, detector=det).double().cpu().numpy()
+        exact = det in ("peak", "minpeak", "sample")
+        err = np.abs(lin - ref).max() / ref.max()
+        err_db = np.abs(db - 20 * np.log10(np.maximum(ref, 1e-9))).max()
+        print(f"[4] decimate_db {det:7s} {tuple(mag.shape)} -> {tuple(db.shape)}: linear "
+              f"{'bitwise' if exact else 'max_err/max'} {err == 0 if exact else f'{err:.2e}'}, "
+              f"dB max_err {err_db:.2e} dB vs NumPy float64")
+        check((err == 0 if exact else err < 1e-6) and err_db < 1e-4, ("decimate_db", det))
+
+
+def q15_chain_floor_ms(t: int, sections: int) -> tuple[float, float]:
+    """K2's latency floor for a row of t samples: (ms, SM clock MHz)."""
+    mhz = max_sm_mhz()
+    cycles = sections * Q15_STEP_CYCLES + (t - 1) * (Q15_STEP_CYCLES + Q15_STATE_CYCLES)
+    return cycles / (mhz * 1e6) * 1e3, mhz
+
+
+def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
+    """K1 at F = 64 and K2 at 1 row x 2 frames (kernel, plain, bound; no
+    single PyTorch call computes either function), then the Q15 paths'
+    wall per 16384-sample chunk. Returns (walls, timing, the paths' steps
+    for the profile)."""
+    from tpu_sdr_torch.kernels import biquad, fft_q15, window
+    timing = {}
+    F = 64
+    x = q15_kernel_inputs(F, "random", 64)
+    # The function per sample: 14 ranks of half a butterfly (4 add/sub,
+    # 4 shifts, 8 clamps; the twiddle's 4 multiplies, 2 add/sub, 2 shifts,
+    # 4 clamps: 28 / 2), the magnitude (2 converts, 2 multiplies, an add, a
+    # square root); 2 bytes in, 8 out, the twiddle table once.
+    ops = F * N * (14 * 14 + 6)
+    b = bound(F * N * (2 + 8) + N // 2 * 4, ops)
+    timing["q15_fft"] = {"ms": cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x)),
+                         "plain_ms": cuda_ms(lambda: fft_q15.window_fft_q15_plain(x), iters=5),
+                         "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    t = timing["q15_fft"]
+    rom = window.hann_q16_rom(N, device="cuda")
+    print(f"[5] q15_fft F={F} (fft, the filtered paths' call): kernel {t['ms']:.4f} ms "
+          f"({t['ms'] / F * 1e3:.3f} us a frame); plain {t['plain_ms']:.4f} ms; library none; bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} "
+          f"G integer operations at the fp32 rate) -> kernel at {b['bound_ms'] / t['ms']:.1%} of the "
+          f"bound; window+fft {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x, rom=rom)):.4f} ms; "
+          f"F=1 {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x[:1])):.4f} ms; {profiled(lambda: fft_q15.window_fft_q15_cuda(x))}")
+    sos = torch.as_tensor(padded_q15_sos(), dtype=torch.int32, device="cuda")
+    xk = torch.as_tensor(q15_tones(2, 110)[None], device="cuda")
+    zi = torch.zeros((1, 6, 2), dtype=torch.int32, device="cuda")
+    floor_ms, mhz = q15_chain_floor_ms(xk.shape[-1], 6)
+    kernel = lambda: biquad.sosfilt_q15_cuda(sos, xk, zi, rom=rom)
+    plain = lambda: biquad.sosfilt_q15_plain(sos, xk, zi, rom=rom)
+    plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    timing["sosfilt_q15"] = {"ms": cuda_ms(kernel, iters=10), "plain_ms": plain_ms,
+                             "library_ms": None, "bound_ms": floor_ms, "bound_by": "operations"}
+    t = timing["sosfilt_q15"]
+    by = bound(xk.numel() * (2 + 4), xk.numel() * 6 * 12)
+    print(f"[5] sosfilt_q15 1 row x 2 frames, window + 6 sections: kernel {t['ms']:.4f} ms "
+          f"({t['ms'] / 2:.4f} ms a frame); plain {plain_ms:.1f} ms (one call, host clock: "
+          f"{xk.shape[-1] + 5} steps of tensor operations); library none; bound: the chain's latency "
+          f"floor, {6} x {Q15_STEP_CYCLES} + {xk.shape[-1] - 1} x "
+          f"{Q15_STEP_CYCLES + Q15_STATE_CYCLES} cycles at {mhz:.0f} MHz = {floor_ms:.4f} ms -> "
+          f"kernel at {floor_ms / t['ms']:.1%} of it (a serial walk, samples x sections x "
+          f"{Q15_STEP_CYCLES}: {xk.shape[-1] * 6 * Q15_STEP_CYCLES / (mhz * 1e3):.4f} ms; bytes and "
+          f"throughput {by['bound_ms']:.6f} ms); 4 rows "
+          f"{cuda_ms(lambda: biquad.sosfilt_q15_cuda(sos, xk.expand(4, -1).contiguous(), zi.expand(4, -1, -1).contiguous(), rom=rom), iters=10):.4f} ms; "
+          f"{profiled(kernel)}")
+    chunk = q15_tones(1, 120)
+    steps = {}
+    dev, split = pipes["all-device"], pipes["split"]
+    steps["Q15 all-device"] = chained(lambda a, s: dev.process(a, s), chunk, lambda: None)
+    steps["Q15 split filtered"] = chained(lambda a, s: split.process(a, s), chunk, lambda: None)
+    steps["Q15 split bypass"] = chained(lambda a, s: split.process(a, s, bypass=True), chunk,
+                                        lambda: None)
+    walls = {}
+    for label in ["Q15 split filtered", "Q15 split bypass", "Q15 all-device"] * 2:
+        med, lo, hi = dispatch_wall(steps[label])
+        walls.setdefault(label, []).append(med)
+        print(f"[5] {label:18s} wall per {N}-sample chunk (process() and a synchronize): median "
+              f"{med * 1e3:.4f} ms (min {lo * 1e3:.4f}, max {hi * 1e3:.4f}) -> "
+              f"{N / med / 1e6:.3f} MSPS")
+    return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1719,6 +2134,14 @@ def main():
     phase_nb_phases(pp, fplan)
     phase_profile(nb_steps, nb_walls, {"FM default": 1, "Receiver wbfm": 1,
                                        "Receiver wbfm IQ": 1})
+    errs.update(phase_q15_kernels())
+    q15_launches, q15_pipes = phase_q15_path()
+    launches.update(q15_launches)
+    q15_walls, q15_timing, q15_steps = phase_q15_timing(q15_pipes)
+    timing.update(q15_timing)
+    phase_profile(q15_steps, q15_walls)
+    phase_q15_stream(q15_pipes["split"])
+    phase_host_runtime(pipe, sos_custom)
     records = [
         {"route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu", **fixed,
          "launches": launches[name], "max_abs_err": errs[name], **timing[name]}

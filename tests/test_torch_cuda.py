@@ -805,3 +805,156 @@ def test_analyzer_on_card(cuda_plan):
     sb = SpectrumAnalyzer(PipelineConfig(channels=2))
     sb.restore(ck)
     assert np.array_equal(sb.process(x)["magnitude"], a)
+
+
+# ---------------------------------------------------------------- the Q15 path
+
+
+def _q15_frames(shape, seed: int, kind: str) -> np.ndarray:
+    """int16 frames: random (N(0, 6000)) or full-scale tones, one a row."""
+    if kind == "random":
+        return (np.random.default_rng(seed).standard_normal(shape) * 6000).astype(np.int16)
+    n = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    k = 1 + (np.arange(rows)[:, None] * 977) % (n // 2 - 1)
+    tone = 32767 * np.cos(2 * np.pi * k * np.arange(n) / n + 0.3)
+    return np.clip(np.round(tone), -32768, 32767).astype(np.int16).reshape(shape)
+
+
+Q15_SOS = np.array([[18, 36, 18, 64, -38, 14], [64, -120, 64, 64, -110, 52], [64, 0, 0, 64, 0, 0],
+                    [64, 0, 0, 64, 0, 0], [64, 0, 0, 64, 0, 0], [64, 0, 0, 64, 0, 0]])
+
+
+@pytest.mark.parametrize("kind", ["random", "tone"])
+@pytest.mark.parametrize("bypass", [True, False], ids=["bypass", "fft"])
+@pytest.mark.parametrize("frames_", [1, 8, 64])
+def test_q15_fft_kernel_matches_plain_bitwise(card, frames_, bypass, kind):
+    from tpu_sdr_torch.kernels import fft_q15
+
+    x = torch.as_tensor(_q15_frames((frames_, N), 60 + frames_, kind), device="cuda")
+    rom = window.hann_q16_rom(N, device="cuda") if bypass else None
+    launch.reset_counts()
+    got = fft_q15.window_fft_q15(x, rom=rom)
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["q15_fft"] == 1 and not any(launch.counts["plain"].values())
+    ref = fft_q15.window_fft_q15_plain(x, rom=rom)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    if not bypass:
+        oracle = fft_q15.fft_q15_np(x.cpu().numpy())
+        assert all(np.array_equal(g.cpu().numpy(), o) for g, o in zip(got[:2], oracle))
+
+
+@pytest.mark.parametrize("n", [2, 256, 4096])
+def test_q15_fft_kernel_sizes_schedule_and_complex_input(card, n):
+    from tpu_sdr_torch.kernels import fft_q15
+
+    x = torch.as_tensor(_q15_frames((3, n), 70, "random"), device="cuda")
+    xi = torch.as_tensor(_q15_frames((3, n), 71, "random"), device="cuda")
+    m = n.bit_length() - 1
+    sched = tuple((t % 3) for t in range(m))
+    got = fft_q15.fft_q15(x, xi, schedule=sched)
+    ref = fft_q15.fft_q15_np(x.cpu().numpy(), xi.cpu().numpy(), schedule=sched)
+    assert all(np.array_equal(g.cpu().numpy(), r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_sosfilt_q15_kernel_matches_plain_and_oracle(card, rows):
+    from tpu_sdr_torch.control import golden
+
+    x = _q15_frames((rows, 2 * N), 80 + rows, "random")
+    zi = np.random.default_rng(82).integers(-5000, 5000, (rows, 6, 2)).astype(np.int32)
+    sos = torch.as_tensor(Q15_SOS, dtype=torch.int32)
+    rom = window.hann_q16_rom(N, device="cpu")
+    launch.reset_counts()
+    got = biquad.sosfilt_q15_window(sos.cuda(), torch.as_tensor(x, device="cuda"),
+                                    torch.as_tensor(zi, device="cuda"), rom=rom.cuda())
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["sosfilt_q15"] == 1
+    ref = biquad.sosfilt_q15_plain(sos, torch.as_tensor(x), torch.as_tensor(zi), rom=rom)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+    for r in range(rows):
+        xw = golden.rtl_window_q15(x[r])
+        y, zf = golden.sosfilt_q15_intended(Q15_SOS, xw, zi[r])
+        assert np.array_equal(got[0][r].cpu().numpy(), y)
+        assert np.array_equal(got[2][r].cpu().numpy(), zf)
+    # without a ROM: the scan, chunked == one-shot
+    y1, z1 = biquad.sosfilt_q15_scan(Q15_SOS, torch.as_tensor(x[:, :N], device="cuda"),
+                                     torch.as_tensor(zi, device="cuda"))
+    y2, z2 = biquad.sosfilt_q15_scan(Q15_SOS, torch.as_tensor(x[:, N:], device="cuda"), z1)
+    yw, zw = biquad.sosfilt_q15_scan(Q15_SOS, torch.as_tensor(x, device="cuda"),
+                                     torch.as_tensor(zi, device="cuda"))
+    assert torch.equal(torch.cat([y1, y2], dim=-1), yw) and torch.equal(z2, zw)
+
+
+def test_q15_pipeline_on_card_equals_the_cpu_bitwise(card):
+    from tpu_sdr_torch.runtime.q15 import Q15Pipeline
+
+    x = _q15_frames(2 * N, 90, "random")
+    cfg = PipelineConfig(channels=1)
+    for device_fft, bypass in ((False, False), (True, False), (True, True)):
+        gpu = Q15Pipeline(cfg, device_fft=device_fft)
+        cpu = Q15Pipeline(cfg, device_fft=device_fft, device="cpu")
+        for p in (gpu, cpu):
+            p.upload_sos_q(Q15_SOS[:2])
+        launch.reset_counts()
+        got, zg = gpu.process(x, bypass=bypass)
+        torch.cuda.synchronize()
+        assert launch.counts["kernel"]["q15_fft"] == 1
+        assert launch.counts["kernel"]["sosfilt_q15"] == int(not device_fft)
+        ref, zc = cpu.process(x, bypass=bypass)
+        for k, r in ref.items():
+            g = np.asarray(got[k].cpu() if isinstance(got[k], torch.Tensor) else got[k])
+            if k == "magnitude":  # the CPU's sqrt is not always correctly rounded (1 ulp)
+                assert np.allclose(g, np.asarray(r), rtol=1e-6, atol=0), (device_fft, bypass, k)
+            else:
+                assert np.array_equal(g, np.asarray(r)), (device_fft, bypass, k)
+        zg = zg.cpu().numpy() if isinstance(zg, torch.Tensor) else zg
+        zc = zc.numpy() if isinstance(zc, torch.Tensor) else zc
+        assert np.array_equal(zg, zc)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_q15_stream_on_card_equals_sequential(card, depth):
+    from tpu_sdr_torch.runtime.q15 import Q15Pipeline, Q15Stream
+
+    pipe = Q15Pipeline(PipelineConfig(channels=1), device_fft=True)
+    pipe.upload_sos_q(Q15_SOS[:2])
+    chunks = [_q15_frames(N, 100 + i, "random") for i in range(5)]
+    zi, refs = None, []
+    for c in chunks:
+        o, zi = pipe.process(c, zi)
+        refs.append(o["magnitude"].cpu().numpy())
+    stream = Q15Stream(pipe, depth=depth)
+    got = [r[0]["magnitude"] for c in chunks if (r := stream.push(c)) is not None]
+    while (r := stream.flush()) is not None:
+        got.append(r[0]["magnitude"])
+    stream.close()
+    assert len(got) == 5 and all(np.array_equal(a, b) for a, b in zip(got, refs))
+
+
+def test_feeder_on_card_stages_through_pinned_buffers(card):
+    from tpu_sdr_torch.runtime import StreamFeeder
+    from tpu_sdr_torch.runtime.source import SyntheticSource
+
+    kw = dict(tones_hz=((100e3, 0.5),), noise=0.1, channels=2, seed=3)
+    f = StreamFeeder(SyntheticSource(**kw), chunk_samples=N, depth=2).start()
+    try:
+        chunks = [f.get() for _ in range(6)]
+    finally:
+        f.stop()
+    assert all(c.device.type == "cuda" and c.shape == (2, N) for c in chunks)
+    assert len(f._pinned) == 3 and all(b.is_pinned() for b, _ in f._pinned if b is not None)
+    ref = SyntheticSource(**kw).read(6 * N)
+    assert np.array_equal(torch.cat(chunks, dim=-1).cpu().numpy(), ref)
+
+
+def test_welch_on_card_matches_scipy(card):
+    from tpu_sdr_torch.runtime import WelchPSD
+
+    x = np.random.default_rng(7).standard_normal(16 * 1024).astype(np.float32)
+    for average in ("mean", "median"):
+        got = WelchPSD(nperseg=1024, average=average, noverlap=0).compute(x).cpu().numpy()
+        _, ref = sps.welch(x.astype(np.float64), fs=1e6, nperseg=1024, average=average, noverlap=0)
+        assert np.abs(got - ref).max() <= 1e-5 * ref.max()

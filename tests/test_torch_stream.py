@@ -310,7 +310,12 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
         "tpu_sdr_torch.kernels.stereo, tpu_sdr_torch.kernels.pfb, "
         "tpu_sdr_torch.runtime.stream, tpu_sdr_torch.runtime.receiver, "
         "tpu_sdr_torch.control, tpu_sdr_torch.control.api, "
-        "tpu_sdr_torch.kernels.cuda.spectrum, tpu_sdr_torch.core.qformat\n"
+        "tpu_sdr_torch.kernels.cuda.spectrum, tpu_sdr_torch.core.qformat, "
+        "tpu_sdr_torch.kernels.fft_q15, tpu_sdr_torch.kernels.native_q15, "
+        "tpu_sdr_torch.runtime.q15, tpu_sdr_torch.runtime.feeder, "
+        "tpu_sdr_torch.runtime.waterfall, tpu_sdr_torch.runtime.psd, "
+        "tpu_sdr_torch.runtime.source, tpu_sdr_torch.runtime.measure, "
+        "tpu_sdr_torch.runtime.recorder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -339,6 +344,7 @@ def test_cpu_run_never_launches_the_kernel(port):
     assert iir_fft.counts["plain"] == {
         "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
         "fm_demod": 0, "pfb_fold_dft": 0, "spectrum_half": 0, "fft_mag_fused": 0,
+        "q15_fft": 0, "sosfilt_q15": 0,
     }
 
 

@@ -3,8 +3,15 @@
 Imports torch, numpy and scipy only; nothing of JAX or of ``tpu_sdr``.
 """
 
-from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig
-from tpu_sdr_torch.runtime import SpectrumPipeline, StreamState
+from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig, default_config
+from tpu_sdr_torch.runtime import (
+    RecordingSource,
+    SampleRecorder,
+    SpectrumPipeline,
+    StreamFeeder,
+    StreamState,
+    WelchPSD,
+)
 from tpu_sdr_torch.control import (
     AnalyzerStats,
     Command,
@@ -18,6 +25,7 @@ from tpu_sdr_torch.control import (
 
 __all__ = [
     "AnalyzerStats", "Command", "CommandDecoder", "CommMode", "FilterDesign",
-    "FilterMode", "PipelineConfig", "SpectrumAnalyzer", "SpectrumPipeline",
-    "StreamState", "design_iir_filter", "sos_to_wire_bytes", "wire_bytes_to_sos",
+    "FilterMode", "PipelineConfig", "RecordingSource", "SampleRecorder", "SpectrumAnalyzer",
+    "SpectrumPipeline", "StreamFeeder", "StreamState", "WelchPSD", "default_config",
+    "design_iir_filter", "sos_to_wire_bytes", "wire_bytes_to_sos",
 ]

@@ -1,3 +1,9 @@
-from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig
+from tpu_sdr_torch.core.config import (
+    CommMode,
+    FilterMode,
+    HostConfig,
+    PipelineConfig,
+    default_config,
+)
 
-__all__ = ["CommMode", "FilterMode", "PipelineConfig"]
+__all__ = ["CommMode", "FilterMode", "HostConfig", "PipelineConfig", "default_config"]

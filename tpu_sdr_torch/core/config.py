@@ -1,7 +1,7 @@
 """Configuration for the PyTorch/CUDA spectrum pipeline.
 
 A copy of ``tpu_sdr.core.config`` (``FilterMode``, ``CommMode``,
-``PipelineConfig``): the port imports nothing of ``tpu_sdr``, so it keeps its
+``PipelineConfig``, ``HostConfig``, ``default_config``): the port imports nothing of ``tpu_sdr``, so it keeps its
 own copy of the jax-free configuration. Field names, defaults and validation
 are identical, so one config value means the same deployment in either
 package.
@@ -119,3 +119,28 @@ class PipelineConfig:
     @property
     def hz_per_bin(self) -> float:
         return self.sample_rate / self.fft_size
+
+
+@dataclasses.dataclass
+class HostConfig:
+    """Host-edge (transport / GUI) configuration.
+
+    Mirrors the USER CONFIG block of the reference GUI
+    (``scripts/fft_analyzer_gui.py:17-54``).
+    """
+
+    udp_bind_ip: str = "0.0.0.0"
+    udp_port: int = 6006
+    expected_src_ip: str = "169.254.252.255"
+    expected_src_port: int = 5005
+    frame_size_bytes: int = 65536
+    packets_per_frame: int = 64
+    packet_data_size: int = 1024
+    ethernet_payload_size: int = 1025
+    display_fps_cap: float = 30.0
+    http_port: int = 5000
+    uart_baud: int = 230400
+
+
+def default_config(**overrides) -> PipelineConfig:
+    return PipelineConfig(**overrides)

@@ -22,6 +22,13 @@ Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
 the dispatch shape (``_canonical_matmul``), and the frame chain is an exact
 elementwise multiply-and-sum.
+
+The per-section form of the reference is here too: ``BlockedSOS`` /
+``precompute`` / ``sosfilt_blocked`` (each section a 2-state system, its
+products through ``_canonical_matmul``), the float per-sample oracle
+``sosfilt_scan_ref``, and the Q15 integer cascade ``sosfilt_q15_scan``,
+which on a CUDA tensor launches ``csrc/sosfilt_q15.cu`` and on a CPU tensor
+runs ``sosfilt_q15_plain``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as nnf
+
+from tpu_sdr_torch.kernels import window
+from tpu_sdr_torch.kernels.cuda import launch
 
 
 def sos_to_composite_statespace(sos: np.ndarray):
@@ -362,6 +372,314 @@ def sosfilt_blocked_composite_bank(
     z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w)
     y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
     return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedSOS:
+    """Precomputed blocked operator for one SOS cascade, section by section.
+
+    Leaves:
+      T  (S, L, L)  lower-triangular Toeplitz impulse-response operators
+      M  (S, L, 2)  initial-state injection: row n = C A^n
+      P  (S, 2, L)  end-state forcing: column k = A^(L-1-k) B
+      AL (S, 2, 2)  per-block state transition A^L
+    """
+
+    T: torch.Tensor
+    M: torch.Tensor
+    P: torch.Tensor
+    AL: torch.Tensor
+
+    @property
+    def n_sections(self) -> int:
+        return self.T.shape[0]
+
+    @property
+    def block(self) -> int:
+        return self.T.shape[1]
+
+
+def precompute(sos, block: int = 128, *, device="cuda", dtype=torch.float32) -> BlockedSOS:
+    """Build the blocked operator from SOS coefficients (host float64, each
+    leaf rounded once to ``dtype`` on ``device``)."""
+    sos = np.atleast_2d(np.asarray(sos, np.float64))
+    S = sos.shape[0]
+    L = block
+    a0 = sos[:, 3:4]
+    b0, b1, b2 = (sos[:, i] / a0[:, 0] for i in range(3))
+    a1, a2 = sos[:, 4] / a0[:, 0], sos[:, 5] / a0[:, 0]
+    A = np.zeros((S, 2, 2))
+    A[:, 0, 0] = -a1
+    A[:, 0, 1] = 1.0
+    A[:, 1, 0] = -a2
+    B = np.stack([b1 - a1 * b0, b2 - a2 * b0], axis=-1)
+    C = np.zeros((S, 2))
+    C[:, 0] = 1.0
+    D = b0
+
+    Aks = np.empty((L + 1, S, 2, 2))
+    Aks[0] = np.eye(2)
+    for k in range(1, L + 1):
+        Aks[k] = np.einsum("sij,sjk->sik", A, Aks[k - 1])
+
+    cab = np.einsum("sc,kscd,sd->ks", C, Aks[: L - 1], B)  # (L-1, S)
+    h = np.concatenate([D[None, :], cab], axis=0).T  # (S, L)
+
+    delta = np.arange(L)[:, None] - np.arange(L)[None, :]
+    gathered = h[:, np.clip(delta, 0, L - 1)]  # (S, L, L)
+    T = np.where(delta[None] >= 0, gathered, 0.0)
+
+    M = np.einsum("sc,nscd->snd", C, Aks[:L])
+    P = np.einsum("kscd,sd->sck", Aks[L - 1 :: -1], B)
+
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return BlockedSOS(T=as_t(T), M=as_t(M), P=as_t(P), AL=as_t(Aks[L]))
+
+
+# Block rows per call of the per-section products (``_canonical_matmul``):
+# 16 frames of 128 blocks. Any fixed count keeps chunked == one-shot; this
+# form is a reference, on no runtime path, so its calls stay small.
+BLOCK_ROWS = 16 * 128
+
+
+def _small_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., i, j) @ b (..., j, k) as an elementwise multiply and a sum over
+    j: the same reduction whatever the batch shape."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
+
+def _affine_combine(left, right):
+    """Compose affine maps: right after left. Elements: (mat, vec[..., 2, 1])."""
+    m1, v1 = left
+    m2, v2 = right
+    return _small_mm(m2, m1), _small_mm(m2, v1) + v2
+
+
+def _within_frame_prefix(AL: torch.Tensor, f: torch.Tensor, frame_blocks: int):
+    """Inclusive prefix of the affine maps inside each frame.
+
+    f: (..., G, 2) block forcings -> (cmats (..., F, B, 2, 2), cvecs
+    (..., F, B, 2, 1)) with B = frame_blocks, F = G // B. A Hillis-Steele
+    scan over exactly B elements, so every rounding is the same whatever
+    the number of frames in the dispatch.
+    """
+    G = f.shape[-2]
+    if G % frame_blocks:
+        raise ValueError(f"G={G} not a multiple of frame_blocks={frame_blocks}")
+    lead = f.shape[:-2]
+    fF = f.reshape(*lead, G // frame_blocks, frame_blocks, 2)
+    mats = AL.expand(*fF.shape[:-1], 2, 2)
+    vecs = fF[..., :, None]
+    d = 1
+    while d < frame_blocks:
+        m, v = _affine_combine((mats[..., :-d, :, :], vecs[..., :-d, :, :]),
+                               (mats[..., d:, :, :], vecs[..., d:, :, :]))
+        mats = torch.cat([mats[..., :d, :, :], m], dim=-3)
+        vecs = torch.cat([vecs[..., :d, :, :], v], dim=-3)
+        d *= 2
+    return mats, vecs
+
+
+def _frame_chain(m_frames: torch.Tensor, v_frames: torch.Tensor, z0: torch.Tensor):
+    """Sequential affine chain across frames: m_frames (..., F, 2, 2),
+    v_frames (..., F, 2, 1), z0 (..., 2) -> (z_final (..., 2), z_starts
+    (..., F, 2, 1)), the state at the start of each frame."""
+    z = z0[..., :, None]
+    starts = []
+    for f in range(m_frames.shape[-3]):
+        starts.append(z)
+        z = _small_mm(m_frames[..., f, :, :], z) + v_frames[..., f, :, :]
+    return z[..., 0], torch.stack(starts, dim=-3)
+
+
+def _z_in_from_prefix(cmats, cvecs, z_starts):
+    """Per-block incoming states from the within-frame prefixes: block 0 of
+    a frame takes the frame's start, block j the within-frame end of block
+    j - 1. Returns (..., G, 2)."""
+    lead = cmats.shape[:-4]
+    F, B = cmats.shape[-4], cmats.shape[-3]
+    zs = z_starts[..., :, None, :, :]  # (..., F, 1, 2, 1)
+    z_end_within = _small_mm(cmats, zs) + cvecs  # (..., F, B, 2, 1)
+    z_in = torch.cat([zs, z_end_within[..., :-1, :, :]], dim=-3)
+    return z_in[..., 0].reshape(*lead, F * B, 2)
+
+
+def _block_state_chain(AL, f, z0, frame_blocks: int):
+    """Solve z_end[g] = AL z_in[g] + f[g] over the blocks: the prefix
+    inside each frame, then the sequential chain across frames, so chunked
+    streaming at frame granularity is bit-identical to one-shot. Returns
+    (z_in (..., G, 2), z_final (..., 2))."""
+    cmats, cvecs = _within_frame_prefix(AL, f, frame_blocks)
+    z_final, z_starts = _frame_chain(cmats[..., -1, :, :], cvecs[..., -1, :, :], z0)
+    return _z_in_from_prefix(cmats, cvecs, z_starts), z_final
+
+
+def sosfilt_blocked(
+    op: BlockedSOS,
+    x: torch.Tensor,
+    zi: torch.Tensor,
+    frame_blocks: int | None = None,
+):
+    """Filter x (..., T) through the cascade, section by section; T a
+    multiple of L. zi: (..., S, 2) incoming state (scipy convention).
+    ``frame_blocks`` sets the prefix segment (blocks per FFT frame): chunks
+    that are multiples of frame_blocks * L samples give the bits of one-shot
+    processing. Default: one segment per dispatch. The block products run
+    in calls of ``BLOCK_ROWS`` rows (``_canonical_matmul``).
+    Returns (y (..., T), zf (..., S, 2)).
+    """
+    L = op.block
+    lead = x.shape[:-1]
+    G = x.shape[-1] // L
+    fb = G if frame_blocks is None else frame_blocks
+    v = x.reshape(*lead, G, L)
+    zf_out = []
+    for s in range(op.n_sections):
+        y_zs = _canonical_matmul(v, op.T[s].mT, BLOCK_ROWS)
+        f = _canonical_matmul(v, op.P[s].mT, BLOCK_ROWS)
+        z_in, z_final = _block_state_chain(op.AL[s], f, zi[..., s, :], fb)
+        v = y_zs + _canonical_matmul(z_in, op.M[s].mT, BLOCK_ROWS)
+        zf_out.append(z_final)
+    return v.reshape(*lead, G * L), torch.stack(zf_out, dim=-2)
+
+
+def sosfilt_scan_ref(sos, x: torch.Tensor, zi: torch.Tensor):
+    """Sequential per-sample TDF-II (the float oracle on the tensor's
+    device): the math of scipy.signal.sosfilt in x's dtype, one Python step
+    a sample. x: (..., T), zi: (..., S, 2) -> (y (..., T), zf (..., S, 2))."""
+    sos = torch.as_tensor(sos, dtype=x.dtype, device=x.device)
+    a0 = sos[:, 3]
+    b = sos[:, :3] / a0[:, None]
+    a = sos[:, 4:6] / a0[:, None]
+    z = [[zi[..., s, 0], zi[..., s, 1]] for s in range(sos.shape[0])]
+    ys = []
+    for n in range(x.shape[-1]):
+        v = x[..., n]
+        for s, (z1, z2) in enumerate(z):
+            y = b[s, 0] * v + z1
+            z[s] = [b[s, 1] * v - a[s, 0] * y + z2, b[s, 2] * v - a[s, 1] * y]
+            v = y
+        ys.append(v)
+    zf = torch.stack([torch.stack(zs, dim=-1) for zs in z], dim=-2)
+    return torch.stack(ys, dim=-1), zf
+
+
+# The Q15 cascade's kernel takes at most this many sections.
+Q15_MAX_SECTIONS = 8
+
+
+def _q15_check(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom):
+    """Validate sosfilt_q15_window's arguments; returns (rows, T, S)."""
+    if sos.ndim != 2 or sos.shape[1] != 6:
+        raise ValueError(f"sos must be (S, 6); got {tuple(sos.shape)}")
+    if x.ndim != 2 or x.dtype != torch.int16:
+        raise ValueError(f"x must be (rows, T) int16; got {tuple(x.shape)} {x.dtype}")
+    rows, t = x.shape
+    S = sos.shape[0]
+    if tuple(zi.shape) != (rows, S, 2) or zi.dtype != torch.int32:
+        raise ValueError(f"zi must be {(rows, S, 2)} int32; got {tuple(zi.shape)} {zi.dtype}")
+    if rom is not None and (rom.ndim != 1 or rom.dtype != torch.int16 or t % rom.shape[0]):
+        raise ValueError(f"rom must be (n,) int16 with n dividing T={t}; got "
+                         f"{tuple(rom.shape)} {rom.dtype}")
+    return rows, t, S
+
+
+def sosfilt_q15_plain(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom=None):
+    """The plain PyTorch version of ``sosfilt_q15_window``.
+
+    The (sample, section) grid is walked by anti-diagonals: at step k section
+    s takes sample k - s, its input the output of section s - 1 one step
+    before. Each step is a handful of int32 operations on (rows, S) tensors,
+    T + S - 1 steps in all; every value is the one the sample-by-sample walk
+    computes.
+    """
+    rows, t, S = _q15_check(sos, x, zi, rom)
+    xw = None
+    if rom is not None:
+        xw = window.window_q15(x.reshape(rows, -1, rom.shape[0]), rom).reshape(rows, t)
+    xin = (x if xw is None else xw).to(torch.int32)
+    c = sos.to(device=x.device, dtype=torch.int32)
+    b0, b1, b2, a1, a2 = c[:, 0], c[:, 1], c[:, 2], c[:, 4], c[:, 5]
+    z0 = zi[..., 0].clone()
+    z1 = zi[..., 1].clone()
+    y = torch.zeros((rows, S), dtype=torch.int32, device=x.device)
+    zero = torch.zeros((rows, 1), dtype=torch.int32, device=x.device)
+    out = torch.empty((rows, t), dtype=torch.int16, device=x.device)
+    for k in range(t + S - 1):
+        u = torch.cat([xin[:, k : k + 1] if k < t else zero, y[:, :-1]], dim=1)
+        acc = b0 * u + z0
+        # round half away from zero: (acc + 32 + (acc >> 31)) >> 6 (csrc/sosfilt_q15.cu)
+        y = ((acc + (acc >> 31) + 32) >> 6).clamp_(-32768, 32767)
+        n0 = b1 * u - a1 * y + z1
+        n1 = b2 * u - a2 * y
+        lo, hi = max(0, k - t + 1), min(S, k + 1)  # the sections holding a sample
+        if lo == 0 and hi == S:
+            z0, z1 = n0, n1
+        else:
+            z0[:, lo:hi] = n0[:, lo:hi]
+            z1[:, lo:hi] = n1[:, lo:hi]
+        if k >= S - 1:
+            out[:, k - S + 1] = y[:, S - 1]
+    return out, xw, torch.stack([z0, z1], dim=-1)
+
+
+def sosfilt_q15_cuda(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom=None):
+    """Launch ``csrc/sosfilt_q15.cu`` on CUDA tensors. T (and the ROM's
+    length) must be multiples of 8 and S at most 8. Raises if the kernel
+    cannot be built or launched."""
+    rows, t, S = _q15_check(sos, x, zi, rom)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    for name, v in (("sos", sos), ("zi", zi), ("rom", rom)):
+        if v is not None and v.device != dev:
+            raise ValueError(f"{name} must be on {dev}, got {v.device}")
+    if sos.dtype != torch.int32:
+        raise ValueError(f"sos must be int32, got {sos.dtype}")
+    if not 1 <= S <= Q15_MAX_SECTIONS:
+        raise ValueError(f"the kernel takes 1 to {Q15_MAX_SECTIONS} sections, got {S}")
+    if t % 8 or (rom is not None and rom.shape[0] % 8):
+        raise ValueError(f"T ({t}) and the ROM's length must be multiples of 8")
+    sos, zi = sos.contiguous(), zi.contiguous()
+    x = launch.aligned(x)
+    rom = None if rom is None else launch.aligned(rom)
+    y = torch.empty_like(x)
+    xw = None if rom is None else torch.empty_like(x)
+    zf = torch.empty_like(zi)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    launch.launch(
+        "sosfilt_q15", dev, sos.data_ptr(), S, x.data_ptr(), rows, t, ptr(rom),
+        0 if rom is None else rom.shape[0], zi.data_ptr(), ptr(xw), y.data_ptr(), zf.data_ptr(),
+    )
+    return y, xw, zf
+
+
+def sosfilt_q15_window(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom=None):
+    """The bit-faithful integer cascade over rows, with the RTL window first
+    when ``rom`` is given: sos (S, 6) int32 x64 coefficients, x (rows, T)
+    int16, zi (rows, S, 2) int32, rom (n,) int16 with n dividing T. Returns
+    (y (rows, T) int16, windowed (rows, T) int16 or None without a ROM, zf
+    (rows, S, 2) int32). a0 is not read: the >> 6 is the division by a0 ==
+    64, as in the reference's scan (callers such as ``Q15Pipeline`` check
+    it). Bit-exact vs window_q15 followed by ``golden.sosfilt_q15_intended``
+    per row."""
+    if launch.on_cpu("sosfilt_q15", x):
+        return sosfilt_q15_plain(sos, x, zi, rom)
+    return sosfilt_q15_cuda(sos, x, zi, rom)
+
+
+def sosfilt_q15_scan(sos_x64, x_q15: torch.Tensor, zi: torch.Tensor):
+    """Bit-faithful integer path: int8-x64 coeffs, >>6 round-half-away, int16
+    saturation, int32 state; the device twin of
+    ``golden.sosfilt_q15_intended``. x_q15 (..., T) int16, zi (..., S, 2)
+    int32 -> (y (..., T) int16, zf (..., S, 2) int32)."""
+    sos = torch.as_tensor(sos_x64).to(device=x_q15.device, dtype=torch.int32)
+    lead, t = x_q15.shape[:-1], x_q15.shape[-1]
+    S = sos.shape[0]
+    y, _, zf = sosfilt_q15_window(
+        sos, x_q15.reshape(-1, t), zi.to(torch.int32).reshape(-1, S, 2)
+    )
+    return y.reshape(*lead, t), zf.reshape(*lead, S, 2)
 
 
 def pad_sos(sos: np.ndarray, n_sections: int) -> np.ndarray:

@@ -95,3 +95,12 @@ def ifft_4step(xr: torch.Tensor, xi: torch.Tensor | None, plan: dict):
     n = xr.shape[-1]
     yr, yi = fft_4step(xr, None if xi is None else -xi, plan)
     return yr / n, -yi / n
+
+
+def fft_golden_check(xr, xi=None):
+    """NumPy oracle with matching signature (host-side, tests only)."""
+    x = np.asarray(xr, np.float64)
+    if xi is not None:
+        x = x + 1j * np.asarray(xi, np.float64)
+    s = np.fft.fft(x, axis=-1)
+    return s.real, s.imag

@@ -15,3 +15,7 @@ def power(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 
 def phase(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.atan2(im, re)
+
+
+def magnitude_db(re: torch.Tensor, im: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
+    return 10.0 * torch.log10(torch.clamp(power(re, im), min=floor))

@@ -26,8 +26,10 @@ def hann_coefficients(
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
-def hann_q16_rom(n: int, *, device="cuda") -> torch.Tensor:
-    """The bit-exact int16 ROM contents (``src/hann.vhd:5-6``) on ``device``."""
+def hann_q16_rom(n: int, *, device) -> torch.Tensor:
+    """The bit-exact int16 ROM contents (``src/hann.vhd:5-6``) on the
+    caller's ``device`` (no default: the Q15 pipeline builds its ROM on its
+    own device)."""
     return torch.as_tensor(golden.hann_q16_rom(n), device=device)
 
 
