@@ -108,6 +108,7 @@ exits non-zero without a result line when there is none.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import math
 import statistics
@@ -223,15 +224,26 @@ def max_sm_mhz() -> float:
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
 
 
-def bound(bytes_moved: float, flops: float) -> dict:
+@functools.lru_cache(maxsize=1)
+def peak_int32_ops() -> float:
+    """The card's INT32 issue rate in operations a second: 64 INT32 lanes an
+    SM (Hopper), one operation a lane a cycle, on every SM at the highest SM
+    clock. The data sheet gives no such rate; its 67 TFLOP/s fp32 is 128
+    lanes an SM counting an FMA as two."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64 * sms * max_sm_mhz() * 1e6
+
+
+def bound(bytes_moved: float, flops: float, int_ops: float = 0) -> dict:
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the function's operations at
-    the fp32 peak, whichever is longer."""
+    output written once at the memory rate, or the function's fp32
+    operations at the fp32 peak plus its integer operations at the INT32
+    issue rate, whichever is longer."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    by_ops = (flops / PEAK_FP32_FLOPS + (int_ops / peak_int32_ops() if int_ops else 0)) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": bytes_moved, "flops": flops}
+            "bytes": bytes_moved, "flops": flops, "int_ops": int_ops}
 
 
 def golden_magnitude(x: np.ndarray, sos, win: np.ndarray) -> np.ndarray:
@@ -1833,18 +1845,22 @@ def phase_q15_path() -> tuple[dict, dict]:
     for p in (dev, split):
         p.upload_sos_q(Q15_SOS_Q)
     host = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-    launch.reset_counts()
     results = {}
-    for label, pipe, bypass in (("all-device", dev, False), ("split filtered", split, False),
-                                ("split bypass", split, True)):
+    launches = dict.fromkeys(("q15_fft", "sosfilt_q15"), 0)
+    for label, pipe, bypass, want in (
+            ("all-device", dev, False, {"q15_fft": 2, "sosfilt_q15": 2}),
+            ("split filtered", split, False, {"q15_fft": 2}),
+            ("split bypass", split, True, {"q15_fft": 2})):
+        launch.reset_counts()
         zi, outs = None, []
         for c in range(2):
             out, zi = pipe.process(x[c * 2 * N:(c + 1) * 2 * N], zi, bypass=bypass)
             outs.append({k: host(v) for k, v in out.items()})
         results[label] = (outs, host(zi))
-    torch.cuda.synchronize()
-    launches = {k: launch.counts["kernel"][k] for k in ("q15_fft", "sosfilt_q15")}
-    check_counts("Q15 path", {"q15_fft": 6, "sosfilt_q15": 2})
+        torch.cuda.synchronize()
+        check_counts(f"Q15 {label}", want)
+        for k in launches:
+            launches[k] += launch.counts["kernel"][k]
     for label, (outs, zf) in results.items():
         ref = wire_bypass if label == "split bypass" else wire
         re = np.concatenate([o["spectrum_re_q15"].reshape(-1, N) for o in outs])
@@ -1864,8 +1880,8 @@ def phase_q15_path() -> tuple[dict, dict]:
               f"bitwise equal to the oracle chain: {ok}; |X| against NumPy's fp32 sqrt(re^2 + im^2): "
               f"bitwise {mag_rel == 0}, max rel err {mag_rel:.1e} (tol 1e-6)")
         check(ok and mag_rel <= 1e-6, ("Q15 path", label))
-    print(f"[4] Q15 path launches: q15_fft {launches['q15_fft']} (2 a path), sosfilt_q15 "
-          f"{launches['sosfilt_q15']} (the all-device path's 2), plain 0")
+    print(f"[4] Q15 path launches, each form counted on its own: q15_fft {launches['q15_fft']} "
+          f"(2 a form), sosfilt_q15 {launches['sosfilt_q15']} (the all-device form's 2), plain 0")
     for bypass in (False, True):
         out, _ = split.process(x[: 2 * N], bypass=bypass, display=True)
         disp = out["display_frame"]
@@ -1928,6 +1944,32 @@ def phase_q15_stream(split):
         return time.perf_counter() - t0
 
     streamed(), sequential()  # warm-up
+    # The halves Q15Stream runs on two threads: the host stage (the worker's)
+    # and the device stage with the fetch (the caller's), each alone, then
+    # both at once as the stream runs them.
+    staged = [split._split_host(c, None) for c in chunks]
+
+    def host_half() -> float:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            split._split_host(chunks[i % len(chunks)], None)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def device_half() -> float:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            ys, xw, _ = staged[i % len(staged)]
+            split._split_device(ys, xw)["magnitude"].cpu().numpy()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    alone = host_half(), device_half()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        worker = pool.submit(host_half)
+        caller = device_half()
+        both = worker.result(), caller
+    print(f"[5] the split path's halves, ms a chunk of {N}: host stage (native window + 6 "
+          f"sections) {alone[0]:.4f} alone, {both[0]:.4f} on a thread beside the device half; "
+          f"device half (upload, K1, fetch) {alone[1]:.4f} alone, {both[1]:.4f} beside the host stage")
     for label in ("stream", "sequential", "sequential", "stream"):
         dt = streamed() if label == "stream" else sequential()
         what = ("Q15Stream depth 1" if label == "stream"
@@ -2028,12 +2070,12 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     timing = {}
     F = 64
     x = q15_kernel_inputs(F, "random", 64)
-    # The function per sample: 14 ranks of half a butterfly (4 add/sub,
-    # 4 shifts, 8 clamps; the twiddle's 4 multiplies, 2 add/sub, 2 shifts,
-    # 4 clamps: 28 / 2), the magnitude (2 converts, 2 multiplies, an add, a
-    # square root); 2 bytes in, 8 out, the twiddle table once.
-    ops = F * N * (14 * 14 + 6)
-    b = bound(F * N * (2 + 8) + N // 2 * 4, ops)
+    # The function per sample: 14 ranks of half a butterfly in int32 (4
+    # add/sub, 4 shifts, 8 clamps; the twiddle's 4 multiplies, 2 add/sub,
+    # 2 shifts, 4 clamps: 28 / 2), the magnitude in fp32 (2 converts, 2
+    # multiplies, an add, a square root); 2 bytes in, 8 out, the twiddle
+    # table once.
+    b = bound(F * N * (2 + 8) + N // 2 * 4, F * N * 6, int_ops=F * N * 14 * 14)
     timing["q15_fft"] = {"ms": cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x)),
                          "plain_ms": cuda_ms(lambda: fft_q15.window_fft_q15_plain(x), iters=5),
                          "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
@@ -2041,8 +2083,9 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     rom = window.hann_q16_rom(N, device="cuda")
     print(f"[5] q15_fft F={F} (fft, the filtered paths' call): kernel {t['ms']:.4f} ms "
           f"({t['ms'] / F * 1e3:.3f} us a frame); plain {t['plain_ms']:.4f} ms; library none; bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} "
-          f"G integer operations at the fp32 rate) -> kernel at {b['bound_ms'] / t['ms']:.1%} of the "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB; {b['int_ops'] / 1e9:.3f} "
+          f"G int32 operations at {peak_int32_ops() / 1e12:.2f} T/s, the INT32 issue rate, and "
+          f"{b['flops'] / 1e9:.4f} GFLOP fp32) -> kernel at {b['bound_ms'] / t['ms']:.1%} of the "
           f"bound; window+fft {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x, rom=rom)):.4f} ms; "
           f"F=1 {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x[:1])):.4f} ms; {profiled(lambda: fft_q15.window_fft_q15_cuda(x))}")
     sos = torch.as_tensor(padded_q15_sos(), dtype=torch.int32, device="cuda")
@@ -2060,7 +2103,7 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     timing["sosfilt_q15"] = {"ms": cuda_ms(kernel, iters=10), "plain_ms": plain_ms,
                              "library_ms": None, "bound_ms": floor_ms, "bound_by": "operations"}
     t = timing["sosfilt_q15"]
-    by = bound(xk.numel() * (2 + 4), xk.numel() * 6 * 12)
+    by = bound(xk.numel() * (2 + 4), 0, int_ops=xk.numel() * 6 * 12)
     print(f"[5] sosfilt_q15 1 row x 2 frames, window + 6 sections: kernel {t['ms']:.4f} ms "
           f"({t['ms'] / 2:.4f} ms a frame); plain {plain_ms:.1f} ms (one call, host clock: "
           f"{xk.shape[-1] + 5} steps of tensor operations); library none; bound: the chain's latency "

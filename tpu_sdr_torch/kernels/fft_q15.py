@@ -151,17 +151,6 @@ def _rank_twiddles(n: int, device: str) -> tuple:
     )
 
 
-def _bitrev_transpose(x: torch.Tensor, n: int) -> torch.Tensor:
-    """The bit reversal as an axis transpose: (..., 2^m) viewed as m
-    two-point axes in reverse order. The same permutation ``bitrev``
-    indexes."""
-    m = n.bit_length() - 1
-    lead = x.shape[:-1]
-    k = len(lead)
-    perm = tuple(range(k)) + tuple(k + m - 1 - t for t in range(m))
-    return x.reshape(*lead, *((2,) * m)).permute(perm).reshape(*lead, n)
-
-
 def _ranks_plain(re: torch.Tensor, im: torch.Tensor, schedule: tuple) -> tuple:
     """The DIF ranks on int32 tensors (..., n), natural-index DIF order out.
     Every value is saturated to int16 after every rank; the products of
@@ -196,8 +185,7 @@ def _magnitude(fr_q: torch.Tensor, fi_q: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(fr * fr + fi * fi)
 
 
-def window_fft_q15_plain(x_re, x_im=None, rom=None, schedule=None, bitrev: str = "take",
-                         want_magnitude: bool = True):
+def window_fft_q15_plain(x_re, x_im=None, rom=None, schedule=None, want_magnitude: bool = True):
     """The plain PyTorch version of ``window_fft_q15``: (re, im, |X| or
     None). Takes int16 or int32 frames."""
     n = x_re.shape[-1]
@@ -208,12 +196,9 @@ def window_fft_q15_plain(x_re, x_im=None, rom=None, schedule=None, bitrev: str =
     re = x_re.to(torch.int32)
     im = torch.zeros_like(re) if x_im is None else x_im.to(torch.int32)
     re, im = _ranks_plain(re, im, schedule)
-    if bitrev == "transpose":
-        fr, fi = _bitrev_transpose(re, n), _bitrev_transpose(im, n)
-    else:
-        br = torch.as_tensor(plan_q15(n)["bitrev"], device=re.device)
-        fr, fi = re.index_select(-1, br), im.index_select(-1, br)
-    fr, fi = fr.to(torch.int16), fi.to(torch.int16)
+    br = torch.as_tensor(plan_q15(n)["bitrev"], device=re.device)
+    fr = re.index_select(-1, br).to(torch.int16)
+    fi = im.index_select(-1, br).to(torch.int16)
     return fr, fi, _magnitude(fr, fi) if want_magnitude else None
 
 
@@ -273,19 +258,13 @@ def window_fft_q15_cuda(x_re, x_im=None, rom=None, schedule=None, want_magnitude
     return re.reshape(*lead, n), im.reshape(*lead, n), mag
 
 
-def window_fft_q15(x_re, x_im=None, rom=None, schedule=None, bitrev: str = "take"):
+def window_fft_q15(x_re, x_im=None, rom=None, schedule=None):
     """The Q15 pipeline's device stage on int16 frames (..., n): with
     ``rom`` (the (n,) int16 window ROM) the RTL window first
     (``window.window_q15``), then the scaled FFT. Returns (re, im) int16 wire
-    words in natural order and their magnitude sqrt(re^2 + im^2) in fp32.
-
-    ``bitrev`` ("take" or "transpose") selects how the plain version
-    permutes the output; both are the same permutation, so it does not
-    change the bits, and the kernel takes either."""
-    if bitrev not in BITREV:
-        raise ValueError(f"bitrev must be one of {BITREV}, got {bitrev!r}")
+    words in natural order and their magnitude sqrt(re^2 + im^2) in fp32."""
     if launch.on_cpu("q15_fft", x_re):
-        return window_fft_q15_plain(x_re, x_im, rom, schedule, bitrev)
+        return window_fft_q15_plain(x_re, x_im, rom, schedule)
     return window_fft_q15_cuda(x_re, x_im, rom, schedule)
 
 
@@ -295,15 +274,16 @@ def fft_q15(x_re, x_im=None, schedule=None, bitrev: str = "take"):
 
     Arrays that are not tensors become CPU tensors (the plain version). On
     a CUDA tensor it launches ``csrc/q15_fft.cu``, which takes int16 frames.
-    ``bitrev``: "take" (gather by the index vector) or "transpose" (the same
-    permutation as an axis transpose); the outputs are identical.
+    ``bitrev`` ("take" or "transpose") is checked and kept for the JAX
+    signature: it chose a lowering on the TPU, and both name the same
+    permutation, which the index gather performs here.
     """
     if bitrev not in BITREV:
         raise ValueError(f"bitrev must be one of {BITREV}, got {bitrev!r}")
     x_re = torch.as_tensor(x_re)
     x_im = None if x_im is None else torch.as_tensor(x_im, device=x_re.device)
     if launch.on_cpu("q15_fft", x_re):
-        re, im, _ = window_fft_q15_plain(x_re, x_im, None, schedule, bitrev, want_magnitude=False)
+        re, im, _ = window_fft_q15_plain(x_re, x_im, None, schedule, want_magnitude=False)
         return re, im
     re, im, _ = window_fft_q15_cuda(x_re, x_im, None, schedule, want_magnitude=False)
     return re, im

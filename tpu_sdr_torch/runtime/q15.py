@@ -148,21 +148,35 @@ class Q15Pipeline:
             return out, np.asarray(zi)
         return self.process_async(x, zi, display=display)
 
-    def _host_stage(self, x, zi):
-        """The per-sample host half of the filtered split path: the fused RTL
-        window + saturating IIR in one native pass. Returns (ys, xw, zf) as
-        flat (R, T) rows + (R, S, 2) state."""
-        x = np.asarray(x, np.int16)
+    def _split_host(self, x_q15, zi):
+        """The filtered split path's host half: the fused RTL window +
+        saturating IIR in one native pass. Returns (ys, xw) as (..., F, N)
+        int16 frames and zf (..., S, 2) int64."""
+        if not self.device_fft:
+            raise ValueError("process_async requires device_fft=True")
+        if self.sos_q is None:
+            raise ValueError("upload_sos_q first")
+        n, sections = self.cfg.fft_size, self.cfg.n_sections
+        x = np.asarray(x_q15, np.int16)
         if x.ndim == 1:
             x = x[None, :]
         lead = x.shape[:-1]
-        flat = x.reshape(-1, x.shape[-1])
         if zi is None:
-            zi = np.zeros((*lead, self.cfg.n_sections, 2), np.int64)
-        zflat = np.asarray(zi, np.int64).reshape(-1, self.cfg.n_sections, 2)
-        return native_q15.sosfilt_q15_window_rows(
-            np.asarray(self.sos_q, np.int64), flat, self.rom_np, zflat, want_windowed=True,
+            zi = np.zeros((*lead, sections, 2), np.int64)
+        ys, xw, zf = native_q15.sosfilt_q15_window_rows(
+            np.asarray(self.sos_q, np.int64), x.reshape(-1, x.shape[-1]), self.rom_np,
+            np.asarray(zi, np.int64).reshape(-1, sections, 2), want_windowed=True,
         )
+        return ys.reshape(*lead, -1, n), xw.reshape(*lead, -1, n), zf.reshape(*lead, sections, 2)
+
+    def _split_device(self, ys, xw, display: bool = False):
+        """The filtered split path's device half: one upload and one launch on
+        the current stream, the spectrum leaves left in flight; the host
+        products ride along as NumPy."""
+        out = self._window_fft(self._upload(ys), bypass=False, display=display)
+        out["windowed_q15"] = xw
+        out["filtered_q15"] = ys
+        return out
 
     def process_async(self, x_q15, zi=None, display: bool = False):
         """Filtered split path, device stage left in flight.
@@ -174,21 +188,8 @@ class Q15Pipeline:
         ``filtered_q15`` as NumPy. Fetch the tensors with ``.cpu()`` when
         ready; ``Q15Stream`` packages the pattern.
         """
-        if not self.device_fft:
-            raise ValueError("process_async requires device_fft=True")
-        if self.sos_q is None:
-            raise ValueError("upload_sos_q first")
-        n = self.cfg.fft_size
-        x = np.asarray(x_q15, np.int16)
-        if x.ndim == 1:
-            x = x[None, :]
-        lead = x.shape[:-1]
-        ys, xw, zflat = self._host_stage(x, zi)
-        out = self._window_fft(self._upload(ys.reshape(*lead, -1, n)), bypass=False,
-                               display=display)
-        out["windowed_q15"] = xw.reshape(*lead, -1, n)
-        out["filtered_q15"] = ys.reshape(*lead, -1, n)
-        return out, zflat.reshape(*lead, self.cfg.n_sections, 2)
+        ys, xw, zf = self._split_host(x_q15, zi)
+        return self._split_device(ys, xw, display), zf
 
     def process(self, x_q15, zi=None, bypass: bool = False, display: bool = False):
         """x_q15 (..., T) int16 (frame-aligned). Returns (out dict, zf).
@@ -225,12 +226,16 @@ class Q15Stream:
     """Double-buffered live runner for the filtered faithful mode.
 
     The FPGA's filter never stalls its FFT (``imp/filter_iir12.vhd:38-137``,
-    a free-running 1-sample pipeline). This runner overlaps the host stage
-    with the device stage:
+    a free-running 1-sample pipeline). This runner splits the split path's
+    two halves between two threads:
 
-      * a single worker thread runs chunk k+1's host stage (the fused
-        native window + filter: C code, the interpreter lock released) while
-        the main thread fetches chunk k;
+      * a single worker thread runs the host stage (the fused native window
+        + filter: C code, the interpreter lock released) of the chunks in
+        submission order;
+      * the caller's thread takes the oldest chunk whose host stage is done,
+        uploads it, launches the FFT on its current stream
+        (``process_async``'s device half) and fetches the ``fetch`` leaves
+        with ``.cpu().numpy()``, while the worker filters the next chunk;
       * filter state threads through the worker in submission order, so
         the output stream is bit-identical to sequential ``process()``
         calls;
@@ -240,10 +245,14 @@ class Q15Stream:
       * ``depth`` (default 1): chunks in flight, at the price of depth x
         chunk latency.
 
-    Error semantics: a chunk that fails in the worker (no coefficients, a
-    device error) surfaces on the next ``push``/``flush`` (the call that
-    would have returned its result) as the original exception; the chain is
-    then poisoned and every later call re-raises until ``reset()``, which
+    Whether the two halves overlap in time depends on the host: both threads
+    run Python around their C and CUDA calls and share the interpreter lock
+    and the cores (``PERF.md`` gives the H100 host's numbers).
+
+    Error semantics: a chunk that fails (no coefficients, a device error)
+    surfaces on the next ``push``/``flush`` (the call that would have
+    returned its result) as the original exception; the chain is then
+    poisoned and every later call re-raises until ``reset()``, which
     discards the failed tail and resumes from ``self.zf``, the state after
     the last chunk that completed its host stage. A length that is not a
     multiple of fft_size is rejected synchronously in ``push``.
@@ -262,16 +271,23 @@ class Q15Stream:
         self.display = bool(display)
         self.depth = int(depth)
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-        self._pending = collections.deque()  # futures, oldest first
+        self._pending = collections.deque()  # futures of host stages, oldest first
+        self._error: BaseException | None = None
         self.zf = None  # state after the newest successful host stage
 
     def _materialize(self, fut):
-        out, zf = fut.result()
-        done = dict(out)
-        for k in self.fetch:
-            v = out[k]
-            done[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        return done, zf
+        if self._error is not None:
+            raise self._error
+        try:
+            ys, xw, zf = fut.result()
+            out = self.pipe._split_device(ys, xw, self.display)
+            for k in self.fetch:
+                v = out[k]
+                out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        except Exception as e:
+            self._error = e
+            raise
+        return out, zf
 
     def push(self, x_q15):
         """Feed one frame-aligned chunk; returns the completed (out, zf) of
@@ -282,6 +298,8 @@ class Q15Stream:
                 f"chunk length {t} must be a multiple of "
                 f"fft_size={self.pipe.cfg.fft_size}"
             )
+        if self._error is not None:
+            raise self._error
         # A copy: the host stage runs later on the worker over this buffer, and
         # a caller that refills one chunk buffer in place would tear samples.
         x_q15 = np.array(x_q15, copy=True)
@@ -291,10 +309,10 @@ class Q15Stream:
         prev = self._pending[-1] if self._pending else None
 
         def run(x=x_q15, prev_fut=prev, zi0=zi):
-            z = prev_fut.result()[1] if prev_fut is not None else zi0
-            res = self.pipe.process_async(x, z, display=self.display)
+            z = prev_fut.result()[2] if prev_fut is not None else zi0
+            res = self.pipe._split_host(x, z)
             # The resume point for reset() (an attribute store: atomic).
-            self.zf = res[1]
+            self.zf = res[2]
             return res
 
         self._pending.append(self._pool.submit(run))
@@ -324,6 +342,7 @@ class Q15Stream:
                     fut.result()
                 except Exception:  # the failed tail is what reset() discards
                     pass
+        self._error = None
 
     def close(self):
         self._pool.shutdown(wait=True)
