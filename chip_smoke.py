@@ -5,10 +5,11 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (nine), built from
-     ``tpu_sdr_torch/csrc`` with nvcc, and the native Q15 host filter
-     (``tpu_sdr_torch/native/q15_filter.cpp``) with the host C++ compiler,
-     one process per source, all started together;
+  2. build: every CUDA kernel library of the port (ten), built from
+     ``tpu_sdr_torch/csrc`` with nvcc, and the native Q15 host filter and
+     the native framer (``tpu_sdr_torch/native/q15_filter.cpp``,
+     ``framer.cpp``) with the host C++ compiler, one process per source,
+     all started together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card: the spectrum kernels at F = 1, 8 and 512 frames with the stated
      SNR floors (and a relative-error bound for the IIR summaries' states);
@@ -30,7 +31,10 @@ Phases (each raises on failure):
      without the RTL window, on random int16 frames and full-scale tones,
      and the saturating Q15 cascade (``sosfilt_q15``, window included) on 1
      and 4 rows of 2 frames with a carried state, also against
-     ``golden.sosfilt_q15_intended``;
+     ``golden.sosfilt_q15_intended``; the Viterbi decoder (``viterbi``, K3)
+     bit for bit on 64 rows of a K = 7 rate-1/2 code (2048 info bits, soft
+     and hard, whose metrics tie), a punctured rate, k = 3, k = 12 (2048
+     states) and one row;
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
@@ -78,6 +82,24 @@ Phases (each raises on failure):
        against ``scipy.signal.welch`` in float64 within 1e-5 of the peak
        (mean and median, even and odd segment counts); ``decimate_db``'s
        five detectors against NumPy;
+     - burst + FEC: 64 coded QPSK bursts (K = 7, rate 1/2, 2048 info bits,
+       sps 8, starts 0..16 symbols into the capture, 14 dB) through
+       ``BurstModem.demodulate``, ``modem_soft_bits`` and
+       ``ConvCode.decode``: one K3 launch, BER 0, the frame lags right,
+       batched == 64 single calls bit for bit;
+     - ``FastFIR`` (1025 taps, real and complex on planes) on 8 channels x
+       1,046,528 samples: within 1e-5 of max |y| of float64 lfilter,
+       chunked == one-shot bit for bit; ``IQCorrector`` on (2, 8, 2^20)
+       planes with 1 dB / 5 deg of imbalance: image rejection up by more
+       than 25 dB, chunked == one-shot bit for bit; ``SpectrumScanner``
+       on 1 s of the CLI's scan demo at 1 MSPS: exactly its four emitters;
+     - the RDS chain of the GUI on 2 s of a 1 MSPS capture (a WBFM station
+       with stereo MPX and RDS): DDC /5, ``FMDemodulator(use_pallas=True)``
+       (one ``fm_demod`` launch), ``RDSDecoder``: PI, PS and RadioText equal
+       to the encoder's and to the CPU decode;
+     - the transport: ``Q15Pipeline`` (K1) -> ``frame_bytes_from_q15`` ->
+       UDP on 127.0.0.1 -> ``UdpSpectrumReceiver``: the words bit for bit,
+       the native framer's bytes equal to the NumPy framer's;
   5. timing with CUDA events: each kernel, its plain version and (where one
      PyTorch call computes the same function) the library yardstick at the
      main path's shape, and the least time the card could take for it
@@ -92,7 +114,9 @@ Phases (each raises on failure):
      copy), compared paths in alternating turns; the Q15 kernels (K1 at F
      = 64, K2 at 1 row x 2 frames beside its chain's latency floor), the
      Q15 paths' wall per 16384-sample chunk and ``Q15Stream``'s steady
-     rate at depth 1;
+     rate at depth 1; K3 at the burst path's decode beside its latency
+     floor (measured cycles of one dependent trellis step and barrier,
+     ``tpu_sdr_viterbi_step_probe``) and the new paths' walls;
   6. profile: device time per dispatch by kernel, launches per dispatch,
      and the device's idle share, per path and mode, as torch.profiler saw
      them (it can lose an event or two; the port's kernels are checked
@@ -161,6 +185,8 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     "q15_fft": dict(name="fft_q15 (window_fft_q15)", replaces="tpu_sdr/kernels/fft_q15.py:149"),
     "sosfilt_q15": dict(name="sosfilt_q15_scan (sosfilt_q15_window)",
                         replaces="tpu_sdr/kernels/biquad.py:746"),
+    # K3 replaces the FEC decoder's jitted scans (no Pallas kernel).
+    "viterbi": dict(name="_viterbi (ConvCode.decode)", replaces="tpu_sdr/kernels/fec.py:221"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -277,21 +303,22 @@ def phase_device() -> str:
 def phase_build():
     from tpu_sdr_torch.kernels import native_q15
     from tpu_sdr_torch.kernels.cuda import launch, loader
+    from tpu_sdr_torch.transport import native as framer
+
+    host = {"q15_filter (host C++)": native_q15.build, "framer (host C++)": framer.build}
 
     def build(name):
         t0 = time.perf_counter()
-        if name == "q15_filter (host C++)":
-            log = native_q15.build(force=True)
-        else:
-            log = loader.build(name, force=True)
+        log = host[name](force=True) if name in host else loader.build(name, force=True)
         return name, time.perf_counter() - t0, log
 
-    names = (*launch.KERNELS, "q15_filter (host C++)")
+    names = (*launch.KERNELS, *host)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
-    print(f"[2] built {len(launch.KERNELS)} kernel libraries and the native Q15 filter in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc and the host C++ compiler, in parallel)")
+    print(f"[2] built {len(launch.KERNELS)} kernel libraries, the native Q15 filter and the "
+          f"native framer in {time.perf_counter() - t0:.2f} s (nvcc and the host C++ compiler, "
+          f"in parallel)")
     for name, seconds, log in built:
         print(f"[2] {name}: {seconds:.2f} s")
         for line in log.splitlines():
@@ -651,6 +678,7 @@ LAST_DEVICE_KERNEL = {
     "spectrum_half": ("spectrum_bypass_kernel", "spectrum_iir_kernel"),
     "fft_mag_fused": ("fft_mag_fused_kernel",),
     "q15_fft": ("q15_fft_kernel",), "sosfilt_q15": ("sosfilt_q15_kernel",),
+    "viterbi": ("viterbi_kernel",),
 }
 
 
@@ -2131,6 +2159,478 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
 
 
+# ---------------------------------------------------------------- burst modem, FEC, receiver extensions, transport
+
+# The burst + FEC path: the CLI's burst width (sps = 8, __main__.py:506),
+# coded QPSK (K = 7, rate 1/2) bursts of 2048 info bits, at the SNR and the
+# impairments of tests/test_fec.py's coherent soft path (delay 0.3 samples,
+# phase 0.5 rad, Es/N0 14 dB), 64 in one call.
+BURSTS, BURST_BITS, BURST_SPS, BURST_SNR_DB = 64, 2048, 8, 14.0
+FEC_K, FEC_POLYS = 7, (0o133, 0o171)
+# K3's cases against its plain version: (label, k, polys, puncture, rows, info bits, kind).
+K3_CASES = (
+    ("K=7 r1/2 soft", 7, FEC_POLYS, None, BURSTS, BURST_BITS, "soft"),
+    ("K=7 r1/2 hard (ties)", 7, FEC_POLYS, None, BURSTS, BURST_BITS, "hard"),
+    ("K=7 r3/4 punctured", 7, FEC_POLYS, "3/4", BURSTS, BURST_BITS, "soft"),
+    ("k=3", 3, (0o7, 0o5), None, 8, BURST_BITS, "soft"),
+    ("k=12 (2048 states)", 12, (0o4335, 0o5723), None, 4, 512, "soft"),
+    ("k=12 hard", 12, (0o4335, 0o5723), None, 2, 256, "hard"),
+    ("one row", 7, FEC_POLYS, None, 1, BURST_BITS, "soft"),
+)
+# K3's work a state a step: two branch metrics (n products, n - 1 adds),
+# two subtractions of the maximum, two adds, a compare, a select and the max.
+K3_FLOPS_PER_STATE = 2 * (2 * 2 - 1) + 2 + 2 + 3
+FIR_TAPS, FIR_CH = 1025, 8
+FIR_REL = 1e-5  # of max |y|, against float64 lfilter (tests/test_fastconv.py's 2e-6 and less)
+IQ_SHAPE = (2, 8, 1 << 20)
+IQ_GAIN_DB, IQ_PHASE_DEG, IQ_TONE_HZ, IQ_FS = 1.0, 5.0, 12_300.0, 100_000.0
+SCAN_FS = 1e6
+SCAN_EMITTERS_HZ = (87.5e3, 212.5e3, 337.5e3, 437.5e3)  # __main__.py:297-308
+RDS_FS, RDS_SECONDS, RDS_CENTER, RDS_DEV = 1e6, 2.0, 250e3, 75e3
+RDS_STATION = dict(pi=0xC0DE, pty=4, ps="H100 FM ", radiotext="PORT SLICE 10 ON THE CARD")
+
+
+def _channel(re, im, delay, phase, snr_db, rng):
+    """tests/test_digital.py's channel: a fractional delay (an FFT phase
+    ramp on a padded buffer), a phase rotation and complex AWGN at Es/N0."""
+    z = re.astype(np.float64) + 1j * im.astype(np.float64)
+    pad = 256
+    z = np.concatenate([np.zeros(pad), z, np.zeros(pad)])
+    f = np.fft.fftfreq(len(z))
+    z = np.fft.ifft(np.fft.fft(z) * np.exp(-2j * np.pi * f * delay)) * np.exp(1j * phase)
+    n0 = 10.0 ** (-snr_db / 10.0)
+    z = z + np.sqrt(n0 / 2.0) * (rng.standard_normal(len(z)) + 1j * rng.standard_normal(len(z)))
+    z = z[pad:]
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
+
+
+def burst_inputs(dev="cuda"):
+    """(modem, code, planes (2, BURSTS, T) on dev, info bits (BURSTS, bits),
+    each burst's start in symbols)."""
+    from tpu_sdr_torch.kernels import digital, fec
+
+    modem = digital.BurstModem("qpsk", sps=BURST_SPS, differential=False, device=dev)
+    code = fec.ConvCode(FEC_K, FEC_POLYS, device=dev)
+    rng = np.random.default_rng(30)
+    info = rng.integers(2, size=(BURSTS, BURST_BITS)).astype(np.uint8)
+    coded = code.encode(info)
+    # Each burst starts 0..max_lag_syms symbols into its capture (the last
+    # at max_lag_syms, the edge of the frame search); the captures keep one
+    # length, and at least span symbols after each burst.
+    lags = rng.integers(0, modem.max_lag_syms + 1, BURSTS)
+    lags[-1] = modem.max_lag_syms
+    rows = []
+    for c, lag in zip(coded, lags):
+        re, im = modem.modulate(c, pad_syms=modem.max_lag_syms + modem.span)
+        lead = np.zeros(lag * modem.sps, np.float32)
+        rows.append(_channel(np.concatenate([lead, re])[: re.size],
+                             np.concatenate([lead, im])[: im.size], 0.3, 0.5, BURST_SNR_DB, rng))
+    planes = torch.as_tensor(np.stack([np.stack([r for r, _ in rows]),
+                                       np.stack([i for _, i in rows])]), device=dev)
+    return modem, code, planes, info, lags
+
+
+def burst_fec(modem, code, planes):
+    """The path: demodulate all bursts in one call, LLRs, one decode."""
+    from tpu_sdr_torch.kernels import fec
+
+    n_coded = code.coded_len(BURST_BITS)
+    out = modem.demodulate(planes[0], planes[1], n_coded)
+    llrs = fec.modem_soft_bits(modem, *out["symbols"])
+    return code.decode(llrs, BURST_BITS), out
+
+
+def phase_k3_vs_plain() -> float:
+    """K3 against its plain version on the card, every decision bit for bit;
+    returns the largest |kernel - plain| (0 when equal)."""
+    from tpu_sdr_torch.kernels import fec
+    from tpu_sdr_torch.kernels.cuda import viterbi
+
+    worst = 0.0
+    for label, k, polys, punct, rows, n_bits, kind in K3_CASES:
+        code = fec.ConvCode(k, polys, puncture=punct, device="cuda")
+        rng = np.random.default_rng(k * 100 + rows)
+        bits = rng.integers(2, size=(rows, n_bits)).astype(np.uint8)
+        coded = code.encode(bits).astype(np.float32)
+        sigma = 0.45 if punct else 0.8  # Eb/N0 about 5 and 2 dB
+        soft = (1.0 - 2.0 * coded) + (sigma * rng.standard_normal(coded.shape) if kind == "soft" else 0)
+        if kind == "hard":
+            flips = rng.random(coded.shape) < 0.05
+            soft = np.where(flips, -soft, soft)
+        t = code.n_steps(n_bits)
+        keep = torch.as_tensor(code._keep_mask(n_bits), device="cuda")
+        x = torch.zeros((rows, t, code.n_out), dtype=torch.float32, device="cuda")
+        x[:, keep] = torch.as_tensor(soft, dtype=torch.float32, device="cuda")
+        got = viterbi.viterbi_cuda(x, code._tables["out0"], code._tables["out1"], k)
+        ref = fec.viterbi_plain(x, code._tables["sign0"], code._tables["sign1"], k)
+        torch.cuda.synchronize()
+        diff = int((got != ref).sum())
+        ber = float((got[:, :n_bits].cpu().numpy() != bits).mean())
+        print(f"[3] viterbi {label:22s} {rows} rows x {t} steps, {code.n_states} states"
+              f"{', punctured' if punct else ''}: kernel == plain bit for bit: {diff == 0} "
+              f"({diff} differing decisions); BER vs the sent bits {ber:.2e}")
+        check(diff == 0, ("viterbi", label))
+        worst = max(worst, float((got.int() - ref.int()).abs().max()))
+    return worst
+
+
+def phase_burst_fec() -> tuple[int, tuple]:
+    """64 coded QPSK bursts through BurstModem.demodulate, modem_soft_bits
+    and ConvCode.decode, with the counts zeroed just before; one K3 launch,
+    no plain call, BER 0, batched == single bit for bit."""
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    modem, code, planes, info, lags = burst_inputs()
+    launch.reset_counts()
+    decoded, out = burst_fec(modem, code, planes)
+    torch.cuda.synchronize()
+    k3 = launch.counts["kernel"]["viterbi"]
+    check_counts("burst + FEC", {"viterbi": 1})
+    ber = float((decoded != info).mean())
+    n_coded = code.coded_len(BURST_BITS)
+    same = True
+    for i in range(BURSTS):
+        one, one_out = burst_fec(modem, code, planes[:, i])
+        same &= (np.array_equal(one, decoded[i]) and np.array_equal(one_out["bits"], out["bits"][i])
+                 and all(torch.equal(one_out[key], out[key][i])
+                         for key in ("timing", "cfo", "frame_lag", "phase"))
+                 and torch.equal(one_out["symbols"][0], out["symbols"][0][i])
+                 and torch.equal(one_out["symbols"][1], out["symbols"][1][i]))
+    raw_ber = float((out["bits"] != code.encode(info)).mean())
+    lags_ok = np.array_equal(out["frame_lag"].cpu().numpy(), lags)
+    print(f"[4] burst + FEC: {BURSTS} QPSK bursts x {n_coded} coded bits (K = {FEC_K}, rate 1/2, "
+          f"sps {BURST_SPS}, Es/N0 {BURST_SNR_DB} dB, {planes.shape[-1]} samples each) in one call: "
+          f"launches viterbi {k3} (one decode), plain 0; raw BER {raw_ber:.2e}, decoded BER {ber:.2e}; "
+          f"frame lags == the bursts' starts (0..{modem.max_lag_syms} symbols): {lags_ok}; "
+          f"batched == {BURSTS} single calls bit for bit (bits, symbols, estimates): {same}")
+    check(ber == 0.0 and same and lags_ok, ("burst + FEC", ber, same, lags_ok))
+    return k3, (modem, code, planes)
+
+
+def phase_fastfir() -> dict:
+    """FastFIR, 1025 taps, real (process) and complex (process_planes) on 8
+    channels x the largest multiple of chunk_granularity <= 2^20: float64
+    lfilter within 1e-5 of max |y|, chunked == one-shot bit for bit, no
+    kernel launch and no plain call."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.kernels.fastconv import FastFIR
+
+    h_real = sps.firwin(FIR_TAPS, 0.21)
+    h_cplx = h_real * np.exp(2j * np.pi * 0.1 * np.arange(FIR_TAPS))
+    steps = {}
+    for label, h in (("real", h_real), ("complex", h_cplx)):
+        f = FastFIR(h)
+        g = f.chunk_granularity
+        t = (1 << 20) // g * g
+        rng = np.random.default_rng(40)
+        if label == "real":
+            x_np = rng.standard_normal((FIR_CH, t)).astype(np.float32)
+            run = lambda a, s, f=f: f.process(a, s)
+            state = lambda f=f: f.initial_state((FIR_CH,))
+        else:
+            x_np = rng.standard_normal((2, FIR_CH, t)).astype(np.float32)
+            run = lambda a, s, f=f: f.process_planes(a, s)
+            state = lambda f=f: f.initial_state((FIR_CH,))
+        x = torch.as_tensor(x_np, device="cuda")
+        launch.reset_counts()
+        one, _ = run(x, state())
+        torch.cuda.synchronize()
+        check_counts(f"FastFIR {label}", {})
+        st, parts = state(), []
+        for a, b in ((0, 3), (3, 64), (64, t // g)):
+            o, st = run(x[..., a * g : b * g], st)
+            parts.append(o)
+        same = torch.equal(torch.cat(parts, dim=-1), one)
+        if label == "real":
+            want = sps.lfilter(h, 1.0, x_np.astype(np.float64), axis=-1)
+            got = one.cpu().numpy().astype(np.float64)
+        else:
+            want = sps.lfilter(h, 1.0, x_np[0].astype(np.float64) + 1j * x_np[1], axis=-1)
+            got = one[0].cpu().numpy() + 1j * one[1].cpu().numpy().astype(np.float64)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"[4] FastFIR {label:7s} {FIR_TAPS} taps, nfft {f.nfft}, block {g}, "
+              f"{tuple(x.shape)}: vs float64 lfilter max err / max |y| {rel:.2e} (tol {FIR_REL:g}); "
+              f"chunked (3 + 61 + {t // g - 64} blocks) == one-shot bit for bit: {same}; "
+              f"launches 0, plain 0")
+        check(rel <= FIR_REL and same, ("FastFIR", label, rel, same))
+        steps[f"FastFIR {label}"] = chained(run, x, state)
+    return steps
+
+
+def image_ratio_db(z: np.ndarray, f: float, fs: float) -> float:
+    n = z.size
+    spec = np.abs(np.fft.fft(z * np.hanning(n))) ** 2
+    k = int(round(f / fs * n))
+    return 10 * np.log10(spec[n - k - 1 : n - k + 2].sum() / spec[max(k - 1, 0) : k + 2].sum())
+
+
+def phase_iqcorr() -> dict:
+    """IQCorrector on planes (2, 8, 2^20) with 1 dB / 5 deg of imbalance:
+    image rejection up by more than 25 dB in every channel, chunked ==
+    one-shot bit for bit, no kernel launch and no plain call."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.kernels.iqcorr import IQCorrector, apply_imbalance
+
+    _, ch, t = IQ_SHAPE
+    n = np.arange(t)
+    rng = np.random.default_rng(41)
+    zs = [apply_imbalance(np.exp(2j * np.pi * (IQ_TONE_HZ * (1 + 0.1 * c)) * n / IQ_FS
+                                 + 1j * rng.uniform(0, 2 * np.pi)), IQ_GAIN_DB, IQ_PHASE_DEG)
+          for c in range(ch)]
+    planes = torch.as_tensor(np.stack([np.stack([z.real for z in zs]),
+                                       np.stack([z.imag for z in zs])]).astype(np.float32),
+                             device="cuda")
+    corr = IQCorrector(leak=0.95)
+    launch.reset_counts()
+    wre, wim, _ = corr.process(planes[0], planes[1], corr.initial_state((ch,)))
+    torch.cuda.synchronize()
+    check_counts("IQ corrector", {})
+    gains = []
+    for c in range(ch):
+        f = IQ_TONE_HZ * (1 + 0.1 * c)
+        before = image_ratio_db(zs[c][-16384:], f, IQ_FS)
+        w = wre[c, -16384:].cpu().numpy() + 1j * wim[c, -16384:].cpu().numpy().astype(np.float64)
+        gains.append(before - image_ratio_db(w, f, IQ_FS))
+    st, pr, pi = corr.initial_state((ch,)), [], []
+    for a, b in ((0, 3 * 128), (3 * 128, t // 2), (t // 2, t)):
+        r, i, st = corr.process(planes[0][..., a:b], planes[1][..., a:b], st)
+        pr.append(r)
+        pi.append(i)
+    same = torch.equal(torch.cat(pr, -1), wre) and torch.equal(torch.cat(pi, -1), wim)
+    print(f"[4] IQ corrector {IQ_SHAPE} ({IQ_GAIN_DB} dB / {IQ_PHASE_DEG} deg): image rejection "
+          f"improved by {min(gains):.1f} to {max(gains):.1f} dB (> 25 dB each); chunked (3 blocks, "
+          f"the rest of half, half) == one-shot bit for bit: {same}; launches 0, plain 0")
+    check(min(gains) > 25 and same, ("IQ corrector", gains, same))
+
+    def run(a, s):
+        r, i, s = corr.process(a[0], a[1], s)
+        return (r, i), s
+
+    return {"IQ corrector": chained(run, planes, lambda: corr.initial_state((ch,)))}
+
+
+def scan_signal(seconds: float = 1.0) -> np.ndarray:
+    """The CLI's scan demo signal (__main__.py:297-308): three tones of very
+    different strengths and one narrowband FM emitter on the 25 kHz grid."""
+    rng = np.random.default_rng(0)
+    n = np.arange(int(seconds * SCAN_FS))
+    x = 2e-4 * rng.standard_normal(n.size)
+    for fc, a in ((87.5e3, 0.5), (212.5e3, 0.1), (337.5e3, 0.02)):
+        x = x + a * np.cos(2 * np.pi * fc * n / SCAN_FS)
+    msg = np.sin(2 * np.pi * 300.0 * n / SCAN_FS)
+    x = x + 0.05 * np.cos(2 * np.pi * 437.5e3 * n / SCAN_FS
+                          + 2 * np.pi * 2.5e3 / SCAN_FS * np.cumsum(msg))
+    return x.astype(np.float32)
+
+
+def phase_scanner() -> dict:
+    """SpectrumScanner over 0-500 kHz in 25 kHz channels on 1 s of the CLI's
+    demo signal at 1 MSPS: the hits are exactly the four emitters."""
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.runtime.scanner import SpectrumScanner
+
+    x = torch.as_tensor(scan_signal(), device="cuda")
+    sc = SpectrumScanner(SCAN_FS, 0.0, 500e3, channel_bw=25e3, threshold_db=10.0)
+    launch.reset_counts()
+    res = sc.scan(x)
+    check_counts("scanner", {})
+    hits = sorted(h["center_hz"] for h in res.hits)
+    print(f"[4] scanner {sc.n_channels} channels x 25 kHz on {x.numel()} samples (decimation "
+          f"{sc.decimation}, {sc.k} carriers a dispatch): hits {hits} Hz, floor "
+          f"{res.noise_floor_db:.2f} dB, SNRs {[round(h['snr_db'], 2) for h in res.hits]} dB; "
+          f"exactly the four emitters: {hits == list(SCAN_EMITTERS_HZ)}; launches 0, plain 0")
+    check(hits == list(SCAN_EMITTERS_HZ), ("scanner", hits))
+    return {"scanner": lambda: sc.scan(x)}
+
+
+def rds_capture() -> tuple[np.ndarray, object]:
+    """2 s of a 1 MSPS real capture: one WBFM station at 250 kHz carrying
+    make_mpx_rds stereo MPX with RDS (PI, PS, RadioText), plus noise."""
+    from tpu_sdr_torch.kernels import rds
+
+    n = int(RDS_SECONDS * RDS_FS)
+    t = np.arange(n) / RDS_FS
+    enc = rds.RDSEncoder(**RDS_STATION)
+    mpx = rds.make_mpx_rds(0.5 * np.sin(2 * np.pi * 1000 * t), 0.5 * np.sin(2 * np.pi * 2500 * t),
+                           RDS_FS, enc, n_groups=64)
+    phase = 2 * np.pi * RDS_DEV / RDS_FS * np.cumsum(mpx)
+    x = 0.5 * np.cos(2 * np.pi * RDS_CENTER * t + phase)
+    x = x + 1e-2 * np.random.default_rng(42).standard_normal(n)
+    return x.astype(np.float32), enc
+
+
+class RdsChain:
+    """The GUI's chain (gui/backend_audio.py:131-190): DDC /5 to 200 kHz,
+    FMDemodulator(200e3, deemphasis_tau=None, use_pallas=True) (one fm_demod
+    launch), RDSDecoder(200e3)."""
+
+    def __init__(self, dev="cuda"):
+        from tpu_sdr_torch.kernels.ddc import DDC
+        from tpu_sdr_torch.kernels.demod import FMDemodulator
+        from tpu_sdr_torch.kernels.rds import RDSDecoder
+
+        self.dec = RDSDecoder(RDS_FS / 5, device=dev)
+        self.ddc = DDC(RDS_FS, center_hz=RDS_CENTER, decimation=5, taps_per_phase=12, device=dev)
+        self.fm = FMDemodulator(self.dec.fs, deviation_hz=RDS_DEV, deemphasis_tau=None,
+                                use_pallas=True, device=dev)
+
+    def __call__(self, x):
+        t = (x.shape[-1] // (self.ddc.r * 128)) * (self.ddc.r * 128)
+        bb, _ = self.ddc.process(x[:t], self.ddc.initial_state())
+        mpx, _ = self.fm.process(bb["re"], bb["im"], self.fm.initial_state())
+        return self.dec.decode(mpx)
+
+
+def phase_rds() -> dict:
+    """The RDS chain on the card: one fm_demod launch, PI, PS and RadioText
+    equal to the encoder's and to the port's decode of the same capture on
+    the CPU."""
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    x_np, enc = rds_capture()
+    x = torch.as_tensor(x_np, device="cuda")
+    chain = RdsChain()
+    launch.reset_counts()
+    res = chain(x)
+    torch.cuda.synchronize()
+    n_fm = launch.counts["kernel"]["fm_demod"]
+    check_counts("RDS chain", {"fm_demod": 1})
+    cpu = RdsChain("cpu")(torch.as_tensor(x_np))
+    want_rt = enc.radiotext.split("\r")[0].rstrip()
+    fields = lambda r: (r.pi, r.pty, r.ps_name, r.radiotext)
+    ok = fields(res) == (enc.pi, enc.pty, enc.ps, want_rt) and fields(res) == fields(cpu)
+    print(f"[4] RDS chain on {x.numel()} samples at 1 MSPS (WBFM at {RDS_CENTER / 1e3:.0f} kHz, "
+          f"DDC /5, FM kernel, RDSDecoder(200e3)): PI {res.pi:04X} PTY {res.pty} PS {res.ps_name!r} "
+          f"RT {res.radiotext!r}; groups {res.groups}, {res.n_blocks} blocks, block error rate "
+          f"{res.block_error_rate:.4f}; == the encoder's and == the CPU decode "
+          f"(groups {cpu.groups}): {ok}; launches fm_demod {n_fm}, plain 0")
+    check(ok, ("RDS", fields(res), fields(cpu)))
+    return {"RDS chain": lambda: chain(x)}
+
+
+def phase_transport() -> dict:
+    """Q15Pipeline on the card (K1) -> framing.frame_bytes_from_q15 ->
+    UdpSpectrumSender to 127.0.0.1 -> UdpSpectrumReceiver: the received
+    words equal the sent ones bit for bit; the native framer's bytes equal
+    the NumPy framer's."""
+    from tpu_sdr_torch import PipelineConfig
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.runtime.q15 import Q15Pipeline
+    from tpu_sdr_torch.transport import crc32, framing, native
+    from tpu_sdr_torch.transport.udp_stream import UdpSpectrumReceiver, UdpSpectrumSender
+
+    frames = 4
+    pipe = Q15Pipeline(PipelineConfig(channels=1), device_fft=True)
+    x = q15_tones(frames, 130)
+    got = []
+    rx = UdpSpectrumReceiver(port=0, bind_ip="127.0.0.1", fps_cap=1e9,
+                             on_frame=lambda re, im, mag: got.append((re.copy(), im.copy())))
+    rx.start()
+    port = rx.port
+    tx = UdpSpectrumSender("127.0.0.1", port)
+    try:
+        launch.reset_counts()
+        out, _ = pipe.process(x, bypass=True)
+        re_q = out["spectrum_re_q15"].cpu().numpy().reshape(frames, N)
+        im_q = out["spectrum_im_q15"].cpu().numpy().reshape(frames, N)
+        sent = [framing.frame_bytes_from_q15(re_q[f], im_q[f]) for f in range(frames)]
+        for frame in sent:
+            tx.send_frame_bytes(frame)
+        n_k1 = launch.counts["kernel"]["q15_fft"]
+        check_counts("transport", {"q15_fft": n_k1})
+        deadline = time.time() + 10.0
+        while len(got) < frames and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        rx.stop()
+        tx.close()
+    same = len(got) == frames and all(
+        np.array_equal(r.astype(np.int16), re_q[f]) and np.array_equal(i.astype(np.int16), im_q[f])
+        for f, (r, i) in enumerate(got))
+    re_f, im_f = re_q[0].astype(np.float32), im_q[0].astype(np.float32)
+    native_same = (native.spectrum_to_frame_bytes(re_f, im_f, 1.0)
+                   == framing.spectrum_to_frame_bytes(re_f, im_f, 1.0) == sent[0]
+                   and native.frame_to_packets(sent[0]) == framing.frame_to_packets(sent[0])
+                   and native.crc32_ethernet(sent[0]) == crc32.crc32_ethernet(sent[0]))
+    print(f"[4] transport: Q15Pipeline (split bypass, K1) {frames} frames -> frame_bytes_from_q15 -> "
+          f"UDP 127.0.0.1:{port} (native sendmmsg/recvmmsg): {len(got)} frames received "
+          f"({rx.frames_received} assembled), words == sent bit for bit: {same}; native framer "
+          f"bytes, packets and CRC == NumPy's: {native_same}; launches q15_fft {n_k1}, plain 0")
+    check(same and native_same and n_k1 >= 1, ("transport", same, native_same, n_k1))
+
+    tx2 = UdpSpectrumSender("127.0.0.1", 9)  # discard port: fire and forget
+
+    def step():
+        o, _ = pipe.process(x[:N], bypass=True)
+        tx2.send_frame_bytes(framing.frame_bytes_from_q15(
+            o["spectrum_re_q15"].cpu().numpy().reshape(N), o["spectrum_im_q15"].cpu().numpy().reshape(N)))
+
+    return {"transport": step}
+
+
+def k3_floor_ms(steps: int, states: int) -> tuple[float, float, float]:
+    """K3's latency floor: ``steps`` dependent trellis steps at the measured
+    cycles of one (tpu_sdr_viterbi_step_probe) at the highest SM clock.
+    Returns (ms, cycles a step, MHz)."""
+    from tpu_sdr_torch.kernels.cuda import viterbi
+
+    cyc = viterbi.step_probe_cycles(min(max(states, 64), 1024), 8192)
+    mhz = max_sm_mhz()
+    return steps * cyc / (mhz * 1e3), cyc, mhz
+
+
+def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
+    """K3 at the burst path's shape (64 rows x 2054 steps, K = 7): kernel,
+    plain version, bound; then the wall per call of each new path
+    (``steps``: label -> step()). Returns (walls, timing, all steps)."""
+    from tpu_sdr_torch.kernels import fec
+    from tpu_sdr_torch.kernels.cuda import viterbi
+
+    modem, code, planes = k3_inputs
+    rng = np.random.default_rng(50)
+    t = code.n_steps(BURST_BITS)
+    x = torch.as_tensor(rng.standard_normal((BURSTS, t, 2)).astype(np.float32), device="cuda")
+    kernel = lambda: viterbi.viterbi_cuda(x, code._tables["out0"], code._tables["out1"], FEC_K)
+    ms = cuda_ms(kernel, iters=20)
+    fec.viterbi_plain(x, code._tables["sign0"], code._tables["sign1"], FEC_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fec.viterbi_plain(x, code._tables["sign0"], code._tables["sign1"], FEC_K)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    floor_ms, cyc, mhz = k3_floor_ms(t, code.n_states)
+    b = bound(x.numel() * 4 + BURSTS * t, BURSTS * t * code.n_states * K3_FLOPS_PER_STATE)
+    bound_ms = max(b["bound_ms"], floor_ms)
+    one_row = cuda_ms(lambda: viterbi.viterbi_cuda(x[:1], code._tables["out0"],
+                                                   code._tables["out1"], FEC_K), iters=20)
+    timing = {"viterbi": {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": bound_ms, "bound_by": "operations"}}
+    print(f"[5] viterbi {BURSTS} rows x {t} steps, {code.n_states} states (the burst path's "
+          f"decode): kernel {ms:.4f} ms ({ms * mhz * 1e3 / t:.1f} cycles a step at {mhz:.0f} MHz, "
+          f"forward and traceback); one row {one_row:.4f} ms; plain {plain_ms:.1f} ms (one call, "
+          f"host clock: {t} Python steps); library none; bound: the latency floor, {t} steps x "
+          f"{cyc:.2f} cycles (tpu_sdr_viterbi_step_probe: a dependent ACS and a barrier, "
+          f"{min(max(code.n_states, 64), 1024)} threads) at {mhz:.0f} MHz = {floor_ms:.4f} ms (bytes "
+          f"and fp32 operations {b['bound_ms']:.6f} ms) -> kernel at {bound_ms / ms:.1%} of it; "
+          f"{profiled(kernel)}")
+    k12 = fec.ConvCode(12, (0o4335, 0o5723), device="cuda")
+    x12 = torch.as_tensor(rng.standard_normal((4, 523, 2)).astype(np.float32), device="cuda")
+    ms12 = cuda_ms(lambda: viterbi.viterbi_cuda(x12, k12._tables["out0"], k12._tables["out1"], 12),
+                   iters=10)
+    print(f"[5] viterbi k=12 (2048 states, 1024 threads) 4 rows x 523 steps: kernel {ms12:.4f} ms "
+          f"({ms12 * mhz * 1e3 / 523:.1f} cycles a step)")
+    steps = {"burst + FEC": lambda: burst_fec(modem, code, planes), **steps}
+    walls = {}
+    light = {"burst + FEC", "IQ corrector", "RDS chain", "scanner"}
+    for label in list(steps) * 2:
+        reps, calls = (3, 2) if label in light else (5, 5)
+        med, lo, hi = dispatch_wall(steps[label], reps=reps, calls=calls, warmup=1)
+        walls.setdefault(label, []).append(med)
+        print(f"[5] {label:17s} wall per call (and a synchronize): median {med * 1e3:.4f} ms "
+              f"(min {lo * 1e3:.4f}, max {hi * 1e3:.4f})")
+    return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2185,6 +2685,14 @@ def main():
     phase_profile(q15_steps, q15_walls)
     phase_q15_stream(q15_pipes["split"])
     phase_host_runtime(pipe, sos_custom)
+    errs["viterbi"] = phase_k3_vs_plain()
+    launches["viterbi"], k3_inputs = phase_burst_fec()
+    pr10_steps = {**phase_fastfir(), **phase_iqcorr(), **phase_scanner()}
+    pr10_steps.update({**phase_rds(), **phase_transport()})
+    pr10_walls, pr10_timing, pr10_steps = phase_pr10_timing(k3_inputs, pr10_steps)
+    timing.update(pr10_timing)
+    phase_profile(pr10_steps, pr10_walls, {"burst + FEC": 1, "IQ corrector": 1, "RDS chain": 1,
+                                           "scanner": 1})
     records = [
         {"route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu", **fixed,
          "launches": launches[name], "max_abs_err": errs[name], **timing[name]}

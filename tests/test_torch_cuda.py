@@ -964,3 +964,98 @@ def test_welch_on_card_matches_scipy(card):
         got = WelchPSD(nperseg=1024, average=average, noverlap=0).compute(x).cpu().numpy()
         _, ref = sps.welch(x.astype(np.float64), fs=1e6, nperseg=1024, average=average, noverlap=0)
         assert np.abs(got - ref).max() <= 1e-5 * ref.max()
+
+
+# ------------------------------------------- burst modem, FEC (K3), FastFIR
+
+
+@pytest.mark.parametrize("k,polys,rows,steps,kind", [
+    (7, (0o133, 0o171), 64, 2054, "soft"), (7, (0o133, 0o171), 8, 500, "hard"),
+    (3, (0o7, 0o5), 4, 300, "soft"), (12, (0o4335, 0o5723), 1, 400, "soft"),
+    (12, (0o4335, 0o5723), 2, 200, "hard"), (2, (0o3, 0o1), 3, 64, "hard"),
+    (7, (0o133, 0o145, 0o175), 4, 300, "soft"),
+])
+def test_viterbi_kernel_equals_plain_bitwise(card, k, polys, rows, steps, kind):
+    """K3 against its plain version: every decision, tail included, on
+    soft and on hard (tie-rich) observations, k = 2..12."""
+    from tpu_sdr_torch.kernels import fec
+    from tpu_sdr_torch.kernels.cuda import viterbi
+
+    code = fec.ConvCode(k, polys, device="cuda")
+    rng = np.random.default_rng(k * 1000 + rows)
+    x = rng.standard_normal((rows, steps, len(polys))).astype(np.float32)
+    if kind == "hard":
+        x = np.sign(x)
+    xt = torch.as_tensor(x, device="cuda")
+    got = viterbi.viterbi_cuda(xt, code._tables["out0"], code._tables["out1"], k)
+    ref = fec.viterbi_plain(xt, code._tables["sign0"], code._tables["sign1"], k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got, ref)
+
+
+def test_conv_decode_on_card_one_launch_and_equals_cpu(card):
+    from tpu_sdr_torch.kernels import fec
+
+    rng = np.random.default_rng(21)
+    gpu = fec.ConvCode(7, puncture="3/4", device="cuda")
+    cpu = fec.ConvCode(7, puncture="3/4", device="cpu")
+    bits = rng.integers(2, size=(6, 300)).astype(np.uint8)
+    coded = gpu.encode(bits)
+    soft = ((1.0 - 2.0 * coded) + 0.4 * rng.standard_normal(coded.shape)).astype(np.float32)
+    launch.reset_counts()
+    got = gpu.decode(soft, 300)
+    assert launch.counts["kernel"]["viterbi"] == 1 and launch.counts["plain"]["viterbi"] == 0
+    np.testing.assert_array_equal(got, cpu.decode(soft, 300))
+    np.testing.assert_array_equal(got, bits)
+
+
+def test_burst_demod_on_card_batched_equals_single_and_skips_cudnn(card):
+    """Batched == single bit for bit, and the same bits with cuDNN off and
+    with cuDNN's TF32 on: the modem's convolutions do not go through it."""
+    from tpu_sdr_torch.kernels import digital
+
+    rng = np.random.default_rng(22)
+    modem = digital.BurstModem("qpsk", sps=8, differential=False)
+    rows = []
+    for d in (0.3, 1.7, 4.2, 6.9):
+        bits = rng.integers(2, size=256).astype(np.uint8)
+        re, im = modem.modulate(bits, pad_syms=modem.max_lag_syms + modem.span)
+        z = (re + 1j * im) * np.exp(0.5j) + 0.05 * (rng.standard_normal(re.size)
+                                                      + 1j * rng.standard_normal(re.size))
+        rows.append(np.roll(np.stack([z.real, z.imag]).astype(np.float32), int(d), axis=-1))
+    planes = np.stack(rows, axis=1)  # (2, 4, T)
+    keys = ("timing", "cfo", "frame_lag", "phase")
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        batched = modem.demodulate(planes[0], planes[1], 256)
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = modem.demodulate(planes[0], planes[1], 256)
+        with torch.backends.cudnn.flags(enabled=False):
+            off = modem.demodulate(planes[0], planes[1], 256)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for other in (tf32, off):
+        np.testing.assert_array_equal(other["bits"], batched["bits"])
+        assert all(torch.equal(other[k], batched[k]) for k in keys)
+    for i in range(4):
+        one = modem.demodulate(planes[0, i], planes[1, i], 256)
+        np.testing.assert_array_equal(one["bits"], batched["bits"][i])
+        assert all(torch.equal(one[k], batched[k][i]) for k in keys)
+        assert torch.equal(one["symbols"][0], batched["symbols"][0][i])
+
+
+def test_fastfir_on_card_chunked_equals_oneshot_and_lfilter(card):
+    from tpu_sdr_torch.kernels.fastconv import FastFIR
+
+    h = sps.firwin(1025, 0.21)
+    f = FastFIR(h)
+    g = f.chunk_granularity
+    x = np.random.default_rng(23).standard_normal((4, 6 * g)).astype(np.float32)
+    one, _ = f.process(x, f.initial_state((4,)))
+    st, outs = f.initial_state((4,)), []
+    for a, b in ((0, 1), (1, 4), (4, 6)):
+        o, st = f.process(x[:, a * g : b * g], st)
+        outs.append(o)
+    assert torch.equal(torch.cat(outs, dim=-1), one)
+    want = sps.lfilter(h, 1.0, x.astype(np.float64), axis=-1)
+    assert np.abs(one.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()

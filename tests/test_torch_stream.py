@@ -315,7 +315,14 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
         "tpu_sdr_torch.runtime.q15, tpu_sdr_torch.runtime.feeder, "
         "tpu_sdr_torch.runtime.waterfall, tpu_sdr_torch.runtime.psd, "
         "tpu_sdr_torch.runtime.source, tpu_sdr_torch.runtime.measure, "
-        "tpu_sdr_torch.runtime.recorder\n"
+        "tpu_sdr_torch.runtime.recorder, tpu_sdr_torch.kernels.digital, "
+        "tpu_sdr_torch.kernels.fec, tpu_sdr_torch.kernels.cuda.viterbi, "
+        "tpu_sdr_torch.kernels.fastconv, tpu_sdr_torch.kernels.rds, "
+        "tpu_sdr_torch.kernels.iqcorr, tpu_sdr_torch.runtime.scanner, "
+        "tpu_sdr_torch.transport, tpu_sdr_torch.transport.native, "
+        "tpu_sdr_torch.transport.udp_stream, tpu_sdr_torch.transport.uart_stream, "
+        "tpu_sdr_torch.transport.serial_port, tpu_sdr_torch.transport.ipstack, "
+        "tpu_sdr_torch.transport.crc32, tpu_sdr_torch.transport.framing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -344,7 +351,7 @@ def test_cpu_run_never_launches_the_kernel(port):
     assert iir_fft.counts["plain"] == {
         "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
         "fm_demod": 0, "pfb_fold_dft": 0, "spectrum_half": 0, "fft_mag_fused": 0,
-        "q15_fft": 0, "sosfilt_q15": 0,
+        "q15_fft": 0, "sosfilt_q15": 0, "viterbi": 0,
     }
 
 

@@ -19,6 +19,8 @@ from tpu_sdr_torch.kernels.biquad import BlockedSOSComposite
 from tpu_sdr_torch.kernels.cuda.iir_fft import PallasSOSPlan
 from tpu_sdr_torch.kernels.ddc import DDCState
 from tpu_sdr_torch.kernels.demod import AGCState, DemodState, SquelchState
+from tpu_sdr_torch.kernels.fastconv import FastFIRState
+from tpu_sdr_torch.kernels.iqcorr import IQCorrectorState
 from tpu_sdr_torch.kernels.resample import ResamplerState
 from tpu_sdr_torch.kernels.stereo import StereoDecoderState
 from tpu_sdr_torch.runtime.receiver import ReceiverState
@@ -150,3 +152,16 @@ def dft(cos: np.ndarray, sin: np.ndarray, *, device="cuda") -> tuple:
     """JAX ``pfb.dft_matrices`` (cos, sin) -> two tensors."""
     return (torch.tensor(np.asarray(cos), device=device),
             torch.tensor(np.asarray(sin), device=device))
+
+
+# ------------------------------------------------ the receiver extensions
+
+
+def fastfir_state(d: dict, *, device="cuda") -> FastFIRState:
+    """A JAX ``FastFIRState.to_numpy()`` checkpoint -> the port's state."""
+    return FastFIRState.from_numpy(d, device=device)
+
+
+def iqcorr_state(d: dict, *, device="cuda") -> IQCorrectorState:
+    """A JAX ``IQCorrectorState.to_numpy()`` checkpoint -> the port's state."""
+    return IQCorrectorState.from_numpy(d, device=device)

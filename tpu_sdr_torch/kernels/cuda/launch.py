@@ -19,7 +19,7 @@ from tpu_sdr_torch.kernels.cuda import loader
 # The kernels, by the name of their source (``csrc/<name>.cu``).
 KERNELS = (
     "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex",
-    "fm_demod", "pfb_fold_dft", "fft_mag_fused", "q15_fft", "sosfilt_q15",
+    "fm_demod", "pfb_fold_dft", "fft_mag_fused", "q15_fft", "sosfilt_q15", "viterbi",
 )
 # The half spectrum (``iir_fft.spectrum_from_state(half_spectrum=True)``)
 # has a plain version of its own and launches spectrum_bypass's or
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "fft_mag_fused": "pppppppppip",
     "q15_fft": "ppppppppiip",
     "sosfilt_q15": "pipiipippppp",
+    "viterbi": "pppppiiiip",
 }
 
 
