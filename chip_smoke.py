@@ -117,12 +117,39 @@ Phases (each raises on failure):
      rate at depth 1; K3 at the burst path's decode beside its latency
      floor (measured cycles of one dependent trellis step and barrier,
      ``tpu_sdr_viterbi_step_probe``) and the new paths' walls;
-  6. profile: device time per dispatch by kernel, launches per dispatch,
-     and the device's idle share, per path and mode, as torch.profiler saw
-     them (it can lose an event or two; the port's kernels are checked
-     against their wrappers' launch counts);
+  6. profile: each path's last traced dispatch as
+     ``tpu_sdr_torch.bench.trace.capture_op_table`` attributes it (every
+     device op charged to the dispatch that launched it, by the launch's
+     correlation id): its device ops, busy and idle time, and the device's
+     idle share against the untraced wall of phase 5; the port's kernels
+     seen against their wrappers' launch counts. The steps of one K1
+     launch (the split Q15 path, filtered and bypass, and the transport)
+     are profiled first of all, right after the build, where every launch
+     must be seen (a capture that loses one is taken again, three times at
+     most); the paths of thousands of launches are profiled last;
   7. small dispatches: CUSTOM at 1 channel x 1 and x 4 frames, wall and
-     device time, beside the bench shape's of phases 5 and 6.
+     device time, beside the bench shape's of phases 5 and 6;
+  8. the web GUI: ``GuiBackend(device="cuda")`` served on 127.0.0.1 and
+     read over SSE while it runs BYPASS, FIXED, CUSTOM (the designer's
+     preview and apply), the Q15 tap, an IQ source and the zoom: frames
+     delivered and samples acquired a second, each wrapper's launches; the
+     tap's wire frame against the NumPy oracle chain bit for bit; the
+     scan, burst, RDS and roofline routes; any status event with ok=False
+     (the tap's watchdog among them) fails;
+  9. the full chain: command bytes -> ``SpectrumAnalyzer`` (1 channel x
+     16384) -> UDP on 127.0.0.1 -> ``UdpSpectrumReceiver``, decoded within
+     0.5 of rint of the analyzer's magnitudes, the filter acting over the
+     wire; a checkpoint through files and back, bit for bit;
+  10. the CLI: ``selftest`` passes; ``trace`` is a device trace in which
+     each port kernel of the dispatch appears as often as it was launched;
+     ``bench`` prints a rate;
+  11. the roofline: each timed spectrum path's samples/s (phase 5, and the
+     CLI's bench) as a fraction of the H100's ceiling and serial floor in
+     ``tpu_sdr_torch.bench.roofline``; a fraction of the ceiling above
+     1.05 fails (the cost model would count too little).
+
+Phases 8-10 run right after the one-kernel profiles of phase 6, phase 11
+at the end.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Needs one CUDA device;
@@ -132,9 +159,9 @@ exits non-zero without a result line when there is none.
 from __future__ import annotations
 
 import concurrent.futures
-import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -144,10 +171,12 @@ import numpy as np
 import scipy.signal as sps
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
+from tpu_sdr_torch.bench.roofline import CHIP_SPECS, bound, max_sm_mhz
+from tpu_sdr_torch.bench.roofline import int32_ops_per_s as peak_int32_ops
+
+# The H100's peaks (NVIDIA data sheet, dense, at the 700 W limit), from the
+# port's cost model, which bound() uses too.
+PEAK_BF16_FLOPS = CHIP_SPECS["h100"]["bf16_tflops"] * 1e12  # tensor cores, dense
 
 N = 16384
 CHANNELS, FRAMES = 8, 64  # bench.py's headline dispatch shape
@@ -241,35 +270,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def max_sm_mhz() -> float:
-    """The card's highest SM clock, as nvidia-smi reports it."""
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-
-
-@functools.lru_cache(maxsize=1)
-def peak_int32_ops() -> float:
-    """The card's INT32 issue rate in operations a second: 64 INT32 lanes an
-    SM (Hopper), one operation a lane a cycle, on every SM at the highest SM
-    clock. The data sheet gives no such rate; its 67 TFLOP/s fp32 is 128
-    lanes an SM counting an FMA as two."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 64 * sms * max_sm_mhz() * 1e6
-
-
-def bound(bytes_moved: float, flops: float, int_ops: float = 0) -> dict:
-    """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the function's fp32
-    operations at the fp32 peak plus its integer operations at the INT32
-    issue rate, whichever is longer."""
-    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = (flops / PEAK_FP32_FLOPS + (int_ops / peak_int32_ops() if int_ops else 0)) * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": bytes_moved, "flops": flops, "int_ops": int_ops}
 
 
 def golden_magnitude(x: np.ndarray, sos, win: np.ndarray) -> np.ndarray:
@@ -662,10 +662,6 @@ def dispatch_wall(step, reps: int = 5, calls: int = 10,
     return statistics.median(times), min(times), max(times)
 
 
-# The range each traced call runs in: the profiler ties a kernel launched
-# through ctypes to a host operator, and so lists it, only inside a range.
-# It lists the range on the device too; device_kernels leaves it out.
-STEP_RANGE = "chip_smoke step"
 # Per wrapper: its device kernels that end a launch, one per launch
 # (csrc/<name>.cu; fm_demod runs its three passes in one kernel with
 # de-emphasis, its discriminator alone without).
@@ -682,69 +678,62 @@ LAST_DEVICE_KERNEL = {
 }
 
 
-def device_kernels(step, reps: int = 3):
-    """Device kernels of ``reps`` calls of step() under torch.profiler, as
-    the profiler saw them: (kernels per call, device busy ms per call,
-    {name: (ms per call, launches per call)}, {wrapper: (launches seen,
-    launches made)} for each port kernel launched), or None when the
-    profiler saw no device events.
-
-    Traced from the profiler's first step, it lost the first kernel or two
-    of the window (PyTorch's kernels too), so one warm-up step runs under
-    the profiler before the ``reps`` it records. Nothing is rounded: where
-    it still loses an event, counts and busy time read low, and the port's
-    kernels are checked against their wrappers' counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function, schedule
-
+def op_table(step, reps: int = 3, tries: int = 1) -> dict:
+    """``bench.trace.capture_op_table`` of ``reps`` calls of step(), each
+    device op charged to the call that launched it, with "port": {wrapper:
+    (launches seen in the recorded calls, launches made by the wrapper in
+    them)} for each port kernel launched there. With ``tries`` > 1 a
+    capture that saw fewer launches than were made (the profiler drops a
+    session's events now and then) is taken again, up to ``tries`` times;
+    "tries" says how many it took."""
+    from tpu_sdr_torch.bench.trace import capture_op_table
     from tpu_sdr_torch.kernels.cuda import launch
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
-        for k in range(1 + reps):
-            with record_function(STEP_RANGE):
-                step()
-            torch.cuda.synchronize()
-            if k == 0:
+    for attempt in range(1, tries + 1):
+        calls = [0]
+
+        def counted():
+            if calls[0] == 1:  # the profiler's warm-up call is not recorded
                 launch.reset_counts()
-            prof.step()
-    seen = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name != STEP_RANGE:
-            ms, n = seen.get(e.name, (0.0, 0))
-            seen[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    if not seen:
-        return None
-    port = {w: (sum(n for name, (_, n) in seen.items() if any(k in name for k in ends)), made)
-            for w, ends in LAST_DEVICE_KERNEL.items()
-            if (made := launch.counts["kernel"][w])}
-    by_name = {name: (ms / reps, n / reps) for name, (ms, n) in seen.items()}
-    return (sum(n for _, n in by_name.values()), sum(ms for ms, _ in by_name.values()),
-            by_name, port)
+            calls[0] += 1
+            step()
+
+        table = capture_op_table(counted, reps=reps)
+        table["tries"] = attempt
+        made = {w: n for w, n in launch.counts["kernel"].items() if n and w in LAST_DEVICE_KERNEL}
+        if table["device_trace"]:
+            ops = table["ops_all_steps"]
+            table["port"] = {
+                w: (sum(n for name, (_, n) in ops.items()
+                        if any(k in name for k in LAST_DEVICE_KERNEL[w])), n)
+                for w, n in made.items()}
+            if all(a == b for a, b in table["port"].values()):
+                break
+    return table
 
 
 def port_seen(port: dict) -> str:
     """'seen/made' launches of each port kernel in a traced window."""
-    return ", ".join(f"{w} {seen}/{made}" + ("" if seen == made else " (lost by the profiler)")
+    return ", ".join(f"{w} {seen}/{made}" + ("" if seen == made else " (NOT all seen)")
                      for w, (seen, made) in port.items())
 
 
 def profiled(kernel) -> str:
-    """The profiler's view of 5 calls of a kernel wrapper: device ms per
-    call, by kernel, beside the CUDA-event time."""
-    prof = device_kernels(kernel, reps=5)
-    if prof is None:
-        return "profiler: no device events"
+    """The profiler's view of 5 calls of a kernel wrapper: the last call's
+    device ms by kernel, beside the CUDA-event time."""
+    t = op_table(kernel, reps=5)
+    if not t["device_trace"]:
+        return f"profiler: no device events ({t['reason']})"
     short = lambda name: (name.replace("(anonymous namespace)::", "").replace("void ", "")
                           .split("(")[0].split("<")[0][-40:])
-    parts = ", ".join(f"{short(name)} {ms:.4f} ms x{n:g}" for name, (ms, n) in prof[2].items())
-    return f"profiler {prof[1]:.4f} ms per call seen ({parts}; launches {port_seen(prof[3])})"
+    parts = ", ".join(f"{short(name)} {ms:.4f} ms x{t['op_counts'][name]}"
+                      for name, ms in t["top_ops_ms"][:6])
+    return (f"profiler {t['op_sum_ms']:.4f} ms in the last call ({parts}; launches in "
+            f"{t['executions']} calls {port_seen(t['port'])})")
 
 
 def chained(run, x, state):
-    """step() for dispatch_wall / device_kernels: one dispatch run(x, st) on
+    """step() for dispatch_wall / op_table: one dispatch run(x, st) on
     a state carried from the previous call."""
     st = [state()]
 
@@ -889,22 +878,44 @@ def phase_timing(pp, sos, x_np: np.ndarray, steps: dict) -> tuple[dict, dict]:
     return {label: statistics.median(v) for label, v in walls.items()}, timing
 
 
-def phase_profile(steps: dict, walls: dict, reps: dict | None = None):
-    """Device time per dispatch by kernel (torch.profiler), kernel launches
-    per dispatch, and the device's idle share against the untraced
-    dispatch time of phase 5. ``reps``: traced dispatches per label (3)."""
+# The paths of thousands of launches a dispatch, profiled last (one traced
+# dispatch each), in this order. Profiles of one process lose device events
+# now and then, and in some runs lost all of them from the Q15 phase on:
+# the steps whose launches must all be seen are profiled first
+# (phase_one_kernel_steps), these last.
+HEAVY_PROFILES = ("Receiver wbfm", "Receiver wbfm IQ", "burst + FEC", "IQ corrector",
+                  "FM default")
+
+
+def phase_profile(steps: dict, walls: dict, reps: dict | None = None,
+                  exact: tuple = ()) -> dict:
+    """Per path, the last of ``reps`` traced dispatches (3 by default) as
+    ``bench.trace.capture_op_table`` attributes it: its device ops, their
+    busy time (union) and sum, the device's idle time inside the traced
+    dispatch, and the idle share against the untraced wall of phase 5;
+    the port's kernels seen against their wrappers' launch counts (which
+    must be equal for the labels in ``exact``). Returns label -> table."""
+    tables = {}
     for label, wall in walls.items():
-        prof = device_kernels(steps[label], (reps or {}).get(label, 3))
-        if prof is None:
-            print(f"[6] {label:17s} profiler saw no device events: not measured")
+        t = op_table(steps[label], (reps or {}).get(label, 3), tries=3 if label in exact else 1)
+        tables[label] = t
+        if not t["device_trace"]:
+            print(f"[6] {label:17s} profiler saw no device events ({t['reason']}): not measured")
+            check(label not in exact, (label, "no device trace"))
             continue
-        n_kernels, busy_ms, by_name, port = prof
-        seen = f"; port kernels seen/launched: {port_seen(port)}" if port else ""
-        print(f"[6] {label:17s} per dispatch, as the profiler saw it: {n_kernels:g} device "
-              f"kernels, busy {busy_ms:.4f} ms of {wall * 1e3:.4f} ms -> idle share "
-              f"{1 - busy_ms / (wall * 1e3):.1%}{seen}")
-        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-            print(f"[6]   {ms:8.4f} ms in {n:8g} launches  {name[:80]}")
+        seen = f"; port kernels seen/launched: {port_seen(t['port'])}" if t["port"] else ""
+        print(f"[6] {label:17s} last traced dispatch: {t['n_ops']} device ops, busy "
+              f"{t['device_busy_ms']:.4f} ms (sum {t['op_sum_ms']:.4f}), traced span "
+              f"{t['dispatch_ms']:.4f} ms with {t['device_idle_ms']:.4f} ms idle; against the "
+              f"untraced wall {wall * 1e3:.4f} ms -> idle share "
+              f"{1 - t['device_busy_ms'] / (wall * 1e3):.1%}; unattributed ops "
+              f"{t['unattributed']}{seen}" + (f" (capture {t['tries']})" if t["tries"] > 1 else ""))
+        for name, ms in t["top_ops_ms"][:6]:
+            print(f"[6]   {ms:8.4f} ms in {t['op_counts'][name]:6d} launches  {name[:80]}")
+        if label in exact:
+            check(t["port"] and all(a == b for a, b in t["port"].values()),
+                  (label, "seen != made", t["port"]))
+    return tables
 
 
 def phase_small_dispatch(sos_custom):
@@ -919,9 +930,9 @@ def phase_small_dispatch(sos_custom):
         x = torch.randn((1, frames * N), device="cuda", generator=gen)
         step = chained(lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x, pipe.initial_state)
         med, lo, hi = dispatch_wall(step)
-        prof = device_kernels(step)
-        busy = ("device not measured" if prof is None
-                else f"{prof[0]:g} device kernels seen, busy {prof[1]:.4f} ms seen")
+        t = op_table(step)
+        busy = ("device not measured" if not t["device_trace"]
+                else f"{t['n_ops']} device ops, busy {t['device_busy_ms']:.4f} ms")
         print(f"[7] CUSTOM dispatch (1 ch x {frames} frames): median {med * 1e3:.4f} ms "
               f"(min {lo * 1e3:.4f}, max {hi * 1e3:.4f}); {busy}")
 
@@ -2631,9 +2642,413 @@ def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
     return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
 
 
+# ---------------------------------------------------------------- the user-facing layer: GUI, chain, CLI, roofline
+
+GUI_SEGMENT_S = 2.0  # seconds each GUI setting runs while /events is read
+
+
+class SseReader:
+    """Reads the GUI server's /events stream on a thread of its own into
+    ``events`` ((monotonic time, event, payload dict)) until ``close()``."""
+
+    def __init__(self, port: int):
+        import http.client
+        import threading
+
+        self.events = []
+        self._conn = http.client.HTTPConnection("127.0.0.1", port, timeout=20)
+        self._conn.request("GET", "/events")
+        self._resp = self._conn.getresponse()
+        check(self._resp.status == 200, ("/events", self._resp.status))
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        event = None
+        while not self._stop:
+            try:
+                line = self._resp.readline()
+            except OSError:
+                return
+            if not line:
+                return
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: ") and event:
+                self.events.append((time.monotonic(), event, json.loads(line[6:])))
+                event = None
+
+    def since(self, t0: float, name: str) -> list:
+        return [d for t, e, d in list(self.events) if t >= t0 and e == name]
+
+    def close(self):
+        self._stop = True
+        self._conn.close()
+        self._thread.join(timeout=5)
+
+
+def _api(port: int, route: str, body=None, method="POST"):
+    import urllib.request
+
+    data = None if method == "GET" else json.dumps(body or {}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_one_kernel_steps() -> dict:
+    """The steps that launch one port kernel each, profiled before any
+    other work of the process: the split Q15 path at the reference's width
+    (one 16384-sample chunk; filtered: the native host filter, then K1;
+    bypass: K1) and the transport (a bypass chunk, K1, and its wire frame
+    out over UDP). Each traced step shows its one K1 launch (seen ==
+    made), with its device ops, busy and idle time and its untraced wall.
+    Returns label -> op table."""
+    from tpu_sdr_torch import PipelineConfig
+    from tpu_sdr_torch.runtime.q15 import Q15Pipeline
+    from tpu_sdr_torch.transport import framing
+    from tpu_sdr_torch.transport.udp_stream import UdpSpectrumSender
+
+    split = Q15Pipeline(PipelineConfig(channels=1), device_fft=True)
+    split.upload_sos_q(Q15_SOS_Q)
+    chunk = q15_tones(1, 120)
+    tx = UdpSpectrumSender("127.0.0.1", 9)  # discard port: fire and forget
+
+    def transport():
+        o, _ = split.process(chunk, bypass=True)
+        tx.send_frame_bytes(framing.frame_bytes_from_q15(
+            o["spectrum_re_q15"].cpu().numpy().reshape(N),
+            o["spectrum_im_q15"].cpu().numpy().reshape(N)))
+
+    steps = {"Q15 split filtered": chained(lambda a, s: split.process(a, s), chunk, lambda: None),
+             "Q15 split bypass": chained(lambda a, s: split.process(a, s, bypass=True), chunk,
+                                         lambda: None),
+             "transport": transport}
+    try:
+        walls = {label: dispatch_wall(step)[0] for label, step in steps.items()}
+        return phase_profile(steps, walls, exact=tuple(steps))
+    finally:
+        tx.close()
+
+
+def phase_gui() -> dict:
+    """The web GUI on the card: ``GuiBackend(device="cuda")`` behind
+    ``serve(port=0, bind="127.0.0.1", block=False)``, /events read over SSE
+    while the settings change (BYPASS, FIXED, CUSTOM by the designer's
+    preview and apply, the Q15 tap, the IQ source with the zoom), then the
+    scan, burst, RDS and roofline routes. Per setting: frames delivered a
+    second, acquisition samples a second and each wrapper's launches. The
+    tap's wire frame equals the NumPy oracle chain's on the same chunk bit
+    for bit. Any status event with ok=False (the watchdog's "degraded"
+    among them) fails the phase. Returns the measured rates by setting."""
+    import base64
+
+    from tpu_sdr_torch import PipelineConfig
+    from tpu_sdr_torch.control import golden
+    from tpu_sdr_torch.core import qformat
+    from tpu_sdr_torch.gui import GuiBackend, serve
+    from tpu_sdr_torch.kernels import fft_q15
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.kernels.digital import BurstModem
+    from tpu_sdr_torch.kernels.rds import RDSEncoder, make_mpx_rds
+    from tpu_sdr_torch.runtime.source import SyntheticSource
+    from tpu_sdr_torch.transport.framing import decode_frame
+
+    backend = GuiBackend(source=SyntheticSource(tones_hz=((100_000.0, 0.5), (250_000.0, 0.2)),
+                                                noise=0.01),
+                         display_fps=1000.0, device="cuda")
+    check(backend.device.type == "cuda" and backend.sa.cfg == PipelineConfig(channels=1),
+          "GuiBackend on the card")
+    srv, _ = serve(backend, port=0, bind="127.0.0.1", block=False)
+    port = srv.server_address[1]
+    sse = SseReader(port)
+    rates = {}
+    t_start = time.monotonic()
+
+    def segment(label: str, setup):
+        setup()
+        time.sleep(0.3)  # the setting takes effect at the next dispatch
+        launch.reset_counts()
+        t0, s0, f0 = time.monotonic(), backend.sa.stats.samples_consumed, len(sse.since(0, "frame_data"))
+        time.sleep(GUI_SEGMENT_S)
+        dt = time.monotonic() - t0
+        frames = len(sse.since(0, "frame_data")) - f0
+        samples = backend.sa.stats.samples_consumed - s0
+        made = {k: v for k, v in launch.counts["kernel"].items() if v}
+        plain = {k: v for k, v in launch.counts["plain"].items() if v}
+        rates[label] = {"frames_per_s": frames / dt, "samples_per_s": samples / dt,
+                        "launches": made}
+        print(f"[8] GUI {label:18s}: {frames / dt:.1f} frame_data events/s over SSE, acquisition "
+              f"{samples / dt:.4e} samples/s ({samples / backend.sa.cfg.fft_size / dt:.1f} "
+              f"frames/s); launches {made}, plain calls {plain}")
+        check(frames > 0 and not plain, (label, frames, plain))
+        return made
+
+    try:
+        made = segment("BYPASS", lambda: _api(port, "/api/set_filter_type", {"mode": "bypass"}))
+        check(made.get("spectrum_bypass", 0) > 0, ("GUI BYPASS launches", made))
+        made = segment("FIXED", lambda: _api(port, "/api/set_filter_type", {"mode": "fixed"}))
+        check(made.get("spectrum_bypass", 0) > 0, ("GUI FIXED launches", made))
+
+        def custom():
+            _api(port, "/api/update_filter_config",
+                 {"kind": "elliptic", "btype": "lowpass", "order": 6, "cutoff_hz": 150_000.0})
+            p = _api(port, "/api/generate_filter_preview")
+            check(p["ok"] and len(p["sos"]) == 3, "designer preview")
+            check(_api(port, "/api/apply_filter_to_fpga")["ok"], "designer apply")
+
+        made = segment("CUSTOM (designer)", custom)
+        check(made.get("spectrum_bypass", 0) > 0, ("GUI CUSTOM launches", made))
+        made = segment("Q15 tap (CUSTOM)",
+                       lambda: _api(port, "/api/update_config", {"q15_faithful": True}))
+        check(made.get("q15_fft", 0) > 0, ("GUI Q15 tap launches", made))
+        # Turn the tap off (a fresh state on its next use) and stop the
+        # acquisition, then run one known chunk through the tap and hold its
+        # wire frame to the oracle chain.
+        _api(port, "/api/update_config", {"q15_faithful": False})
+        _api(port, "/api/stop_receiver")
+        x = SyntheticSource(tones_hz=((100_000.0, 0.5), (250_000.0, 0.2)), noise=0.01,
+                            seed=11).read(2 * N)
+        backend._q15_step(x, backend._q15_gen)
+        frame = _api(port, "/api/q15_frame", method="GET")
+        re_w, im_w, _ = decode_frame(base64.b64decode(frame["frame_b64"]))
+        xq = np.clip(np.rint(np.asarray(x)[0] * 32767.0), -32768, 32767).astype(np.int16)
+        sos_q = np.asarray(qformat.quantize_coeff_x64(backend.sa.custom_sos), np.int64)
+        y, _ = golden.sosfilt_q15_intended(sos_q, golden.rtl_window_q15(xq),
+                                           np.zeros((sos_q.shape[0], 2), np.int64))
+        rr, ri = fft_q15.fft_q15_np(y.reshape(-1, N)[-1:])
+        exact = (np.array_equal(np.asarray(re_w, np.int16), rr[0])
+                 and np.array_equal(np.asarray(im_w, np.int16), ri[0]))
+        print(f"[8] GUI Q15 tap wire frame ({frame['bytes']} bytes, {frame['filter_mode']}) == "
+              f"fft_q15_np(sosfilt_q15_intended(rtl_window_q15(x))) on the same chunk, bit for "
+              f"bit: {exact}")
+        check(exact and frame["filter_mode"] == "CUSTOM", "GUI Q15 wire frame vs the oracle")
+
+        def iq_source():
+            _api(port, "/api/stop_receiver")
+            backend.source = SyntheticSource(tones_hz=((150_000.0, 0.5), (-300_000.0, 0.25)),
+                                             noise=0.01, iq=True)
+            _api(port, "/api/fpga_reset")  # a new stream kind needs the reset
+            _api(port, "/api/start_receiver")
+
+        made = segment("IQ source", iq_source)
+        check(made.get("spectrum_complex", 0) > 0, ("GUI IQ launches", made))
+        made = segment("IQ + zoom (pfb)",
+                       lambda: _api(port, "/api/set_zoom", {"enabled": True, "channel": 19}))
+        zooms = sse.since(t_start, "zoom_frame")
+        check(zooms and abs(zooms[-1]["peak_freq_khz"] - 150.0) < 0.1,
+              ("zoom frames", len(zooms), zooms[-1]["peak_freq_khz"] if zooms else None))
+        print(f"[8] GUI zoom: {len(zooms)} zoom_frame events, peak at "
+              f"{zooms[-1]['peak_freq_khz']:.4f} kHz (tone 150 kHz), {zooms[-1]['hz_per_bin']:.3f} "
+              f"Hz a bin; launches in the zoom segment {made}")
+        _api(port, "/api/set_zoom", {"enabled": False})
+
+        scan = _api(port, "/api/scan", {"start_khz": -500, "stop_khz": 500, "bw_khz": 25})
+        hits = sorted(h["center_khz"] for h in scan["hits"])
+        check(scan["ok"] and any(abs(h - 150.0) <= 13 for h in hits)
+              and any(abs(h + 300.0) <= 13 for h in hits), ("GUI scan", hits))
+        _api(port, "/api/stop_receiver")
+        rng = np.random.default_rng(0xB0B)
+        mod = BurstModem("qpsk", sps=8, device="cuda")
+        bits = rng.integers(2, size=512).astype(np.uint8)
+        re, im = mod.modulate(bits, pad_syms=mod.max_lag_syms + mod.span)
+        z = (re + 1j * im) * np.exp(2j * np.pi * 150e3 / 1e6 * np.arange(re.size) + 0.4j)
+        backend._scan_ring = np.concatenate([np.zeros(40), z]).astype(np.complex64)
+        burst = _api(port, "/api/demod_burst", {"scheme": "qpsk", "bits": 512, "center_khz": 150.0})
+        want = np.packbits(bits).tobytes().hex()
+        check(burst["ok"] and burst["bits_hex"] == want, "GUI burst bits")
+        fs = backend.sa.cfg.sample_rate
+        t = np.arange(int(2.0 * fs)) / fs
+        enc = RDSEncoder(pi=0xF00D, pty=7, ps="GUI H100")
+        mpx = make_mpx_rds(0.4 * np.sin(2 * np.pi * 900 * t), 0.4 * np.sin(2 * np.pi * 1700 * t),
+                           fs, enc, n_groups=32)
+        backend._scan_ring = (0.5 * np.cos(2 * np.pi * np.cumsum(200e3 + 75e3 * mpx) / fs)
+                              ).astype(np.float32)
+        launch.reset_counts()
+        rds = _api(port, "/api/rds", {"center_khz": 200.0})
+        check(rds["ok"] and rds["pi"] == "F00D" and rds["ps"] == "GUI H100", ("GUI RDS", rds))
+        roof = _api(port, "/api/roofline", method="GET")
+        check(roof["chip"] == "h100" and roof.get("fraction_of_ceiling", 0) <= 1.05,
+              ("GUI roofline", roof))
+        print(f"[8] GUI scan hits {hits} kHz; burst 512 bits == sent: True (frame lag "
+              f"{burst['frame_lag_syms']} syms); RDS PI {rds['pi']} PS {rds['ps']!r} (launches "
+              f"{ {k: v for k, v in launch.counts['kernel'].items() if v} }); /api/roofline: "
+              f"{roof['chip']}, ceiling {roof['ceiling_samples_per_sec']:.4e} samples/s, the "
+              f"session's measured {roof.get('measured_samples_per_sec', 0):.4e} -> fraction "
+              f"{roof.get('fraction_of_ceiling', 0):.4f}")
+    finally:
+        backend.stop_receiver()
+        srv.shutdown()
+        sse.close()
+    statuses = sse.since(t_start, "receiver_status")
+    bad = [d for d in statuses if not d["ok"] or "degraded" in d["message"]]
+    print(f"[8] GUI: {len(statuses)} status events, {len(bad)} with ok=False or 'degraded'"
+          + (f": {bad}" if bad else ""))
+    check(not bad, ("GUI status events", bad))
+    return rates
+
+
+def phase_chain():
+    """The full chain (ROADMAP A19) at the reference's width (one channel,
+    N = 16384): command bytes into ``SpectrumAnalyzer`` on the card,
+    ``UdpSpectrumSender`` over 127.0.0.1, ``UdpSpectrumReceiver`` decoding
+    within int16 quantisation, the filter acting over the wire; then a
+    checkpoint through files and back, bit for bit."""
+    from tpu_sdr_torch import PipelineConfig, SpectrumAnalyzer
+    from tpu_sdr_torch.control import design_iir_filter, golden
+    from tpu_sdr_torch.control.commands import Command, encode_coefficient_upload
+    from tpu_sdr_torch.kernels.cuda import launch
+    from tpu_sdr_torch.transport.udp_stream import UdpSpectrumReceiver, UdpSpectrumSender
+
+    got = []
+    rx = UdpSpectrumReceiver(port=0, bind_ip="127.0.0.1", fps_cap=1e9,
+                             on_frame=lambda re, im, mag: got.append(mag.copy()))
+    rx.start()
+    tx = UdpSpectrumSender("127.0.0.1", rx.port)
+    try:
+        sa = SpectrumAnalyzer(PipelineConfig(channels=1), on_spectrum=lambda mag, idx:
+                              tx.send_spectrum(mag, np.zeros_like(mag), scale=1.0))
+        launch.reset_counts()
+        sa.handle_bytes(bytes([Command.MODE_BYPASS, Command.START]))
+        x = golden.synth_tone(100e3, N).astype(np.float32)[None, :]
+        out_bypass = sa.process(x)
+        d = design_iir_filter("butterworth", "lowpass", 4, 1e6, 50e3)
+        sa.handle_bytes(encode_coefficient_upload(d.to_wire_bytes()))
+        sa.handle_bytes(bytes([Command.MODE_CUSTOM]))
+        out_custom = sa.process(x)
+        deadline = time.time() + 10
+        while len(got) < 2 and time.time() < deadline:
+            time.sleep(0.02)
+    finally:
+        rx.stop()
+        tx.close()
+    n_row1 = launch.counts["kernel"]["spectrum_bypass"]
+    check(len(got) == 2, ("chain: frames over UDP", len(got)))
+    err = [float(np.abs(g - np.abs(np.rint(o["magnitude"][0, 0]))).max())
+           for g, o in zip(got, (out_bypass, out_custom))]
+    cut = got[1][1638] / got[0][1638]
+    print(f"[9] full chain: command bytes -> SpectrumAnalyzer (1 ch x {N}) -> UDP 127.0.0.1 -> "
+          f"UdpSpectrumReceiver: {len(got)} frames ({rx.frames_received} assembled), decoded vs "
+          f"rint(analyzer magnitudes) max |err| {err[0]:.3f} / {err[1]:.3f} (<= 0.5); 100 kHz "
+          f"after the 50 kHz lowpass at {cut:.2e} of BYPASS; launches spectrum_bypass {n_row1}")
+    check(max(err) <= 0.5 and cut < 0.05 and n_row1 == 2, ("chain", err, cut, n_row1))
+
+    ckdir = os.path.join("build", "chip_smoke_checkpoint")
+    os.makedirs(ckdir, exist_ok=True)
+    sa = SpectrumAnalyzer(PipelineConfig(channels=1))
+    sa.handle_bytes(bytes([Command.START, Command.MODE_CUSTOM]))
+    sa.upload_filter(sps.ellip(10, 0.5, 60, 0.3, output="sos"))
+    rng = np.random.default_rng(5)
+    x1, x2 = (rng.standard_normal((1, N)).astype(np.float32) for _ in range(2))
+    sa.process(x1)
+    ckpt = sa.checkpoint()
+    state = ckpt.pop("state")
+    np.savez(os.path.join(ckdir, "ckpt.npz"), **{k: v for k, v in state.items() if v is not None})
+    with open(os.path.join(ckdir, "meta.json"), "w") as f:
+        json.dump(ckpt, f)
+    with open(os.path.join(ckdir, "meta.json")) as f:
+        meta = json.load(f)
+    loaded = dict(np.load(os.path.join(ckdir, "ckpt.npz")))
+    meta["state"] = {k: loaded.get(k) for k in ("sos_state", "window_phase", "frame_count", "history")}
+    sb = SpectrumAnalyzer(PipelineConfig(channels=1))
+    sb.restore(meta)
+    same = np.array_equal(sa.process(x2)["magnitude"], sb.process(x2)["magnitude"])
+    print(f"[9] checkpoint through files ({ckdir}) and back: the resumed analyzer == the "
+          f"uninterrupted one bit for bit: {same}")
+    check(same and int(sb.state.frame_count) == int(sa.state.frame_count), "chain checkpoint")
+
+
+def _cli(argv: list) -> tuple[int, str]:
+    import contextlib
+    import io
+
+    from tpu_sdr_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_cli():
+    """``python -m tpu_sdr_torch``'s ``selftest``, ``trace`` and ``bench`` on
+    the card: the selftest passes; the trace is a device trace in which
+    every port kernel the dispatch launched appears as often as its wrapper
+    launched it; the bench prints a rate. Returns the bench record."""
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    rc, out = _cli(["selftest"])
+    print("\n".join(f"[10] selftest {line}" for line in out.splitlines()))
+    check(rc == 0 and "selftest: PASS" in out, "CLI selftest")
+    reps = 3
+    launch.reset_counts()
+    rc, out = _cli(["trace", "--reps", str(reps)])
+    table = json.loads(out.strip().splitlines()[-1])
+    made = {k: v for k, v in launch.counts["kernel"].items() if v}
+    check(rc == 0 and table["device_trace"], ("CLI trace", table))
+    # the command's warm-up dispatch, the profiler's warm-up call, then reps
+    per = {k: v / (reps + 2) for k, v in made.items()}
+    seen = {w: sum(n for name, n in table["op_counts"].items()
+                   if any(k in name for k in LAST_DEVICE_KERNEL[w])) for w in per}
+    print(f"[10] trace (8 ch x 64 frames, CUSTOM, hybrid): device_trace true; last dispatch "
+          f"{table['n_ops']} device ops, busy {table['device_busy_ms']:.4f} ms, span "
+          f"{table['dispatch_ms']:.4f} ms, idle {table['device_idle_ms']:.4f} ms; port kernels "
+          f"seen in it {seen}, launched a dispatch {per}")
+    check(per and all(seen[w] == per[w] for w in per), ("CLI trace seen vs made", seen, per))
+    rc, out = _cli(["bench"])
+    rec = json.loads(out.strip().splitlines()[-1])
+    print(f"[10] bench (8 ch x 64 frames, CUSTOM, slope of 12 - 2 chained dispatches): "
+          f"{rec['value']:.4e} samples/s, {rec['per_dispatch_ms']:.4f} ms a dispatch on "
+          f"{rec['device']}")
+    check(rc == 0 and rec["value"] > 0 and rec["device"] == torch.cuda.get_device_name(0),
+          ("CLI bench", rec))
+    return rec
+
+
+def phase_roofline(walls: dict, bench: dict):
+    """Each timed spectrum path's measured samples/s against the H100's
+    roofline ceiling and serial floor (``bench.roofline``); a fraction of
+    the ceiling above 1.05 means the cost model's count is wrong."""
+    from tpu_sdr_torch import PipelineConfig
+    from tpu_sdr_torch.bench.roofline import roofline_report, serial_floor_report
+
+    samples = CHANNELS * FRAMES * N
+    default = PipelineConfig(channels=CHANNELS)
+    cfgs = {"BYPASS": default, "FIXED": default, "CUSTOM": default,
+            "fused f32 CUSTOM": PipelineConfig(channels=CHANNELS, fused_two_pass=True),
+            "IQ BYPASS": default, "IQ CUSTOM": default, "IQ planes BYPASS": default,
+            "IQ planes CUSTOM": default,
+            "hop BYPASS": PipelineConfig(channels=CHANNELS, hop=HOP),
+            "hop CUSTOM": PipelineConfig(channels=CHANNELS, hop=HOP),
+            "bank CUSTOM": default, "analyzer CUSTOM": default}
+    rates = {label: samples / walls[label] for label in cfgs}
+    rates["CLI bench CUSTOM"] = bench["value"]
+    cfgs["CLI bench CUSTOM"] = default
+    worst = 0.0
+    for label, rate in rates.items():
+        rr = roofline_report(cfgs[label], measured_samples_per_sec=rate)
+        sf = serial_floor_report(cfgs[label], measured_samples_per_sec=rate)
+        worst = max(worst, rr["fraction_of_ceiling"])
+        print(f"[11] roofline {label:17s}: {rate:.4e} samples/s; ceiling "
+              f"{rr['ceiling_samples_per_sec']:.4e} ({rr['bound']}-bound, "
+              f"{rr['flops_per_frame'] / 1e6:.3f} MFLOP a frame at {rr['tier_tflops']:g} TFLOP/s) "
+              f"-> fraction_of_ceiling {rr['fraction_of_ceiling']:.4f}; serial floor "
+              f"{sf['serial_floor_samples_per_sec']:.4e} -> fraction_of_serial_floor "
+              f"{sf['fraction_of_serial_floor']:.4f}")
+    check(worst <= 1.05, ("a measured rate above the roofline ceiling", worst))
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    phase_one_kernel_steps()
+    phase_gui()
+    phase_chain()
+    bench = phase_cli()
     from tpu_sdr_torch import PipelineConfig, SpectrumPipeline
 
     sos_custom = sps.butter(12, 0.25, output="sos")
@@ -2675,8 +3090,9 @@ def main():
     nb_walls, nb_timing = phase_nb_timing(planes, nb_steps)
     timing.update(nb_timing)
     phase_nb_phases(pp, fplan)
-    phase_profile(nb_steps, nb_walls, {"FM default": 1, "Receiver wbfm": 1,
-                                       "Receiver wbfm IQ": 1})
+    late = {label: (nb_steps[label], nb_walls.pop(label))
+            for label in HEAVY_PROFILES if label in nb_walls}
+    phase_profile(nb_steps, nb_walls)
     errs.update(phase_q15_kernels())
     q15_launches, q15_pipes = phase_q15_path()
     launches.update(q15_launches)
@@ -2691,8 +3107,14 @@ def main():
     pr10_steps.update({**phase_rds(), **phase_transport()})
     pr10_walls, pr10_timing, pr10_steps = phase_pr10_timing(k3_inputs, pr10_steps)
     timing.update(pr10_timing)
-    phase_profile(pr10_steps, pr10_walls, {"burst + FEC": 1, "IQ corrector": 1, "RDS chain": 1,
-                                           "scanner": 1})
+    late.update({label: (pr10_steps[label], pr10_walls.pop(label))
+                 for label in HEAVY_PROFILES if label in pr10_walls})
+    phase_profile(pr10_steps, pr10_walls, {"RDS chain": 1, "scanner": 1})
+    phase_roofline({**walls, **new_walls}, bench)
+    phase_profile({k: late[k][0] for k in HEAVY_PROFILES},
+                  {k: late[k][1] for k in HEAVY_PROFILES}, dict.fromkeys(HEAVY_PROFILES, 1))
+    print(f"[12] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (the kernels' build "
+          f"included)")
     records = [
         {"route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu", **fixed,
          "launches": launches[name], "max_abs_err": errs[name], **timing[name]}

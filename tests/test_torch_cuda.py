@@ -1059,3 +1059,58 @@ def test_fastfir_on_card_chunked_equals_oneshot_and_lfilter(card):
     assert torch.equal(torch.cat(outs, dim=-1), one)
     want = sps.lfilter(h, 1.0, x.astype(np.float64), axis=-1)
     assert np.abs(one.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_capture_op_table_counts_a_one_kernel_step(card):
+    """One launch of the scaled integer FFT a step: the op table of the last
+    step holds exactly that kernel, charged by its launch's correlation."""
+    from tpu_sdr_torch.bench.trace import capture_op_table
+    from tpu_sdr_torch.kernels import fft_q15
+
+    x = torch.as_tensor(np.random.default_rng(31).integers(-32768, 32767, (1, N), dtype=np.int16),
+                        device="cuda")
+    fft_q15.window_fft_q15_cuda(x)
+    torch.cuda.synchronize()
+    t = capture_op_table(lambda: fft_q15.window_fft_q15_cuda(x), reps=3)
+    assert t["device_trace"] and t["executions"] == 3 and t["unattributed"] == 0
+    assert t["n_ops"] == 1 and list(t["op_counts"].values()) == [1]
+    assert "q15_fft_kernel" in next(iter(t["op_counts"]))
+    assert 0 < t["device_busy_ms"] == t["op_sum_ms"] <= t["dispatch_ms"]
+    assert t["device_idle_ms"] >= 0
+
+
+def test_gui_backend_on_card_serves_a_frame(card):
+    import json
+    import queue
+    import time
+
+    from tpu_sdr_torch.gui import GuiBackend, serve
+
+    backend = GuiBackend(display_fps=1000.0)  # device None: the card
+    assert backend.device.type == "cuda"
+    q = backend.subscribe()
+    launch.reset_counts()
+    srv, _ = serve(backend, port=0, bind="127.0.0.1", block=False)
+    try:
+        frame, deadline = None, time.time() + 10
+        while frame is None and time.time() < deadline:
+            try:
+                ev, payload = q.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if ev == "frame_data":
+                frame = json.loads(payload)
+    finally:
+        backend.stop_receiver()
+        srv.shutdown()
+    assert frame is not None and abs(frame["peak_freq_khz"] - 100.0) < 1.0
+    assert launch.counts["kernel"]["spectrum_bypass"] >= 1
+    assert launch.counts["plain"]["spectrum_bypass"] == 0
+
+
+def test_cli_selftest_passes_on_card(card, capsys):
+    from tpu_sdr_torch.__main__ import main
+
+    assert main(["selftest"]) == 0
+    out = capsys.readouterr().out
+    assert "selftest: PASS" in out and out.count("[PASS]") == 6

@@ -322,7 +322,9 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
         "tpu_sdr_torch.transport, tpu_sdr_torch.transport.native, "
         "tpu_sdr_torch.transport.udp_stream, tpu_sdr_torch.transport.uart_stream, "
         "tpu_sdr_torch.transport.serial_port, tpu_sdr_torch.transport.ipstack, "
-        "tpu_sdr_torch.transport.crc32, tpu_sdr_torch.transport.framing\n"
+        "tpu_sdr_torch.transport.crc32, tpu_sdr_torch.transport.framing, "
+        "tpu_sdr_torch.gui, tpu_sdr_torch.gui.server, tpu_sdr_torch.bench.roofline, "
+        "tpu_sdr_torch.bench.trace, tpu_sdr_torch.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"

@@ -3,6 +3,8 @@
 Imports torch, numpy and scipy only; nothing of JAX or of ``tpu_sdr``.
 """
 
+__version__ = "0.1.0"
+
 from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig, default_config
 from tpu_sdr_torch.runtime import (
     RecordingSource,

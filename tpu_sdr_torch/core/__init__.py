@@ -5,5 +5,6 @@ from tpu_sdr_torch.core.config import (
     PipelineConfig,
     default_config,
 )
+from tpu_sdr_torch.core import qformat  # noqa: F401
 
 __all__ = ["CommMode", "FilterMode", "HostConfig", "PipelineConfig", "default_config"]

@@ -523,7 +523,7 @@ def spectrum_half_cuda(
         out = spectrum_bypass_cuda(x, plan, apply_window, out_dtype)
     else:
         out = spectrum_iir_cuda(x, z_starts, plan, apply_window, out_dtype)
-    launch.counts["kernel"]["spectrum_half"] += 1
+    launch.count("kernel", "spectrum_half")
     return out
 
 

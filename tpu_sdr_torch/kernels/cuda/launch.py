@@ -10,7 +10,7 @@ raises if the launch failed. ``iir_fft.counts`` is this module's ``counts``.
 from __future__ import annotations
 
 import ctypes
-import functools
+import threading
 
 import torch
 
@@ -31,6 +31,7 @@ COUNTERS = KERNELS + ("spectrum_half",)
 # launch counts under "spectrum_half" and under the kernel it runs. Read and
 # reset (``reset_counts``) by callers that check which path a run took.
 counts = {"kernel": dict.fromkeys(COUNTERS, 0), "plain": dict.fromkeys(COUNTERS, 0)}
+_counts_lock = threading.Lock()
 
 # ctypes argument types of each library's entry point ``tpu_sdr_<name>``
 # (p: pointer or stream, i: int, f: float), in the order of its C signature
@@ -50,13 +51,34 @@ _SIGNATURES = {
 
 
 def reset_counts():
-    for per_kernel in counts.values():
-        for name in per_kernel:
-            per_kernel[name] = 0
+    with _counts_lock:
+        for per_kernel in counts.values():
+            for name in per_kernel:
+                per_kernel[name] = 0
 
 
-@functools.lru_cache(maxsize=None)
+def count(kind: str, name: str):
+    """Add one to ``counts[kind][name]`` ("kernel" or "plain")."""
+    with _counts_lock:
+        counts[kind][name] += 1
+
+
+# Loaded libraries by name. GUI threads launch kernels concurrently, so
+# each library's first load holds a lock of its own and every count update
+# holds ``_counts_lock`` (``count``).
+_libs: dict[str, ctypes.CDLL] = {}
+_lib_locks = {name: threading.Lock() for name in KERNELS}
+
+
 def _kernel_lib(name: str) -> ctypes.CDLL:
+    with _lib_locks[name]:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = _load_bound(name)
+    return lib
+
+
+def _load_bound(name: str) -> ctypes.CDLL:
     lib = loader.load(name)
     types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     fn = getattr(lib, f"tpu_sdr_{name}")
@@ -77,7 +99,7 @@ def launch(name: str, device: torch.device, *args):
     if err != 0:
         msg = lib.tpu_sdr_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-    counts["kernel"][name] += 1
+    count("kernel", name)
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
@@ -93,7 +115,7 @@ def on_cpu(name: str, x: torch.Tensor, interpret: bool = False) -> bool:
     """True (and a plain call counted) when x lies on the CPU. ``interpret``
     has no meaning for a CUDA kernel: on a CUDA tensor it raises."""
     if x.device.type == "cpu":
-        counts["plain"][name] += 1
+        count("plain", name)
         return True
     if interpret:
         raise ValueError("interpret=True: a CUDA kernel has no interpret mode")

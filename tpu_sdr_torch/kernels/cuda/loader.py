@@ -6,7 +6,10 @@ library's file name carries a hash of the source, of every header in
 ``csrc/`` (``*.cuh``, which a source may include) and of the compiler flags,
 so a change to any of them builds a new library. Libraries go to
 ``build/tpu_sdr_torch/`` beside the package (listed in ``.gitignore``).
-Nothing here runs at import time.
+Nothing here runs at import time. Threads of one process may ask for the
+same library at once (the GUI launches kernels from several): each library
+builds under a lock of its own, into a temporary file named for the process
+and the thread, which is renamed into place when nvcc succeeds.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -26,6 +30,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -59,19 +71,21 @@ def build(name: str, force: bool = False) -> str:
     RuntimeError with that output if nvcc fails.
     """
     lib = library_path(name)
-    if lib.exists() and not force:
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")],
-        capture_output=True, text=True,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: nvcc exited {proc.returncode}\n{log}")
-    os.replace(tmp, lib)
-    return log
+    with _lock(name):
+        if lib.exists() and not force:
+            return ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")],
+            capture_output=True, text=True,
+        )
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"CUDA kernel build failed: nvcc exited {proc.returncode}\n{log}")
+        os.replace(tmp, lib)
+        return log
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,9 @@ import torch
 DETECTORS = ("peak", "minpeak", "avg", "rms", "sample")
 
 
-def _host(x):
+def host(x):
+    """x as a host array: a tensor (on any device) copied to NumPy, anything
+    else as it is."""
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
@@ -127,7 +129,7 @@ class Waterfall:
     def push(self, decimated_db):
         """Add one (or a batch of) decimated dB rows (points,) or (F, points),
         as NumPy or a tensor on any device."""
-        rows = np.atleast_2d(np.asarray(_host(decimated_db), np.float32))
+        rows = np.atleast_2d(np.asarray(host(decimated_db), np.float32))
         for r in rows:
             self.rows[self._head] = r
             self._head = (self._head + 1) % self.depth
