@@ -1118,8 +1118,8 @@ def test_q15_rebuild_budget_tracks_pipeline_signature():
 
 def test_backend_runs_on_cuda_by_default(monkeypatch):
     """GuiBackend() and serve()'s default backend run on CUDA and raise
-    without a GPU; a given analyzer sets the device, and another device
-    beside it is refused."""
+    without a GPU; a given analyzer brings its device, and a device beside
+    it is refused."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -1129,8 +1129,9 @@ def test_backend_runs_on_cuda_by_default(monkeypatch):
         serve(port=0, bind="127.0.0.1", block=False)
     sa = SpectrumAnalyzer(PipelineConfig(channels=1), device="cpu")
     assert GuiBackend(analyzer=sa).device == torch.device("cpu")
-    with pytest.raises(ValueError, match="differs from the analyzer"):
-        GuiBackend(analyzer=sa, device="cuda")
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="not both"):
+            GuiBackend(analyzer=sa, device=device)
 
 
 # ---------------------------------------------------------------- against the JAX GuiBackend

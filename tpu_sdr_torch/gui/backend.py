@@ -20,7 +20,6 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from tpu_sdr_torch.control import SpectrumAnalyzer, designer as designer_mod
 from tpu_sdr_torch.core.config import CommMode, FilterMode, PipelineConfig
@@ -81,16 +80,16 @@ class GuiBackend(CaptureMixin, DisplayMixin, ZoomMixin, AudioScanMixin):
         pace: bool = False,
         device=None,
     ):
-        """``device``: where the analyzer and every part the backend builds
-        run (None: CUDA, raising without a GPU). A given ``analyzer`` sets
-        it; ``device`` must then be None or the analyzer's."""
+        """``device``: where the analyzer the backend builds runs (None:
+        CUDA, raising without a GPU). A given ``analyzer`` brings its own,
+        and ``device`` must then be None. Every other part the backend
+        builds runs on the analyzer's device."""
         from tpu_sdr_torch.runtime.source import SyntheticSource
 
+        if analyzer is not None and device is not None:
+            raise ValueError("pass device= or analyzer=, not both: the analyzer has its device")
         self.sa = analyzer or SpectrumAnalyzer(PipelineConfig(channels=1), device=device)
         self.device = self.sa.pipe.device
-        if device is not None and torch.device(device) != self.device:
-            raise ValueError(
-                f"device {device!r} differs from the analyzer's ({self.device})")
         self.source = source or SyntheticSource(
             tones_hz=((100_000.0, 0.5), (250_000.0, 0.2)), noise=0.01
         )
