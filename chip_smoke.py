@@ -148,8 +148,27 @@ Phases (each raises on failure):
      ``tpu_sdr_torch.bench.roofline``; a fraction of the ceiling above
      1.05 fails (the cost model would count too little).
 
-Phases 8-10 run right after the one-kernel profiles of phase 6, phase 11
-at the end.
+  13. the sharded engines (``tpu_sdr_torch.shard``): 4 ranks spawned on
+     the one card over Gloo (each collective staged through the host; NCCL
+     refuses two ranks on one GPU), grids (1, 2), (2, 1) and (2, 2) (the
+     2-rank grids sub-meshes of the group), at 8 channels x 64 frames:
+     BYPASS, FIXED, CUSTOM, fused f32 CUSTOM, hop 8192, a per-channel bank
+     and IQ input through ``ShardedSpectrumPipeline``, the channelizer's
+     kernel path (row 8) and the wbfm ``ShardedReceiver``; in each rank
+     the launch counts set to 0 just before two carried-state dispatches
+     and read just after (rows 1, 2, 3, 5 and 8 must launch, no plain
+     call), each rank's dispatch wall and time in collectives, the device's
+     idle share on CUSTOM and fused (profiler); rank 0 holds the gathered
+     output and the final state against the single-device run on the card
+     bit for bit. A failed or hung rank fails the phase (collectives time
+     out; the group is killed after ``SHARD_JOIN_S``). Then
+     ``LatencyPipeline`` on a 1-rank NCCL group in this process, within
+     1e-5 of the throughput engine.
+
+Phase 13 runs right after the build, phases 8-10 right after the
+one-kernel profiles of phase 6, phase 11 at the end. Each kernel record
+also carries ``shard_launches``: its launches in phase 13, every rank,
+grid and path.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Needs one CUDA device;
@@ -3041,10 +3060,326 @@ def phase_roofline(walls: dict, bench: dict):
     check(worst <= 1.05, ("a measured rate above the roofline ceiling", worst))
 
 
+# ---------------------------------------------------------------- shard/
+# The sharded engines (tpu_sdr_torch.shard) in ranks spawned on the one
+# card: 4 processes on cuda:0 over Gloo (NCCL refuses two ranks on one GPU;
+# each collective stages its tensors through the host), the 2-rank grids as
+# sub-meshes of the 4-rank group. Each rank drives every path at the main
+# path's width (8 channels x 64 frames of 16384), rank 0 holds the
+# gathered result against the single-device pipeline on the card.
+SHARD_GRIDS = ((1, 2), (2, 1), (2, 2))
+SHARD_WORLD = 4
+SHARD_DISPATCHES = 2
+SHARD_COLLECTIVE_S = 300.0  # a collective (or a sub-mesh's wait) fails after this
+SHARD_JOIN_S = 540.0  # the phase kills its ranks and fails after this
+SHARD_PATHS = {  # label -> (PipelineConfig kwargs, mode, input, kernels it must launch)
+    "BYPASS": (dict(), "BYPASS", "real", ("spectrum_bypass",)),
+    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass",)),
+    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass",)),
+    "fused f32 CUSTOM": (dict(fused_two_pass=True), "CUSTOM", "real",
+                         ("iir_summaries", "spectrum_iir")),
+    "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real", ("spectrum_bypass",)),
+    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass",)),
+    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex",)),
+}
+SHARD_PROFILED = ("CUSTOM", "fused f32 CUSTOM")
+SHARD_RX_T = 62 * 16_000  # the wbfm receiver's granularity x 62, split over 2 time shards
+SHARD_SOS = sps.butter(12, 0.25, output="sos")
+
+
+def _shard_input(kind: str):
+    rng = np.random.default_rng(1)
+    if kind == "iq":
+        return two_tone_iq(rng)
+    if kind == "bank":
+        return np.random.default_rng(8).standard_normal((CHANNELS, FRAMES * N)).astype(np.float32)
+    return two_tone(rng)
+
+
+def _shard_pipe(cls, label: str, **kw):
+    from tpu_sdr_torch import FilterMode, PipelineConfig
+
+    cfg_kw, mode, kind, _ = SHARD_PATHS[label]
+    pipe = cls(PipelineConfig(channels=CHANNELS, **cfg_kw), **kw)
+    pipe.upload_sos(SHARD_SOS)
+    if kind == "bank":
+        pipe.upload_sos_bank(bank_designs())
+    init = lambda: pipe.initial_state(batch_shape=(2,) if kind == "iq" else ())
+    return pipe, init, FilterMode[mode]
+
+
+def _timed(mesh, run):
+    """run() with the launch counts and the mesh's collective counters set
+    to 0 just before it, read just after: (result, walls, launches, plain
+    calls, collective calls and seconds)."""
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    launch.reset_counts()
+    mesh.stats.update(calls=0, seconds=0.0)
+    res, walls = run()
+    return (res, walls, {k: v for k, v in launch.counts["kernel"].items() if v},
+            sum(launch.counts["plain"].values()), dict(mesh.stats))
+
+
+def _shard_spectrum_path(mesh, label: str, rank: int) -> dict:
+    from tpu_sdr_torch import SpectrumPipeline
+    from tpu_sdr_torch.bench.trace import capture_op_table
+    from tpu_sdr_torch.shard import ShardedSpectrumPipeline
+
+    pipe, init, mode = _shard_pipe(ShardedSpectrumPipeline, label, mesh=mesh)
+    x = _shard_input(SHARD_PATHS[label][2])
+    pipe.process(x, init(), mode)  # warm-up: first launches
+    torch.cuda.synchronize()
+
+    def run():
+        st, walls = init(), []
+        for _ in range(SHARD_DISPATCHES):
+            t0 = time.perf_counter()
+            out, st = pipe.process(x, st, mode)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return (out, st), walls
+
+    (out, st), walls, launches, plain, coll = _timed(mesh, run)
+    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"],
+               coll_s=coll["seconds"])
+    if label in SHARD_PROFILED:
+        stc = [init()]
+
+        def step():
+            _, stc[0] = pipe.process(x, stc[0], mode)
+
+        t = capture_op_table(step, reps=1)
+        rec["busy_ms"] = t["device_busy_ms"] if t["device_trace"] else None
+    mag = pipe.gather(out)["magnitude"]
+    if rank == 0:
+        single, sinit, _ = _shard_pipe(SpectrumPipeline, label)
+        sst = sinit()
+        for _ in range(SHARD_DISPATCHES):
+            sout, sst = single.process(x, sst, mode)
+        ref = sout["magnitude"]
+        rec["equal"] = bool(
+            mag.shape == ref.shape and torch.equal(mag, ref)
+            and torch.equal(st.sos_state, sst.sos_state)
+            and (st.history is None or torch.equal(st.history, sst.history))
+            and int(st.frame_count) == int(sst.frame_count)
+            and int(st.window_phase) == int(sst.window_phase))
+        rec["max_abs"] = float((mag.float() - ref.float()).abs().max())
+    return rec
+
+
+def _leaves(v) -> list:
+    """Every tensor leaf of an output or a carried state (a tensor, a dict
+    of them, or a state object with nested states), in a fixed order."""
+    from tpu_sdr_torch.shard.mesh import map_state
+
+    if isinstance(v, dict):
+        return [t for k in sorted(v) for t in _leaves(v[k])]
+    found = []
+    map_state(v, found.append)
+    return found
+
+
+def _shard_stage(mesh, rank: int, sharded, single, x, state, call) -> dict:
+    """A streaming stage (channelizer, receiver): two carried-state calls,
+    timed and counted; rank 0 holds the gathered output and the final
+    state against the single-device stage."""
+    call(sharded, x, state(sharded))  # warm-up
+    torch.cuda.synchronize()
+
+    def run():
+        st, walls = state(sharded), []
+        for _ in range(SHARD_DISPATCHES):
+            t0 = time.perf_counter()
+            out, st = call(sharded, x, st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return (out, st), walls
+
+    (out, st), walls, launches, plain, coll = _timed(mesh, run)
+    got = sharded.gather(out)
+    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"],
+               coll_s=coll["seconds"])
+    if rank == 0:
+        sst = state(single)
+        for _ in range(SHARD_DISPATCHES):
+            ref, sst = call(single, x, sst)
+        a_got, a_ref = _leaves(got) + _leaves(st), _leaves(ref) + _leaves(sst)
+        pairs = list(zip(a_got, a_ref))
+        rec["leaves"] = len(pairs)
+        rec["equal"] = len(a_got) == len(a_ref) and all(
+            a.shape == b.shape and torch.equal(a, b) for a, b in pairs)
+        rec["max_abs"] = max(float((a.double() - b.double()).abs().max())
+                             for a, b in pairs if a.shape == b.shape)
+    return rec
+
+
+def shard_rank(rank: int, out_dir: str):
+    """One rank of the shard phase's group (spawned; every rank runs this).
+    Writes rank<r>.json, or rank<r>.err with its traceback and exits 1."""
+    import traceback
+
+    out = __import__("pathlib").Path(out_dir)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from tpu_sdr_torch.kernels.pfb import Channelizer
+        from tpu_sdr_torch.runtime.receiver import Receiver
+        from tpu_sdr_torch.shard import (ShardedChannelizer, ShardedReceiver, distributed,
+                                         make_sdr_mesh)
+
+        distributed.initialize(coordinator_address=f"file://{out / 'rendezvous'}",
+                               num_processes=SHARD_WORLD, process_id=rank, backend="gloo",
+                               timeout_s=SHARD_COLLECTIVE_S)
+        report = {}
+        for grid in SHARD_GRIDS:
+            mesh = make_sdr_mesh(*grid, devices="cuda:0")
+            if not mesh.member:
+                continue
+            g = f"{grid[0]}x{grid[1]}"
+            for label in SHARD_PATHS:
+                report[f"{g} {label}"] = _shard_spectrum_path(mesh, label, rank)
+            x = np.load(out / "pfb_x.npy")
+            mk = lambda: Channelizer(m=PFB_M, taps=PFB_TAPS, use_pallas=True, device="cuda:0")
+            report[f"{g} channelizer (row 8)"] = _shard_stage(
+                mesh, rank, ShardedChannelizer(mk(), mesh), mk(), x,
+                lambda e: e.initial_state((NB_CH,)), lambda e, v, s: e.process(v, s))
+            x = np.load(out / "rx_x.npy")
+            mk = lambda: Receiver(fs=RX_FS, center_hz=RX_CENTER, mode="wbfm",
+                                  audio_rate=RX_AUDIO, device="cuda:0")
+            report[f"{g} receiver wbfm"] = _shard_stage(
+                mesh, rank, ShardedReceiver(mk(), mesh), mk(), x,
+                lambda e: e.initial_state((NB_CH,)), lambda e, v, s: e.process(v, s))
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def phase_shard(smi: str) -> dict:
+    """Spawn the 4-rank group, wait for it within SHARD_JOIN_S (killing
+    every rank and failing on a hang or a failed rank), and print each
+    path's per-rank wall, collectives and launches. Returns the launches of
+    each port kernel summed over every rank, grid and path."""
+    import multiprocessing
+    import pathlib
+    import shutil
+
+    out = pathlib.Path("build/chip_smoke_shard").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # The streaming stages' inputs are made once, here, and read by every
+    # rank: the FM signal's phase is a float64 cumsum on the card, whose
+    # bits can differ between runs (and so between processes).
+    np.save(out / "pfb_x.npy", pfb_inputs()[0].cpu().numpy())
+    np.save(out / "rx_x.npy", rx_signal(SHARD_RX_T, "wbfm").cpu().numpy())
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, str(out))) for r in range(SHARD_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > SHARD_JOIN_S:
+                break
+            time.sleep(0.5)
+    finally:
+        time.sleep(1.0 if any(p.is_alive() for p in procs) else 0.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    errs = "".join(f"rank {r}:\n{(out / f'rank{r}.err').read_text()}"
+                   for r in range(SHARD_WORLD) if (out / f"rank{r}.err").exists())
+    check(not errs and all(p.exitcode == 0 for p in procs),
+          f"shard phase: exit codes {[p.exitcode for p in procs]}\n{errs}")
+    reports = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SHARD_WORLD)]
+    print(f"[13] shard/: {SHARD_WORLD} ranks on cuda:0 over Gloo (host-staged collectives), "
+          f"grids {', '.join(f'{c}x{t}' for c, t in SHARD_GRIDS)}, {SHARD_DISPATCHES} "
+          f"carried-state dispatches a path, on {smi}; the group took "
+          f"{time.perf_counter() - t0:.1f} s")
+    totals: dict = {}
+    for key in reports[0]:
+        members = [(r, rep[key]) for r, rep in enumerate(reports) if key in rep]
+        r0 = members[0][1]
+        label = key.split(" ", 1)[1]
+        want = SHARD_PATHS[label][3] if label in SHARD_PATHS else (
+            ("pfb_fold_dft",) if "channelizer" in label else ())
+        for r, rec in members:
+            check(rec["plain"] == 0, (key, r, "plain calls", rec["plain"]))
+            check(all(rec["launches"].get(k, 0) > 0 for k in want), (key, r, rec["launches"]))
+            for k, v in rec["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        check(r0["equal"], (key, "sharded != single-device", r0["max_abs"]))
+        held = f", {r0['leaves']} output and state leaves" if "leaves" in r0 else ""
+        print(f"[13] {key:30s} == single-device bit for bit (max |diff| {r0['max_abs']}{held})")
+        for r, rec in members:
+            wall = statistics.mean(rec["walls"]) * 1e3
+            busy = rec.get("busy_ms")
+            idle = "" if "busy_ms" not in rec else (
+                "; idle share not measured (no device trace)" if busy is None else
+                f"; device busy {busy:.4f} ms -> idle share {1 - busy / wall:.1%}")
+            n = len(rec["walls"])
+            print(f"[13]   rank {r}: dispatch wall {wall:.4f} ms (mean of {n}), collectives "
+                  f"{rec['coll_s'] * 1e3 / n:.4f} ms in {rec['coll_calls'] / n:g} calls a dispatch, "
+                  f"launches {rec['launches'] or 'none'}{idle}")
+    return totals
+
+
+def phase_shard_nccl():
+    """LatencyPipeline on a 1-rank NCCL group in this process: the NCCL
+    route's collectives (all-gather, all-to-all, reduce-scatter) run on the
+    card; the result within 1e-5 of the throughput engine's peak."""
+    import pathlib
+    import shutil
+
+    from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
+    from tpu_sdr_torch.shard import LatencyPipeline, distributed, make_sdr_mesh
+
+    store = pathlib.Path("build/chip_smoke_nccl").resolve()
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    distributed.initialize(coordinator_address=f"file://{store / 'rendezvous'}",
+                           num_processes=1, process_id=0, backend="nccl",
+                           timeout_s=SHARD_COLLECTIVE_S)
+    try:
+        mesh = make_sdr_mesh(channel=1)
+        check(mesh.time.backend == "nccl" and mesh.time.group is not None, "NCCL group")
+        lat = LatencyPipeline(PipelineConfig(channels=1), mesh)
+        thr = SpectrumPipeline(PipelineConfig(channels=1))
+        lat.upload_sos(SHARD_SOS)
+        thr.upload_sos(SHARD_SOS)
+        x = two_tone(np.random.default_rng(3))[0, : 3 * N]
+        ref = thr.process(x, thr.initial_state(), FilterMode.CUSTOM)[0]["magnitude"][0]
+        lat.process_frame(x[:N], lat.initial_state(), FilterMode.CUSTOM)  # NCCL's set-up
+        torch.cuda.synchronize()
+        z, worst = lat.initial_state(), 0.0
+        mesh.stats.update(calls=0, seconds=0.0)
+        t0 = time.perf_counter()
+        for f in range(3):
+            mag, z = lat.process_frame(x[f * N : (f + 1) * N], z, FilterMode.CUSTOM)
+            worst = max(worst, float((lat.gather(mag) - ref[f]).abs().max() / ref[f].abs().max()))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+        check(worst < 1e-5, ("latency engine vs throughput", worst))
+        check(mesh.stats["calls"] > 0, "no NCCL collective ran")
+        print(f"[13] LatencyPipeline on a 1-rank NCCL group: 3 CUSTOM frames within {worst:.3g} "
+              f"of the throughput engine's peak (bound 1e-5); {mesh.stats['calls']} NCCL "
+              f"collectives, {mesh.stats['seconds'] * 1e3:.4f} ms; {wall * 1e3:.4f} ms a frame")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    shard_launches = phase_shard(smi)
+    phase_shard_nccl()
     phase_one_kernel_steps()
     phase_gui()
     phase_chain()
@@ -3117,7 +3452,8 @@ def main():
           f"included)")
     records = [
         {"route": "cuda", "source": f"tpu_sdr_torch/csrc/{name}.cu", **fixed,
-         "launches": launches[name], "max_abs_err": errs[name], **timing[name]}
+         "launches": launches[name], "shard_launches": shard_launches.get(name, 0),
+         "max_abs_err": errs[name], **timing[name]}
         for name, fixed in RECORDS.items()
     ]
     print(json.dumps({"kernels": records}))

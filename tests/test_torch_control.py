@@ -255,8 +255,19 @@ def test_successful_upload_clears_stale_rejection():
 
 
 def test_mesh_and_missing_gpu_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="shard/"):
-        SpectrumAnalyzer(PipelineConfig(), mesh=object(), device="cpu")
+    # mesh= on a 1 x 1 mesh (no process group) runs the sharded engine:
+    # bit for bit the single-device analyzer; a device beside it is refused
+    from tpu_sdr_torch.shard import ShardedSpectrumPipeline, make_sdr_mesh
+
+    mesh = make_sdr_mesh(devices="cpu")
+    sa = SpectrumAnalyzer(PipelineConfig(channels=2), mesh=mesh)
+    assert isinstance(sa.pipe, ShardedSpectrumPipeline)
+    x = np.random.default_rng(5).standard_normal((2, 2 * N)).astype(np.float32) + tone(250e3, 2 * N)
+    got, ref = _wire_drive(sa, x), _wire_drive(analyzer(2), x)
+    for a, b in zip(got, ref):
+        assert np.array_equal(a["magnitude"], b["magnitude"])
+    with pytest.raises(ValueError, match="mesh's devices"):
+        SpectrumAnalyzer(PipelineConfig(), mesh=mesh, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SpectrumAnalyzer(PipelineConfig())

@@ -1114,3 +1114,66 @@ def test_cli_selftest_passes_on_card(card, capsys):
     assert main(["selftest"]) == 0
     out = capsys.readouterr().out
     assert "selftest: PASS" in out and out.count("[PASS]") == 6
+
+
+# ---------------------------------------------------------------- shard/
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks(tmp_path_factory):
+    """A 2-rank Gloo group on cuda:0 (two ranks on one card: NCCL refuses
+    them, so each collective stages through the host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch_shard_harness import run_group
+
+    return run_group(tmp_path_factory.mktemp("gloo_cuda"), "shard_cases_cuda", 2,
+                     backend="gloo", cases="GLOO")
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch_shard_harness import run_group
+
+    return run_group(tmp_path_factory.mktemp("nccl_cuda"), "shard_cases_cuda", 1,
+                     backend="nccl", cases="NCCL")
+
+
+@pytest.mark.parametrize("mode", ["BYPASS", "CUSTOM"])
+def test_sharded_gloo_ranks_on_one_card_equal_single_device(gloo_ranks, mode):
+    import shard_cases_cuda as cases
+
+    results, errors = gloo_ranks
+    assert "gloo_spectrum" in results, errors
+    got = results["gloo_spectrum"]
+    assert got["backend"] == "gloo"
+    pipe = SpectrumPipeline(PipelineConfig(channels=4))
+    pipe.upload_sos(cases.SOS)
+    st, mags = pipe.initial_state(), []
+    for part in np.split(cases.spectrum_input(), 2, axis=-1):
+        out, st = pipe.process(part, st, FilterMode[mode])
+        mags.append(out["magnitude"].cpu().numpy())
+    mag, sos_state = got[mode]
+    assert np.array_equal(mag, np.concatenate(mags, axis=-2))
+    assert np.array_equal(sos_state, st.sos_state.cpu().numpy())
+
+
+def test_latency_pipeline_on_a_one_rank_nccl_group(nccl_rank):
+    """The NCCL route's all-gather, all-to-all and reduce-scatter on the
+    card; the latency engine within 1e-5 of the throughput engine's peak."""
+    import shard_cases_cuda as cases
+
+    results, errors = nccl_rank
+    assert "nccl_latency" in results, errors
+    got = results["nccl_latency"]
+    assert got["backend"] == "nccl" and got["collectives"] > 0
+    pipe = SpectrumPipeline(PipelineConfig(channels=1))
+    x = cases.latency_input()
+    ref = pipe.process(x[:N], pipe.initial_state())[0]["magnitude"][0, 0].cpu().numpy()
+    assert np.abs(got["BYPASS"] - ref).max() / ref.max() < 1e-5
+    pipe.upload_sos(cases.SOS)
+    ref = pipe.process(x, pipe.initial_state(), FilterMode.CUSTOM)[0]["magnitude"][0].cpu().numpy()
+    for f in range(3):
+        assert np.abs(got["CUSTOM"][f] - ref[f]).max() / ref[f].max() < 1e-5, f

@@ -264,8 +264,21 @@ def test_feeder_surfaces_errors_after_staged_chunks_and_restarts():
         assert f.get(timeout=5).flatten()[0] == 4.0
     finally:
         f.stop()
-    with pytest.raises(NotImplementedError, match="A13"):
-        StreamFeeder(source.CallbackSource(flaky), 32, sharding=object(), device="cpu")
+    # sharding= (a 1 x 1 mesh outside torch.distributed): the whole chunk
+    # is this rank's block, handed over as a ShardedArray on the mesh's device
+    from tpu_sdr_torch.shard import make_sdr_mesh
+
+    mesh = make_sdr_mesh(devices="cpu")
+    with pytest.raises(ValueError, match="mesh's device"):
+        StreamFeeder(source.CallbackSource(flaky), 32, sharding=mesh, device="cuda")
+    block = lambda n: np.arange(2 * n, dtype=np.float32).reshape(2, n)
+    f = StreamFeeder(source.CallbackSource(block), 32, sharding=mesh).start()
+    try:
+        got = f.get(timeout=5)
+    finally:
+        f.stop()
+    assert f.device == mesh.device and got.shape == (2, 32)
+    assert torch.equal(got.local, torch.as_tensor(block(32)))
 
 
 def test_feeder_iq_planes_feed_process_planes():

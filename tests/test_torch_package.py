@@ -2,8 +2,8 @@
 
 Each package of ``tpu_sdr_torch`` binds every name that its ``tpu_sdr``
 counterpart's ``__init__.py`` binds (read from the reference's source, so a
-name added there later shows up here). ``tpu_sdr.shard`` (ROADMAP A13) is
-the one package not ported yet, and no package here re-exports it.
+name added there later shows up here), ``shard`` included; so do the
+time-sharded module-level names of ``kernels.biquad`` and ``kernels.fft``.
 
 The loader tests stand a stub in for nvcc: a script that counts its runs and
 writes its output slowly, so that two builds racing into one file would show
@@ -22,10 +22,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PACKAGES = ("", ".kernels", ".runtime", ".core", ".control", ".transport", ".gui", ".bench")
+PACKAGES = ("", ".kernels", ".runtime", ".core", ".control", ".transport", ".gui", ".bench",
+            ".shard")
 # Names a reference package exports that the port leaves out on purpose, by
-# ROADMAP item. None of the packages above has one: the sharded names (A13)
-# live in tpu_sdr.shard.
+# ROADMAP item. None of the packages above has one.
 GAPS: dict[str, set] = {}
 
 
@@ -48,6 +48,19 @@ def test_package_exports_the_reference_names(package):
     port = importlib.import_module("tpu_sdr_torch" + package)
     missing = sorted(n for n in names - GAPS.get(package, set()) if not hasattr(port, n))
     assert not missing, f"tpu_sdr_torch{package} lacks {missing}"
+
+
+def test_time_sharded_names_exist():
+    """The four names the sharded engines brought (ROADMAP A13), with the
+    reference's keyword arguments."""
+    import inspect
+
+    from tpu_sdr_torch.kernels import biquad, fft
+
+    for name in ("sosfilt_blocked_timesharded", "sosfilt_blocked_composite_timesharded"):
+        assert "time_axis" in inspect.signature(getattr(biquad, name)).parameters
+    assert "time_axis" in inspect.signature(biquad.sosfilt_blocked_composite_bank).parameters
+    assert callable(fft.fft_4step_sharded)
 
 
 def test_package_level_imports_the_gui_needs():

@@ -66,8 +66,19 @@ def test_iq_and_batched_scan_match_jax():
 
 
 def test_validation_and_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        scanner.SpectrumScanner(mesh=object(), device="cpu")
+    # mesh= on a 1 x 1 mesh (no process group): the carrier-sharded bank's
+    # path, bit for bit the single-device scan; a device beside it refused
+    from tpu_sdr_torch.shard import make_sdr_mesh
+
+    mesh = make_sdr_mesh(devices="cpu")
+    x = _tones([(137.5e3, 0.4), (362.5e3, 0.02)], 65536)
+    kw = dict(channel_bw=25e3, k_per_dispatch=8, taps_per_phase=8)
+    one = scanner.SpectrumScanner(FS, 0.0, 500e3, device="cpu", **kw).scan(x)
+    meshed = scanner.SpectrumScanner(FS, 0.0, 500e3, mesh=mesh, **kw).scan(x)
+    np.testing.assert_array_equal(meshed.power, one.power)
+    np.testing.assert_array_equal(meshed.occupied, one.occupied)
+    with pytest.raises(ValueError, match="mesh's devices"):
+        scanner.SpectrumScanner(mesh=mesh, device="cpu")
     with pytest.raises(ValueError):
         scanner.SpectrumScanner(FS, 100.0, 50.0, device="cpu")
     with pytest.raises(ValueError):

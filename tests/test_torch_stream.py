@@ -324,7 +324,8 @@ def test_import_pulls_in_neither_jax_nor_tpu_sdr():
         "tpu_sdr_torch.transport.serial_port, tpu_sdr_torch.transport.ipstack, "
         "tpu_sdr_torch.transport.crc32, tpu_sdr_torch.transport.framing, "
         "tpu_sdr_torch.gui, tpu_sdr_torch.gui.server, tpu_sdr_torch.bench.roofline, "
-        "tpu_sdr_torch.bench.trace, tpu_sdr_torch.__main__\n"
+        "tpu_sdr_torch.bench.trace, tpu_sdr_torch.__main__, tpu_sdr_torch.shard, "
+        "tpu_sdr_torch.shard.distributed, tpu_sdr_torch.shard.halo, tpu_sdr_torch.core.comm, tpu_sdr_torch.core.halo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_sdr' or m.startswith('tpu_sdr.')]\n"
         "assert not bad, bad\n"
@@ -362,8 +363,10 @@ def test_cpu_run_never_launches_the_kernel(port):
     ["hop", "bank", "time-axis"],
 )
 def test_unported_paths_raise(port, case):
-    """Time sharding still raises, naming its ROADMAP item; hop < N and
-    per-channel banks, ported now, run."""
+    """Paths that once raised, ported now, run: hop < N, per-channel banks,
+    and ``time_axis`` (here the time axis of a 1 x 1 mesh outside
+    torch.distributed, which exchanges nothing: the same bits as no axis;
+    tests/test_torch_shard_*.py run it on 2 and 4 ranks)."""
     x = np.zeros(N, np.float32)
     if case == "hop":
         p = SpectrumPipeline(PipelineConfig(hop=8192), device="cpu")
@@ -376,12 +379,21 @@ def test_unported_paths_raise(port, case):
         assert p.bank_custom["op"].T.shape == (1, 128, 128)
         assert p.bank_custom["pp"] is p.bank_fixed["pp"]
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stream.process_stream(
-                torch.as_tensor(x)[None], port.initial_state(), port.bank_fixed,
-                port.bank_custom, port.hann_w, port.plan, mode_index=0,
-                cfg=port.cfg, time_axis="t",
-            )
+        from tpu_sdr_torch.shard import make_sdr_mesh
+
+        axis = make_sdr_mesh(devices="cpu").time
+        xs = torch.as_tensor(np.random.default_rng(3).standard_normal((1, 2 * N)), dtype=torch.float32)
+        for mode_index in (0, 2):
+            outs = [
+                stream.process_stream(
+                    xs, port.initial_state(), port.bank_fixed, port.bank_custom,
+                    port.hann_w, port.plan, mode_index=mode_index, cfg=port.cfg, time_axis=ta,
+                )
+                for ta in (axis, None)
+            ]
+            assert torch.equal(outs[0][0]["magnitude"], outs[1][0]["magnitude"])
+            assert torch.equal(outs[0][1].sos_state, outs[1][1].sos_state)
+            assert int(outs[0][1].frame_count) == 2
 
 
 def test_fused_two_pass_ignored_by_bf16_tier():

@@ -84,17 +84,22 @@ class SpectrumAnalyzer:
         device=None,
     ):
         """``device``: None runs on CUDA (raising without a GPU), "cpu"
-        the kernels' plain versions. ``mesh`` (the sharded engine) is not
-        ported yet."""
+        the kernels' plain versions. ``mesh`` (a ``shard.mesh.SdrMesh``)
+        runs the sharded engine on the mesh's devices: every rank of the
+        mesh drives its own analyzer with the same commands and chunks, and
+        ``process`` returns the gathered (global) magnitudes on each."""
         self.cfg = cfg or PipelineConfig()
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "SpectrumAnalyzer(mesh=...): the sharded engine is ROADMAP "
-                "queue A item 13 (shard/ on torch.distributed)"
-            )
-        from tpu_sdr_torch.runtime.stream import SpectrumPipeline
+            if device is not None:
+                raise ValueError("mesh= runs on the mesh's devices; pass no device")
+            from tpu_sdr_torch.shard import ShardedSpectrumPipeline
 
-        self.pipe = SpectrumPipeline(self.cfg, device=device)
+            self.pipe = ShardedSpectrumPipeline(self.cfg, mesh)
+        else:
+            from tpu_sdr_torch.runtime.stream import SpectrumPipeline
+
+            self.pipe = SpectrumPipeline(self.cfg, device=device)
         self.decoder = CommandDecoder()
         self.filter_mode = FilterMode.BYPASS  # reset default, command_control.vhd:31
         self.comm_mode = CommMode.ETHERNET  # default, sequ2.vhd:82-96
@@ -252,6 +257,8 @@ class SpectrumAnalyzer:
         out, new_state = self.pipe.process(
             samples, state, self.filter_mode, outputs
         )
+        if self.mesh is not None:
+            out = self.pipe.gather(out)
         self.state = new_state
         self._complex_stream = is_complex
         n_frames = shape[-1] // self.cfg.effective_hop  # frames per chunk (hop-aware)

@@ -136,6 +136,9 @@ class GuiBackend(CaptureMixin, DisplayMixin, ZoomMixin, AudioScanMixin):
         self._trace_sig = None
         self._trace_peak = None
         self._trace_avg = None
+        # The acquisition thread updates the traces while an HTTP thread may
+        # disable or clear them: both sides hold this lock.
+        self._trace_lock = threading.Lock()
         # Band-power trigger (classic analyzer capture): 'normal' shows
         # only frames whose in-band peak level crosses the threshold;
         # 'single' freezes on the first crossing until re-armed.
@@ -811,9 +814,8 @@ class GuiBackend(CaptureMixin, DisplayMixin, ZoomMixin, AudioScanMixin):
         self.waterfall.clear()
         self.sa.stats.reset()
         self._fps_window.clear()
-        self._trace_sig = None
-        self._trace_peak = None
-        self._trace_avg = None
+        with self._trace_lock:
+            self._trace_sig = self._trace_peak = self._trace_avg = None
         self.emit("plot_reset", {})
         self.status("plot reset")
 
@@ -863,10 +865,11 @@ class GuiBackend(CaptureMixin, DisplayMixin, ZoomMixin, AudioScanMixin):
             updates["iq_correction"] = bool(cfg["iq_correction"])
         if "q15_faithful" in cfg:
             updates["q15_faithful"] = bool(cfg["q15_faithful"])
-        for k, v in updates.items():
-            setattr(self, k, v)
-        if updates.get("traces_enabled") is False:
-            self._trace_sig = self._trace_peak = self._trace_avg = None
+        with self._trace_lock:
+            for k, v in updates.items():
+                setattr(self, k, v)
+            if updates.get("traces_enabled") is False:
+                self._trace_sig = self._trace_peak = self._trace_avg = None
         if updates.get("iq_correction") is False:
             self._iqcorr_rt = None  # re-converge fresh on re-enable
         if updates.get("q15_faithful") is False:

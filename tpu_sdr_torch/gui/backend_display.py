@@ -46,18 +46,19 @@ class DisplayMixin:
         d, _ = refine_peak(window, peak)
         peak_interp_khz = float(base + lo + peak + d) * fs / n / 1000.0
         traces = {}
-        if self.traces_enabled:
-            # snapshot to locals: the HTTP thread may null these concurrently
-            # (update_config/reset_plot); compute on locals, assign back once
-            sig = (mode, getattr(self, "_iq", False), base, lo, hi, pts)
-            pk, av = self._trace_peak, self._trace_avg
-            if sig != self._trace_sig or pk is None or av is None:
-                pk = dec.astype(np.float64)
-                av = dec.astype(np.float64)
-            else:
-                pk = np.maximum(pk, dec)
-                av = av + self.trace_alpha * (dec - av)
-            self._trace_sig, self._trace_peak, self._trace_avg = sig, pk, av
+        with self._trace_lock:  # update_config / reset_plot change these
+            enabled = self.traces_enabled
+            if enabled:
+                sig = (mode, getattr(self, "_iq", False), base, lo, hi, pts)
+                pk, av = self._trace_peak, self._trace_avg
+                if sig != self._trace_sig or pk is None or av is None:
+                    pk = dec.astype(np.float64)
+                    av = dec.astype(np.float64)
+                else:
+                    pk = np.maximum(pk, dec)
+                    av = av + self.trace_alpha * (dec - av)
+                self._trace_sig, self._trace_peak, self._trace_avg = sig, pk, av
+        if enabled:
             traces = {
                 "trace_peak": np.round(pk, 4).tolist(),
                 "trace_avg": np.round(av, 4).tolist(),

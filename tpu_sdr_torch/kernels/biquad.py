@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from tpu_sdr_torch.core import comm
 from tpu_sdr_torch.kernels import window
 from tpu_sdr_torch.kernels.cuda import launch
 
@@ -256,11 +257,22 @@ def alb_step(op, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (op.ALB * z[..., None, :]).sum(dim=-1) + w
 
 
-def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor):
+def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor, time_axis=None):
     """The frame chain over a dispatch: z (..., m) entry state, w_frames
     (..., F, m) each frame's zero-state end state -> (z_starts (..., F, m),
     the state after the last frame (..., m)). A Python loop of
-    ``alb_step`` over the F frames."""
+    ``alb_step`` over the F frames.
+
+    ``time_axis`` (a ``shard.mesh.MeshAxis``): the frames are this shard's
+    run of a stream sharded over that axis. The (..., F, m) summaries are
+    all-gathered in frame order, every shard replays the identical global
+    chain, and each keeps its own frames' starts; the final state is the
+    global one, the same on every shard (bit-identical to one device)."""
+    if time_axis is not None:
+        f_loc = w_frames.shape[-2]
+        starts, z = frame_chain(op, z, comm.all_gather(w_frames, time_axis, -2))
+        lo = time_axis.index * f_loc
+        return starts[..., lo : lo + f_loc, :], z
     starts = []
     for f in range(w_frames.shape[-2]):
         starts.append(z)
@@ -284,12 +296,19 @@ def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
 
 
 def sosfilt_blocked_composite(
-    op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor
+    op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor, *, time_axis=None
 ):
     """Composite-cascade filter: x (..., T), T a multiple of B*L.
 
     zi: (..., S, 2) scipy-convention state. Returns (y (..., T),
     zf (..., S, 2)). The frame chain is ``frame_chain``.
+
+    ``time_axis`` (a ``MeshAxis``): x is this shard's run of frames of a
+    stream sharded over that axis, and zi the GLOBAL stream-head state
+    (replicated). Only the per-frame m-vector summaries cross the axis;
+    every shard replays the identical global frame chain and keeps its own
+    starts, so y is bit-identical to this shard's frames of the one-device
+    result and zf is the global final state.
     """
     L, B, m = op.block, op.frame_blocks, op.state_dim
     lead = x.shape[:-1]
@@ -300,10 +319,18 @@ def sosfilt_blocked_composite(
     y_zs, zhat = _composite_frame_terms(op, v)
 
     # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
-    z_starts, z = frame_chain(op, z, zhat[..., -1, :])
+    z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
 
     y = _composite_emit(op, y_zs, zhat, z_starts)
     return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)
+
+
+def sosfilt_blocked_composite_timesharded(
+    op: BlockedSOSComposite, x_local: torch.Tensor, zi: torch.Tensor, *, time_axis
+):
+    """The reference's name for ``sosfilt_blocked_composite`` over a time
+    axis. Returns (y_local, zf_global)."""
+    return sosfilt_blocked_composite(op, x_local, zi, time_axis=time_axis)
 
 
 def precompute_composite_bank(
@@ -349,10 +376,17 @@ def bank_frames(channels: int) -> int:
 
 
 def sosfilt_blocked_composite_bank(
-    op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor
+    op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor, *,
+    time_axis=None, channels: int | None = None,
 ):
     """Per-channel-coefficients cascade: x (..., C, T), zi (..., C, S, 2) ->
     (y (..., C, T), zf (..., C, S, 2)).
+
+    ``time_axis``: the frames are one shard of a stream sharded over that
+    mesh axis; only the per-frame (C, m) summaries cross it
+    (``frame_chain``). ``channels``: the bank's whole channel count when
+    ``op`` holds one channel shard's rows; every product then keeps the
+    call shape of the whole bank (``bank_frames(channels)``).
 
     The math of ``sosfilt_blocked_composite`` with every constant taken per
     channel: the channel axis leads each product (a batched call of
@@ -366,10 +400,10 @@ def sosfilt_blocked_composite_bank(
     lead = x.shape[:-2]
     F = x.shape[-1] // (B * L)
     v = x.reshape(*lead, C, F, B, L).movedim(-4, 0)  # (C, ..., F, B, L)
-    frames = bank_frames(C)
+    frames = bank_frames(C if channels is None else channels)
     y_zs, zhat = _composite_frame_terms(op, v, frames)
     w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
-    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w)
+    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w, time_axis)
     y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
     return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
 
@@ -538,6 +572,36 @@ def sosfilt_blocked(
         y_zs = _canonical_matmul(v, op.T[s].mT, BLOCK_ROWS)
         f = _canonical_matmul(v, op.P[s].mT, BLOCK_ROWS)
         z_in, z_final = _block_state_chain(op.AL[s], f, zi[..., s, :], fb)
+        v = y_zs + _canonical_matmul(z_in, op.M[s].mT, BLOCK_ROWS)
+        zf_out.append(z_final)
+    return v.reshape(*lead, G * L), torch.stack(zf_out, dim=-2)
+
+
+def sosfilt_blocked_timesharded(
+    op: BlockedSOS, x_local: torch.Tensor, zi: torch.Tensor, *, time_axis, frame_blocks: int
+):
+    """Time-sharded per-section cascade: x_local (..., T_local) is this
+    shard's contiguous run of frames of ``frame_blocks`` blocks each, zi
+    (..., S, 2) the GLOBAL stream-head state (replicated). Per section, the
+    tiny per-frame affine summaries are all-gathered in frame order, every
+    shard replays the identical global frame chain (``_frame_chain``) and
+    keeps its own frames' starts: bit-identical to ``sosfilt_blocked`` with
+    the same ``frame_blocks`` on one device. Returns (y_local, zf_global)."""
+    L = op.block
+    lead = x_local.shape[:-1]
+    G = x_local.shape[-1] // L
+    F = G // frame_blocks
+    lo = time_axis.index * F
+    v = x_local.reshape(*lead, G, L)
+    zf_out = []
+    for s in range(op.n_sections):
+        y_zs = _canonical_matmul(v, op.T[s].mT, BLOCK_ROWS)
+        f = _canonical_matmul(v, op.P[s].mT, BLOCK_ROWS)
+        cmats, cvecs = _within_frame_prefix(op.AL[s], f, frame_blocks)
+        m_all = comm.all_gather(cmats[..., -1, :, :], time_axis, -3)
+        v_all = comm.all_gather(cvecs[..., -1, :, :], time_axis, -3)
+        z_final, z_starts = _frame_chain(m_all, v_all, zi[..., s, :])
+        z_in = _z_in_from_prefix(cmats, cvecs, z_starts[..., lo : lo + F, :, :])
         v = y_zs + _canonical_matmul(z_in, op.M[s].mT, BLOCK_ROWS)
         zf_out.append(z_final)
     return v.reshape(*lead, G * L), torch.stack(zf_out, dim=-2)

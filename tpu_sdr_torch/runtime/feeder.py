@@ -26,6 +26,13 @@ tensor copy of the host array.
 Complex (IQ) sources are split into re/im planes on the host (shape
 (2, ..., T) float32); consume those chunks with
 ``pipe.process_planes(x, state, mode)``.
+
+``sharding=mesh`` (a ``shard.mesh.SdrMesh``) feeds a sharded engine: each
+rank's feeder reads the whole chunk from its source, stages only this
+rank's (channel, time) block (channels on the chunk's second-to-last axis,
+time on its last) to the rank's device, and hands it over as a
+``ShardedArray`` for ``ShardedSpectrumPipeline.process`` (or
+``process_planes``).
 """
 
 from __future__ import annotations
@@ -48,13 +55,16 @@ class StreamFeeder:
         pace: bool = False,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding= needs the sharded runtime, which the port does not have yet "
-                "(ROADMAP A13)"
-            )
         if depth < 1:
             raise ValueError("depth must be >= 1")
+        if sharding is not None and device is not None and torch.device(device) != sharding.device:
+            raise ValueError(
+                f"device={device!r} beside sharding on {sharding.device}: a sharded feeder "
+                "stages on its mesh's device"
+            )
+        self.sharding = sharding
+        if sharding is not None:
+            device = sharding.device
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -122,10 +132,15 @@ class StreamFeeder:
         try:
             while not self._stop.is_set():
                 host = self._read_host()
+                shape = host.shape
+                if self.sharding is not None:
+                    channel_dim = -2 if host.ndim >= 2 else None
+                    host = np.ascontiguousarray(
+                        host[self.sharding.block_index(shape, channel_dim, -1)])
                 if self.device.type == "cuda":
-                    item = self._stage_cuda(host)
+                    item = (*self._stage_cuda(host), shape)
                 else:
-                    item = (torch.from_numpy(host.copy()), None)
+                    item = (torch.from_numpy(host.copy()), None, shape)
                 # block (backpressure) until the consumer frees a slot
                 while not self._stop.is_set():
                     try:
@@ -137,18 +152,23 @@ class StreamFeeder:
         except BaseException as e:  # surfaced in get()
             self._error = e
 
-    def _hand_over(self, item) -> torch.Tensor:
-        dev, done = item
+    def _hand_over(self, item):
+        dev, done, shape = item
         if done is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(done)
             # the tensor was allocated on the side stream: keep the caching
             # allocator from reusing its memory before the consumer is done
             dev.record_stream(stream)
+        if self.sharding is not None:
+            from tpu_sdr_torch.shard.mesh import ShardedArray
+
+            return ShardedArray(dev, tuple(shape))
         return dev
 
-    def get(self, timeout: float = 30.0) -> torch.Tensor:
-        """Next staged chunk (FIFO order), on the feeder's device; on CUDA
+    def get(self, timeout: float = 30.0):
+        """Next staged chunk (FIFO order), on the feeder's device (with
+        ``sharding``, this rank's block as a ``ShardedArray``); on CUDA
         the caller's current stream waits for its copy. Raises feeder errors
         promptly (short-poll so a dead producer fails fast)."""
         deadline = time.monotonic() + timeout

@@ -10,8 +10,10 @@ median floor + ``threshold_db`` are flagged. A real tone of amplitude A
 in-channel reads A^2/4 (one mixer image), an IQ tone A^2.
 
 The default FIR (16 taps a branch, Blackman-Harris) keeps adjacent
-channels far below the threshold. ``mesh=`` (the carrier-sharded bank)
-raises: it is ROADMAP queue A item 13.
+channels far below the threshold. ``mesh=`` (a ``shard.mesh.SdrMesh``)
+spreads each batch's carriers over the mesh's channel axis and the stream
+over its time axis (``shard.ShardedDDCBank``); the input is then one
+stream, and the gathered planes give the single-device powers bit for bit.
 """
 
 from __future__ import annotations
@@ -72,10 +74,9 @@ class SpectrumScanner:
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "SpectrumScanner(mesh=...): the carrier-sharded bank is ROADMAP "
-                "queue A item 13 (shard/ on torch.distributed)"
-            )
+            if device is not None:
+                raise ValueError("mesh= runs on the mesh's devices; pass no device")
+            device = mesh.device
         if f_stop <= f_start:
             raise ValueError(f"empty span [{f_start}, {f_stop})")
         if channel_bw <= 0:
@@ -102,6 +103,16 @@ class SpectrumScanner:
             device=device,
         )
         self.device = self.bank.device
+        self.mesh = mesh
+        self._exec = self.bank
+        if mesh is not None:
+            from tpu_sdr_torch.shard.ddcbank import ShardedDDCBank
+
+            if self.k % mesh.shape["channel"]:
+                raise ValueError(
+                    f"k_per_dispatch={self.k} must divide over "
+                    f"{mesh.shape['channel']} channel shards")
+            self._exec = ShardedDDCBank(self.bank, mesh)
 
     @property
     def n_channels(self) -> int:
@@ -112,10 +123,15 @@ class SpectrumScanner:
         return self.bank._template.r
 
     def _measure_batch(self, x, centers, iq: bool) -> np.ndarray:
-        self.bank.retune([float(c) for c in centers])
-        batch = x.shape[1:-1] if iq else x.shape[:-1]
-        out, _ = (self.bank.process_planes if iq else self.bank.process)(
-            x, self.bank.initial_state(batch))
+        self._exec.retune([float(c) for c in centers])
+        if self.mesh is None:
+            batch = x.shape[1:-1] if iq else x.shape[:-1]
+            state = self.bank.initial_state(batch)
+        else:
+            state = self._exec.initial_state()
+        out, _ = (self._exec.process_planes if iq else self._exec.process)(x, state)
+        if self.mesh is not None:
+            out = self._exec.gather(out)
         # Discard the FIR transient (the first P-1 decimated outputs ramp
         # from zero history), then mean |z|^2 over time and any input
         # batch axes, per carrier: one (K,) array to the host.
@@ -128,12 +144,19 @@ class SpectrumScanner:
         return power.cpu().numpy().astype(np.float64)
 
     def _scan(self, x, iq: bool) -> ScanResult:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if self.mesh is None:
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        elif not torch.is_tensor(x):
+            x = np.asarray(x, np.float32)  # each rank uploads its own slice
         t = x.shape[-1]
         r = self.decimation
         p = self.bank._template.p
-        t_use = (t // r) * r
-        min_t = r * (p + 1)  # the FIR transient plus one output
+        ts = 1 if self.mesh is None else self.mesh.shape["time"]
+        grain = r * ts
+        t_use = (t // grain) * grain
+        # the FIR transient plus one output; each time shard also needs the
+        # (p-1)*r halo in its slice
+        min_t = max(r * (p + 1), ts * (p - 1) * r)
         if t_use < min_t:
             raise ValueError(f"need at least {min_t} samples; got {t}")
         x = x[..., :t_use]

@@ -34,6 +34,7 @@ import torch
 
 from tpu_sdr_torch.control import golden
 from tpu_sdr_torch.core.config import FilterMode, PipelineConfig
+from tpu_sdr_torch.core.halo import left_halo
 from tpu_sdr_torch.kernels import biquad, fft, magnitude, window
 from tpu_sdr_torch.kernels.cuda import iir_fft
 from tpu_sdr_torch.runtime import banks
@@ -91,12 +92,15 @@ def check_matmul_precision(expected: str):
         )
 
 
-def _run_iir(op, xw: torch.Tensor, zi: torch.Tensor):
+def _run_iir(op, xw: torch.Tensor, zi: torch.Tensor, cfg: PipelineConfig, time_axis=None):
     """The composite cascade, shared or per-channel bank (leading channel
-    axis on the leaves)."""
+    axis on the leaves; under channel sharding the shard's rows of a bank
+    of ``cfg.channels``), optionally time-sharded over ``time_axis``."""
     if op.T.ndim == 3:
-        return biquad.sosfilt_blocked_composite_bank(op, xw, zi)
-    return biquad.sosfilt_blocked_composite(op, xw, zi)
+        return biquad.sosfilt_blocked_composite_bank(
+            op, xw, zi, time_axis=time_axis, channels=cfg.channels
+        )
+    return biquad.sosfilt_blocked_composite(op, xw, zi, time_axis=time_axis)
 
 
 def process_stream(
@@ -110,7 +114,7 @@ def process_stream(
     mode_index: int,
     cfg: PipelineConfig,
     outputs: str = "magnitude",
-    time_axis: str | None = None,
+    time_axis=None,
 ):
     """Process a stream chunk x (..., channels, T), T a multiple of fft_size.
 
@@ -119,20 +123,21 @@ def process_stream(
     "pp": PallasSOSPlan or None}; a per-channel bank's op has a leading
     channel axis. hop < fft_size runs ``_process_stream_hop``.
 
-    Not ported yet (NotImplementedError): ``time_axis`` (ROADMAP queue A,
-    time sharding).
+    ``time_axis`` (a ``shard.mesh.MeshAxis``): x is this shard's run of a
+    stream sharded over that axis. The IIR state chain then all-gathers
+    per-frame summaries and stays bit-identical to the unsharded run; the
+    counters account for the global stream (``shard/pipeline.py``).
     """
-    if time_axis is not None:
-        raise NotImplementedError("time sharding: ROADMAP queue A (shard/)")
     n = cfg.fft_size
     if cfg.effective_hop != n:
         return _process_stream_hop(
             x, state, bank_fixed, bank_custom, hann_w, plan,
-            mode_index=mode_index, cfg=cfg, outputs=outputs,
+            mode_index=mode_index, cfg=cfg, outputs=outputs, time_axis=time_axis,
         )
     t = x.shape[-1]
     n_frames = t // n
     lead = x.shape[:-1]  # (..., channels)
+    t_global = t if time_axis is None else t * time_axis.size
 
     if cfg.pallas_geometry_ok() and outputs == "magnitude":
         bank = bank_fixed if mode_index != 2 else bank_custom
@@ -159,13 +164,13 @@ def process_stream(
             m = pp.state_dim
             w = iir_fft.iir_summaries(flat, pp).reshape(*lead, n_frames, m)
             z_starts, z_final = biquad.frame_chain(
-                pp, state.sos_state.reshape(*lead, m), w
+                pp, state.sos_state.reshape(*lead, m), w, time_axis
             )
             mag = iir_fft.spectrum_from_state(flat, z_starts.reshape(-1, m), pp)
             zf = z_final.reshape(*lead, m // 2, 2)
         else:
             xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
-            y, zf = _run_iir(bank["op"], xw, state.sos_state)
+            y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
             mag = iir_fft.spectrum_from_state(
                 _maybe_bf16_y(cfg, y).reshape(-1, n), zs(), pp,
                 apply_window=False, **kw,
@@ -180,7 +185,7 @@ def process_stream(
             zf = state.sos_state
         else:
             op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
-            y, zf = _run_iir(op, xw, state.sos_state)
+            y, zf = _run_iir(op, xw, state.sos_state, cfg, time_axis)
         # 3. Per-frame DFT of the real frames + output decode.
         frames = y.reshape(*lead, n_frames, n)
         fr, fi = fft.fft_4step(frames, None, plan)
@@ -188,14 +193,15 @@ def process_stream(
 
     new_state = StreamState(
         sos_state=zf,
-        window_phase=(state.window_phase + t) % n,
-        frame_count=state.frame_count + n_frames,
+        window_phase=(state.window_phase + t_global) % n,
+        frame_count=state.frame_count + t_global // n,
     )
     return out, new_state
 
 
 def _process_stream_hop(
     x, state, bank_fixed, bank_custom, hann_w, plan, *, mode_index, cfg, outputs,
+    time_axis=None,
 ):
     """Overlapped (STFT) framing: hop < fft_size, with carried history.
 
@@ -205,24 +211,35 @@ def _process_stream_hop(
     streaming equals a one-shot run bit for bit. Magnitude output at the
     128x128 geometry takes the spectrum kernel with the window inside it
     (the raw frames, at every tier); other outputs the plain path.
+
+    Under time sharding (``time_axis``) the sharded IIR's overlap tail goes
+    to the right-hand neighbour (``core.halo.left_halo``), shard 0 splices
+    in the carried history, and the new history is the last shard's tail,
+    replicated.
     """
     n = cfg.fft_size
     hop = cfg.effective_hop
     t = x.shape[-1]
     lead = x.shape[:-1]
     n_frames = t // hop
+    n_shards = 1 if time_axis is None else time_axis.size
 
     # 1. IIR on the raw continuous stream.
     if mode_index == 0:
         y, zf = x, state.sos_state
     else:
         op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
-        y, zf = _run_iir(op, x, state.sos_state)
+        y, zf = _run_iir(op, x, state.sos_state, cfg, time_axis)
 
     # 2. Overlapped frames from the left context + this chunk.
-    ext = torch.cat([state.history, y], dim=-1)  # (..., n - hop + t)
+    if time_axis is None:
+        ext = torch.cat([state.history, y], dim=-1)  # (..., n - hop + t)
+        new_history = ext[..., t:].contiguous()
+    else:
+        tail = y[..., t - (n - hop) :].contiguous()
+        left, new_history = left_halo(tail, state.history, time_axis)
+        ext = torch.cat([left, y], dim=-1)
     frames = ext.unfold(-1, n, hop)  # (..., F, n), a view
-    new_history = ext[..., t:].contiguous()
 
     # 3. Window + DFT + decode.
     if cfg.pallas_geometry_ok() and outputs == "magnitude":
@@ -240,8 +257,8 @@ def _process_stream_hop(
 
     new_state = StreamState(
         sos_state=zf,
-        window_phase=(state.window_phase + t) % n,
-        frame_count=state.frame_count + n_frames,
+        window_phase=(state.window_phase + t * n_shards) % n,
+        frame_count=state.frame_count + n_frames * n_shards,
         history=new_history,
     )
     return out, new_state
@@ -258,7 +275,7 @@ def process_stream_complex(
     mode_index: int,
     cfg: PipelineConfig,
     outputs: str = "magnitude",
-    time_axis: str | None = None,
+    time_axis=None,
 ):
     """Complex (IQ) stream: xs (2, ..., channels, T) stacked re/im planes.
 
@@ -267,15 +284,14 @@ def process_stream_complex(
     (``initial_state(batch_shape=(2,))``). Magnitude output at the 128x128
     geometry takes the complex spectrum kernel (``spectrum_mag_complex``);
     other outputs combine the plain path's spectra of the two planes by DFT
-    linearity, X = FFT(re) + i*FFT(im).
+    linearity, X = FFT(re) + i*FFT(im). ``time_axis`` as in
+    ``process_stream``.
     """
-    if time_axis is not None:
-        raise NotImplementedError("time sharding: ROADMAP queue A (shard/)")
     n = cfg.fft_size
     if not (cfg.pallas_geometry_ok() and outputs == "magnitude" and cfg.effective_hop == n):
         out, new_state = process_stream(
             xs, state, bank_fixed, bank_custom, hann_w, plan,
-            mode_index=mode_index, cfg=cfg, outputs="complex",
+            mode_index=mode_index, cfg=cfg, outputs="complex", time_axis=time_axis,
         )
         fr = out["re"][0] - out["im"][1]
         fi = out["im"][0] + out["re"][1]
@@ -284,13 +300,14 @@ def process_stream_complex(
         return _decode_outputs(cfg, fr, fi, outputs), new_state
     t = xs.shape[-1]
     n_frames = t // n
+    t_global = t if time_axis is None else t * time_axis.size
     lead = xs.shape[1:-1]  # (..., channels)
     bank = bank_fixed if mode_index != 2 else bank_custom
     if mode_index == 0:
         y, zf, apply_window = xs, state.sos_state, True
     else:
         xw = (xs.reshape(2, *lead, n_frames, n) * hann_w).reshape(2, *lead, t)
-        y, zf = _run_iir(bank["op"], xw, state.sos_state)
+        y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
         apply_window = False
     yr, yi = y[0], y[1]
     # bf16_io: only the filtered planes reach the kernel as bf16. In BYPASS
@@ -304,8 +321,8 @@ def process_stream_complex(
     )
     new_state = StreamState(
         sos_state=zf,
-        window_phase=(state.window_phase + t) % n,
-        frame_count=state.frame_count + n_frames,
+        window_phase=(state.window_phase + t_global) % n,
+        frame_count=state.frame_count + t_global // n,
         history=state.history,
     )
     return {"magnitude": mag.reshape(*lead, n_frames, n)}, new_state
