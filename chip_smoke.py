@@ -30,11 +30,14 @@ Phases (each raises on failure):
      scaled integer FFT (``q15_fft``) at F = 1, 8 and 64 frames, with and
      without the RTL window, on random int16 frames and full-scale tones,
      and the saturating Q15 cascade (``sosfilt_q15``, window included) on 1
-     and 4 rows of 2 frames with a carried state, also against
+     and 4 rows of 2 frames with a carried state, and at 1 to 8 sections on
+     1, 4 and 33 rows (packed warps left part-full) of full-scale input that
+     drives every section to the rails, also against
      ``golden.sosfilt_q15_intended``; the Viterbi decoder (``viterbi``, K3)
      bit for bit on 64 rows of a K = 7 rate-1/2 code (2048 info bits, soft
-     and hard, whose metrics tie), a punctured rate, k = 3, k = 12 (2048
-     states) and one row;
+     and hard, whose metrics tie), a punctured rate, k = 3, 4 and 5 (fewer
+     states than lanes), k = 12 (2048 states, the block route), one row and
+     rows too long for shared memory (the decisions in device memory);
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
@@ -112,11 +115,14 @@ Phases (each raises on failure):
      plain version); each
      path's end-to-end dispatch time (the facade's with its device->host
      copy), compared paths in alternating turns; the Q15 kernels (K1 at F
-     = 64, K2 at 1 row x 2 frames beside its chain's latency floor), the
-     Q15 paths' wall per 16384-sample chunk and ``Q15Stream``'s steady
-     rate at depth 1; K3 at the burst path's decode beside its latency
-     floor (measured cycles of one dependent trellis step and barrier,
-     ``tpu_sdr_viterbi_step_probe``) and the new paths' walls;
+     = 64, K2 at 1 row x 2 frames beside its chain's latency floor, with
+     its cycles a step and a sample, and at 4 rows), the Q15 paths' wall
+     per 16384-sample chunk and ``Q15Stream``'s steady rate at depth 1; K3
+     at the burst path's decode beside its latency floor (measured cycles
+     of one dependent trellis step and barrier,
+     ``tpu_sdr_viterbi_step_probe``), its cycles a step, and at k = 12, and
+     the new paths' walls; K2 or K3 faster than its floor by more than 5 %
+     fails (the floor would be wrong);
   6. profile: each path's last traced dispatch as
      ``tpu_sdr_torch.bench.trace.capture_op_table`` attributes it (every
      device op charged to the dispatch that launched it, by the launch's
@@ -124,9 +130,10 @@ Phases (each raises on failure):
      idle share against the untraced wall of phase 5; the port's kernels
      seen against their wrappers' launch counts. The steps of one K1
      launch (the split Q15 path, filtered and bypass, and the transport)
-     are profiled first of all, right after the build, where every launch
-     must be seen (a capture that loses one is taken again, three times at
-     most); the paths of thousands of launches are profiled last;
+     and the all-device Q15 step (K2 and K1) are profiled first of all,
+     right after the build, where every launch must be seen (a capture
+     that loses one is taken again, three times at most); the paths of
+     thousands of launches are profiled last;
   7. small dispatches: CUSTOM at 1 channel x 1 and x 4 frames, wall and
      device time, beside the bench shape's of phases 5 and 6;
   8. the web GUI: ``GuiBackend(device="cuda")`` served on 127.0.0.1 and
@@ -683,7 +690,8 @@ def dispatch_wall(step, reps: int = 5, calls: int = 10,
 
 # Per wrapper: its device kernels that end a launch, one per launch
 # (csrc/<name>.cu; fm_demod runs its three passes in one kernel with
-# de-emphasis, its discriminator alone without).
+# de-emphasis, its discriminator alone without; viterbi its warp route up to
+# k = 7, its block route above).
 LAST_DEVICE_KERNEL = {
     "spectrum_bypass": ("spectrum_bypass_kernel",), "spectrum_iir": ("spectrum_iir_kernel",),
     "iir_summaries": ("iir_summaries_kernel",),
@@ -693,7 +701,7 @@ LAST_DEVICE_KERNEL = {
     "spectrum_half": ("spectrum_bypass_kernel", "spectrum_iir_kernel"),
     "fft_mag_fused": ("fft_mag_fused_kernel",),
     "q15_fft": ("q15_fft_kernel",), "sosfilt_q15": ("sosfilt_q15_kernel",),
-    "viterbi": ("viterbi_kernel",),
+    "viterbi": ("viterbi_warp_kernel", "viterbi_kernel"),
 }
 
 
@@ -1800,6 +1808,12 @@ WELCH_REL = 1e-5  # of the peak, against scipy.signal.welch in float64
 Q15_STEP_CYCLES, Q15_STATE_CYCLES = 24, 4
 
 
+# K2's sweep in [3]: samples a row (the plain version walks them one step of
+# tensor operations each, the oracle one Python step a section) and row
+# counts (1; a full packed warp at up to 4 sections; 33, part-full).
+K2_SWEEP_T, K2_SWEEP_ROWS = 2048, (1, 4, 33)
+
+
 def q15_tones(frames: int, seed: int) -> np.ndarray:
     """One channel of int16 samples: two tones at 0.45 of full scale each
     (bins 1638 and 4096) plus noise, so the sum reaches the rails."""
@@ -1876,6 +1890,40 @@ def phase_q15_kernels() -> dict:
         check(same and oracle, ("sosfilt_q15", rows))
         if rows == 1:
             errs["sosfilt_q15"] = err
+    # 1 to 8 sections, a lane each; rows packed 32 / G a warp (33 rows leave
+    # the last warp part-full), full-scale input and loud sections, so that
+    # every section's output reaches the rails.
+    rng = np.random.default_rng(85)
+    rom_k = window.hann_q16_rom(K2_SWEEP_T // 4, device="cuda")
+    for sections in range(1, 9):
+        sos = np.zeros((sections, 6), np.int64)
+        sos[:, 0] = rng.integers(100, 128, sections)
+        sos[:, 1:3] = rng.integers(-128, 128, (sections, 2))
+        sos[:, 3] = 64
+        sos[:, 4] = rng.integers(-40, 40, sections)
+        sos[:, 5] = rng.integers(0, 30, sections)
+        sos_t = torch.as_tensor(sos, dtype=torch.int32, device="cuda")
+        for rows in K2_SWEEP_ROWS:
+            x_np = np.clip(np.round(rng.standard_normal((rows, K2_SWEEP_T)) * 32767), -32768,
+                           32767).astype(np.int16)
+            zi_np = rng.integers(-200_000, 200_000, (rows, sections, 2)).astype(np.int32)
+            x, zi = torch.as_tensor(x_np, device="cuda"), torch.as_tensor(zi_np, device="cuda")
+            got = biquad.sosfilt_q15_cuda(sos_t, x, zi, rom=rom_k)
+            ref = biquad.sosfilt_q15_plain(sos_t, x, zi, rom=rom_k)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, p) for g, p in zip(got, ref))
+            rails = int((got[0].abs() >= 32767).sum())
+            oracle = True
+            for r in range(rows):
+                xw = np.asarray(got[1][r].cpu().numpy())
+                oracle &= np.array_equal(xw, golden.rtl_window_q15(x_np[r], n=K2_SWEEP_T // 4))
+                y, zf = golden.sosfilt_q15_intended(sos, xw, zi_np[r])
+                oracle &= (np.array_equal(got[0][r].cpu().numpy(), y)
+                           and np.array_equal(got[2][r].cpu().numpy().astype(np.int64), zf))
+            print(f"[3] sosfilt_q15 {sections} section(s), {rows:2d} row(s) x {K2_SWEEP_T}, window, "
+                  f"full scale: bitwise equal to the plain version: {same}; to "
+                  f"golden.sosfilt_q15_intended: {oracle}; {rails} samples at the rails")
+            check(same and oracle and rails > 0, ("sosfilt_q15 sweep", sections, rows))
     return errs
 
 
@@ -2162,16 +2210,23 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
                              "library_ms": None, "bound_ms": floor_ms, "bound_by": "operations"}
     t = timing["sosfilt_q15"]
     by = bound(xk.numel() * (2 + 4), 0, int_ops=xk.numel() * 6 * 12)
+    t_len = xk.shape[-1]
+    steps = t_len + biquad.Q15_SECTION_DELAY * 5
+    ms4 = cuda_ms(lambda: biquad.sosfilt_q15_cuda(sos, xk.expand(4, -1).contiguous(),
+                                                  zi.expand(4, -1, -1).contiguous(), rom=rom),
+                  iters=10)
     print(f"[5] sosfilt_q15 1 row x 2 frames, window + 6 sections: kernel {t['ms']:.4f} ms "
-          f"({t['ms'] / 2:.4f} ms a frame); plain {plain_ms:.1f} ms (one call, host clock: "
-          f"{xk.shape[-1] + 5} steps of tensor operations); library none; bound: the chain's latency "
-          f"floor, {6} x {Q15_STEP_CYCLES} + {xk.shape[-1] - 1} x "
-          f"{Q15_STEP_CYCLES + Q15_STATE_CYCLES} cycles at {mhz:.0f} MHz = {floor_ms:.4f} ms -> "
-          f"kernel at {floor_ms / t['ms']:.1%} of it (a serial walk, samples x sections x "
-          f"{Q15_STEP_CYCLES}: {xk.shape[-1] * 6 * Q15_STEP_CYCLES / (mhz * 1e3):.4f} ms; bytes and "
-          f"throughput {by['bound_ms']:.6f} ms); 4 rows "
-          f"{cuda_ms(lambda: biquad.sosfilt_q15_cuda(sos, xk.expand(4, -1).contiguous(), zi.expand(4, -1, -1).contiguous(), rom=rom), iters=10):.4f} ms; "
-          f"{profiled(kernel)}")
+          f"({t['ms'] / 2:.4f} ms a frame; {t['ms'] * mhz * 1e3 / steps:.2f} cycles a step of the "
+          f"wavefront, {steps} steps = T + {biquad.Q15_SECTION_DELAY} x 5; "
+          f"{t['ms'] * mhz * 1e3 / t_len:.2f} cycles a sample, at {mhz:.0f} MHz); plain "
+          f"{plain_ms:.1f} ms (one call, host clock: {t_len + 5} steps of tensor operations); "
+          f"library none; bound: the chain's latency floor, {6} x {Q15_STEP_CYCLES} + "
+          f"{t_len - 1} x {Q15_STEP_CYCLES + Q15_STATE_CYCLES} cycles at {mhz:.0f} MHz = "
+          f"{floor_ms:.4f} ms -> kernel at {floor_ms / t['ms']:.1%} of it (a serial walk, samples "
+          f"x sections x {Q15_STEP_CYCLES}: {t_len * 6 * Q15_STEP_CYCLES / (mhz * 1e3):.4f} ms; "
+          f"bytes and throughput {by['bound_ms']:.6f} ms); 4 rows {ms4:.4f} ms "
+          f"({ms4 * mhz * 1e3 / steps:.2f} cycles a step); {profiled(kernel)}")
+    check(floor_ms / t["ms"] <= 1.05, ("sosfilt_q15 faster than its floor", floor_ms, t["ms"]))
     chunk = q15_tones(1, 120)
     steps = {}
     dev, split = pipes["all-device"], pipes["split"]
@@ -2203,9 +2258,13 @@ K3_CASES = (
     ("K=7 r1/2 hard (ties)", 7, FEC_POLYS, None, BURSTS, BURST_BITS, "hard"),
     ("K=7 r3/4 punctured", 7, FEC_POLYS, "3/4", BURSTS, BURST_BITS, "soft"),
     ("k=3", 3, (0o7, 0o5), None, 8, BURST_BITS, "soft"),
+    ("k=4 (8 states)", 4, (0o17, 0o13), None, 8, BURST_BITS, "soft"),
+    ("k=5 hard (16 states)", 5, (0o35, 0o23), None, 8, BURST_BITS, "hard"),
     ("k=12 (2048 states)", 12, (0o4335, 0o5723), None, 4, 512, "soft"),
     ("k=12 hard", 12, (0o4335, 0o5723), None, 2, 256, "hard"),
     ("one row", 7, FEC_POLYS, None, 1, BURST_BITS, "soft"),
+    # more steps than a row's decisions leave room for in shared memory
+    ("K=7 long rows", 7, FEC_POLYS, None, 2, 30000, "soft"),
 )
 # K3's work a state a step: two branch metrics (n products, n - 1 adds),
 # two subtractions of the maximum, two adds, a compare, a select and the max.
@@ -2296,9 +2355,13 @@ def phase_k3_vs_plain() -> float:
         torch.cuda.synchronize()
         diff = int((got != ref).sum())
         ber = float((got[:, :n_bits].cpu().numpy() != bits).mean())
+        route = ("block route" if k > 7 else "warp route, decisions in "
+                 + ("device memory" if viterbi.needs_scratch(t, k) else "shared memory"))
         print(f"[3] viterbi {label:22s} {rows} rows x {t} steps, {code.n_states} states"
-              f"{', punctured' if punct else ''}: kernel == plain bit for bit: {diff == 0} "
-              f"({diff} differing decisions); BER vs the sent bits {ber:.2e}")
+              f"{', punctured' if punct else ''} ({route}): kernel == plain bit for bit: "
+              f"{diff == 0} ({diff} differing decisions); BER vs the sent bits {ber:.2e}")
+        check(viterbi.needs_scratch(t, k) == (k > 7 or label == "K=7 long rows"),
+              ("viterbi route", label))
         check(diff == 0, ("viterbi", label))
         worst = max(worst, float((got.int() - ref.int()).abs().max()))
     return worst
@@ -2636,19 +2699,20 @@ def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
     timing = {"viterbi": {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound_ms, "bound_by": "operations"}}
     print(f"[5] viterbi {BURSTS} rows x {t} steps, {code.n_states} states (the burst path's "
-          f"decode): kernel {ms:.4f} ms ({ms * mhz * 1e3 / t:.1f} cycles a step at {mhz:.0f} MHz, "
-          f"forward and traceback); one row {one_row:.4f} ms; plain {plain_ms:.1f} ms (one call, "
+          f"decode, the warp route): kernel {ms:.4f} ms ({ms * mhz * 1e3 / t:.1f} cycles a step at "
+          f"{mhz:.0f} MHz, forward and traceback); one row {one_row:.4f} ms; plain {plain_ms:.1f} ms (one call, "
           f"host clock: {t} Python steps); library none; bound: the latency floor, {t} steps x "
           f"{cyc:.2f} cycles (tpu_sdr_viterbi_step_probe: a dependent ACS and a barrier, "
           f"{min(max(code.n_states, 64), 1024)} threads) at {mhz:.0f} MHz = {floor_ms:.4f} ms (bytes "
           f"and fp32 operations {b['bound_ms']:.6f} ms) -> kernel at {bound_ms / ms:.1%} of it; "
           f"{profiled(kernel)}")
+    check(bound_ms / ms <= 1.05, ("viterbi faster than its floor", bound_ms, ms))
     k12 = fec.ConvCode(12, (0o4335, 0o5723), device="cuda")
     x12 = torch.as_tensor(rng.standard_normal((4, 523, 2)).astype(np.float32), device="cuda")
     ms12 = cuda_ms(lambda: viterbi.viterbi_cuda(x12, k12._tables["out0"], k12._tables["out1"], 12),
                    iters=10)
-    print(f"[5] viterbi k=12 (2048 states, 1024 threads) 4 rows x 523 steps: kernel {ms12:.4f} ms "
-          f"({ms12 * mhz * 1e3 / 523:.1f} cycles a step)")
+    print(f"[5] viterbi k=12 (2048 states, 1024 threads, the block route) 4 rows x 523 steps: "
+          f"kernel {ms12:.4f} ms ({ms12 * mhz * 1e3 / 523:.1f} cycles a step)")
     steps = {"burst + FEC": lambda: burst_fec(modem, code, planes), **steps}
     walls = {}
     light = {"burst + FEC", "IQ corrector", "RDS chain", "scanner"}
@@ -2719,13 +2783,13 @@ def _api(port: int, route: str, body=None, method="POST"):
 
 
 def phase_one_kernel_steps() -> dict:
-    """The steps that launch one port kernel each, profiled before any
-    other work of the process: the split Q15 path at the reference's width
-    (one 16384-sample chunk; filtered: the native host filter, then K1;
-    bypass: K1) and the transport (a bypass chunk, K1, and its wire frame
-    out over UDP). Each traced step shows its one K1 launch (seen ==
-    made), with its device ops, busy and idle time and its untraced wall.
-    Returns label -> op table."""
+    """The steps that launch one or two port kernels each, profiled before
+    any other work of the process: the Q15 path at the reference's width
+    (one 16384-sample chunk; split filtered: the native host filter, then
+    K1; split bypass: K1; all-device: K2, then K1) and the transport (a
+    bypass chunk, K1, and its wire frame out over UDP). Each traced step
+    shows its launches (seen == made), with its device ops, busy and idle
+    time and its untraced wall. Returns label -> op table."""
     from tpu_sdr_torch import PipelineConfig
     from tpu_sdr_torch.runtime.q15 import Q15Pipeline
     from tpu_sdr_torch.transport import framing
@@ -2733,6 +2797,8 @@ def phase_one_kernel_steps() -> dict:
 
     split = Q15Pipeline(PipelineConfig(channels=1), device_fft=True)
     split.upload_sos_q(Q15_SOS_Q)
+    dev = Q15Pipeline(PipelineConfig(channels=1))
+    dev.upload_sos_q(Q15_SOS_Q)
     chunk = q15_tones(1, 120)
     tx = UdpSpectrumSender("127.0.0.1", 9)  # discard port: fire and forget
 
@@ -2745,6 +2811,7 @@ def phase_one_kernel_steps() -> dict:
     steps = {"Q15 split filtered": chained(lambda a, s: split.process(a, s), chunk, lambda: None),
              "Q15 split bypass": chained(lambda a, s: split.process(a, s, bypass=True), chunk,
                                          lambda: None),
+             "Q15 all-device": chained(lambda a, s: dev.process(a, s), chunk, lambda: None),
              "transport": transport}
     try:
         walls = {label: dispatch_wall(step)[0] for label, step in steps.items()}

@@ -1,7 +1,8 @@
 """One kernel of two source trees on the same inputs: bits and times.
 
     python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq
-                                                  iir_summaries]
+                                                  iir_summaries sosfilt_q15 sosfilt_q15_4rows
+                                                  viterbi viterbi_k12]
 
 Builds ``tpu_sdr_torch/csrc/<name>.cu`` of this checkout and of OTHER_ROOT
 (another checkout, for example the parent commit unpacked with ``git
@@ -12,7 +13,9 @@ libraries' entry points with the same inputs at the main path's shape (row
 with de-emphasis; row 8: 8 x 2^20 real samples or (2, 8, 2^20) IQ planes,
 taps 8, random planes; row 3: 512 frames with the plan of butter(12, 0.25),
 each tree's entry point given the arguments it names: the window and the
-chain's constants, or the plan's summary_matrix), reports whether every
+chain's constants, or the plan's summary_matrix; K2: 1 or 4 rows of 2
+frames, the window and 6 sections, the Q15 path's; K3: 64 rows x 2054
+steps of the burst path's K = 7 code, or 4 x 523 at k = 12), reports whether every
 output is bit for bit the same as OTHER_ROOT's (and how far apart), then
 times them in turns (other, this, this, other; CUDA events around 20
 launches queued behind a spin kernel, as ``chip_smoke.py`` times). Needs one
@@ -115,6 +118,40 @@ def case(label: str):
                         one_minus_pole=float(np.float32(1) - pole), has_pole=1), outs
 
         return label, args
+    if label.startswith("sosfilt_q15"):
+        from tpu_sdr_torch.kernels import window
+
+        rows = 4 if label == "sosfilt_q15_4rows" else 1
+        sos = torch.tensor([[1, 2, 1, 64, -73, 21], [64, 128, 64, 64, -84, 33],
+                            [64, 127, 64, 64, -106, 65]] + [[64, 0, 0, 64, 0, 0]] * 3,
+                           dtype=torch.int32, device="cuda")
+        tone = 0.9 * 32767 * torch.sin(torch.arange(2 * 16384, device="cuda") * 0.0628)
+        x = (tone + 300 * rand(rows, 2 * 16384)).round().clamp(-32768, 32767).to(torch.int16)
+        rom = window.hann_q16_rom(16384, device="cuda")
+        zi = torch.zeros((rows, 6, 2), dtype=torch.int32, device="cuda")
+
+        def args():
+            xw, y, zf = torch.empty_like(x), torch.empty_like(x), torch.empty_like(zi)
+            return dict(sos=sos, sections=6, x=x, rows=rows, t_len=x.shape[1], rom=rom,
+                        n_rom=rom.shape[0], zi=zi, xw=xw, y=y, zf=zf), [xw, y, zf]
+
+        return "sosfilt_q15", args
+    if label.startswith("viterbi"):
+        from tpu_sdr_torch.kernels import fec
+
+        k, polys, rows, t = ((12, (0o4335, 0o5723), 4, 523) if label == "viterbi_k12"
+                             else (7, (0o133, 0o171), 64, 2054))
+        code = fec.ConvCode(k, polys, device="cuda")
+        x = rand(rows, t, 2)
+
+        def args():
+            bits = torch.empty((rows, t), dtype=torch.uint8, device="cuda")
+            dec = torch.empty((rows, t, max(code.n_states // 32, 1)), dtype=torch.int32,
+                              device="cuda")
+            return dict(x=x, out0=code._tables["out0"], out1=code._tables["out1"], dec=dec,
+                        bits=bits, rows=rows, t_len=t, n_out=2, k=k), [bits]
+
+        return "viterbi", args
     batch = 16 if label == "pfb_fold_dft_iq" else 8
     rows, h2, cos, sin = rand(batch, 8192 + 7, 128), rand(8, 128), rand(128, 128), rand(128, 128)
 
@@ -170,8 +207,9 @@ def main(argv):
             torch.cuda.synchronize()
             outs[tag] = out
         same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-        diff = max((a - b).abs().max().item() for a, b in zip(outs["other"], outs["this"]))
-        scale = max(a.abs().max().item() for a in outs["other"])
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(outs["other"], outs["this"]))
+        scale = max(a.float().abs().max().item() for a in outs["other"])
         print(f"{label}: bitwise equal={same} (max abs diff {diff:.3e}, of max |other| "
               f"{diff / scale:.3e})")
         times = {"other": [], "this": []}

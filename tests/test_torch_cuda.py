@@ -888,6 +888,58 @@ def test_sosfilt_q15_kernel_matches_plain_and_oracle(card, rows):
     assert torch.equal(torch.cat([y1, y2], dim=-1), yw) and torch.equal(z2, zw)
 
 
+def _loud_sos(sections: int, rng) -> np.ndarray:
+    """int8 x64 sections whose gains drive every section to the rails on
+    full-scale input."""
+    sos = np.zeros((sections, 6), np.int64)
+    sos[:, 0] = rng.integers(100, 128, sections)
+    sos[:, 1:3] = rng.integers(-128, 128, (sections, 2))
+    sos[:, 3] = 64
+    sos[:, 4] = rng.integers(-40, 40, sections)
+    sos[:, 5] = rng.integers(0, 30, sections)
+    return sos
+
+
+@pytest.mark.parametrize("windowed", [True, False], ids=["window", "nowindow"])
+@pytest.mark.parametrize("rows", [1, 4, 33])
+@pytest.mark.parametrize("sections", range(1, 9))
+def test_sosfilt_q15_wavefront_sections_rows_and_rails(card, sections, rows, windowed):
+    """K2 (one section a lane, rows packed a warp) at 1 to 8 sections on 1,
+    4 and 33 rows (33: the last packed warp part-full), full-scale input
+    that reaches the rails: bit for bit the plain version and
+    golden.sosfilt_q15_intended; two calls with the state carried equal
+    one."""
+    from tpu_sdr_torch.control import golden
+
+    rng = np.random.default_rng(1000 + 10 * sections + rows)
+    t = 1024
+    sos = _loud_sos(sections, rng)
+    x = np.clip(np.round(rng.standard_normal((rows, t)) * 32767), -32768, 32767).astype(np.int16)
+    zi = rng.integers(-200_000, 200_000, (rows, sections, 2)).astype(np.int32)
+    sos_t = torch.as_tensor(sos, dtype=torch.int32, device="cuda")
+    xt, zt = torch.as_tensor(x, device="cuda"), torch.as_tensor(zi, device="cuda")
+    rom = window.hann_q16_rom(t // 2, device="cuda") if windowed else None
+    launch.reset_counts()
+    got = biquad.sosfilt_q15_window(sos_t, xt, zt, rom=rom)
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["sosfilt_q15"] == 1
+    ref = biquad.sosfilt_q15_plain(sos_t, xt, zt, rom=rom)
+    for g, r in zip(got, ref):
+        assert (g is None and r is None) or (g.dtype == r.dtype and torch.equal(g, r))
+    assert int((got[0].abs() >= 32767).sum()) > 0
+    for r in range(rows):
+        xw = golden.rtl_window_q15(x[r], n=t // 2) if windowed else x[r]
+        y, zf = golden.sosfilt_q15_intended(sos, xw, zi[r])
+        assert np.array_equal(got[0][r].cpu().numpy(), y)
+        assert np.array_equal(got[2][r].cpu().numpy().astype(np.int64), zf)
+    h = t // 2
+    y1, xw1, z1 = biquad.sosfilt_q15_cuda(sos_t, xt[:, :h].contiguous(), zt, rom=rom)
+    y2, xw2, z2 = biquad.sosfilt_q15_cuda(sos_t, xt[:, h:].contiguous(), z1, rom=rom)
+    assert torch.equal(torch.cat([y1, y2], dim=-1), got[0]) and torch.equal(z2, got[2])
+    if windowed:
+        assert torch.equal(torch.cat([xw1, xw2], dim=-1), got[1])
+
+
 def test_q15_pipeline_on_card_equals_the_cpu_bitwise(card):
     from tpu_sdr_torch.runtime.q15 import Q15Pipeline
 
@@ -974,10 +1026,15 @@ def test_welch_on_card_matches_scipy(card):
     (3, (0o7, 0o5), 4, 300, "soft"), (12, (0o4335, 0o5723), 1, 400, "soft"),
     (12, (0o4335, 0o5723), 2, 200, "hard"), (2, (0o3, 0o1), 3, 64, "hard"),
     (7, (0o133, 0o145, 0o175), 4, 300, "soft"),
+    (4, (0o17, 0o13), 5, 700, "soft"), (5, (0o35, 0o23), 5, 700, "hard"),
+    (7, (0o133, 0o171), 2, 30000, "soft"),
 ])
 def test_viterbi_kernel_equals_plain_bitwise(card, k, polys, rows, steps, kind):
     """K3 against its plain version: every decision, tail included, on
-    soft and on hard (tie-rich) observations, k = 2..12."""
+    soft and on hard (tie-rich) observations, k = 2..12: the warp route up
+    to k = 7 (k = 4 and 5: fewer states than lanes; 30000 steps: more
+    decisions than shared memory holds, so they go to device memory), the
+    block route above."""
     from tpu_sdr_torch.kernels import fec
     from tpu_sdr_torch.kernels.cuda import viterbi
 
@@ -991,6 +1048,7 @@ def test_viterbi_kernel_equals_plain_bitwise(card, k, polys, rows, steps, kind):
     ref = fec.viterbi_plain(xt, code._tables["sign0"], code._tables["sign1"], k)
     torch.cuda.synchronize()
     assert got.dtype == torch.uint8 and torch.equal(got, ref)
+    assert viterbi.needs_scratch(steps, k) == (k > 7 or steps > 28032)
 
 
 def test_conv_decode_on_card_one_launch_and_equals_cpu(card):

@@ -628,8 +628,12 @@ def sosfilt_scan_ref(sos, x: torch.Tensor, zi: torch.Tensor):
     return torch.stack(ys, dim=-1), zf
 
 
-# The Q15 cascade's kernel takes at most this many sections.
+# The Q15 cascade's kernel takes at most this many sections, one a lane, and
+# hands a section's output on to the next one this many steps later
+# (csrc/sosfilt_q15.cu kChunk): a row takes T + Q15_SECTION_DELAY (S - 1)
+# steps.
 Q15_MAX_SECTIONS = 8
+Q15_SECTION_DELAY = 32
 
 
 def _q15_check(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom):
@@ -688,9 +692,9 @@ def sosfilt_q15_plain(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom=
 
 
 def sosfilt_q15_cuda(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom=None):
-    """Launch ``csrc/sosfilt_q15.cu`` on CUDA tensors. T (and the ROM's
-    length) must be multiples of 8 and S at most 8. Raises if the kernel
-    cannot be built or launched."""
+    """Launch ``csrc/sosfilt_q15.cu`` (a wavefront, one section a lane of a
+    warp) on CUDA tensors. T (and the ROM's length) must be multiples of 8
+    and S at most 8. Raises if the kernel cannot be built or launched."""
     rows, t, S = _q15_check(sos, x, zi, rom)
     dev = x.device
     if dev.type != "cuda":

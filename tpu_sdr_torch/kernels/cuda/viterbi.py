@@ -1,11 +1,15 @@
 """K3: the batched Viterbi decoder's CUDA kernel (``csrc/viterbi.cu``).
 
 It computes ``tpu_sdr.kernels.fec._viterbi`` (a jitted ``lax.scan`` of the
-add-compare-select and a reversed one of the traceback, no Pallas kernel):
-one CTA a codeword row, the path metrics in shared memory, the decisions
-packed into bits in device memory, one thread a row walking back from
-state 0. Its plain version is ``kernels.fec.viterbi_plain``; the dispatch,
-``kernels.fec.viterbi``, takes that only for a CPU tensor.
+add-compare-select and a reversed one of the traceback, no Pallas kernel).
+Two routes, chosen by k in the C entry point: for k <= 7 (up to 64 states)
+one warp a codeword row, the path metrics in the lanes' registers, the
+decisions in shared memory and the traceback from there (in device memory
+only for rows too long for shared memory); for 8 <= k <= 12 one CTA a row,
+the metrics in shared memory, the decisions in device memory, one thread a
+row walking back from state 0. Its plain version is
+``kernels.fec.viterbi_plain``; the dispatch, ``kernels.fec.viterbi``, takes
+that only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -38,13 +42,26 @@ def viterbi_cuda(x: torch.Tensor, out0: torch.Tensor, out1: torch.Tensor, k: int
     if b >= 2**31 or b * t * n >= 2**62:
         raise ValueError(f"too many rows for one launch: {b}")
     x = x.contiguous()
-    words = max(states // 32, 1)
-    dec = torch.empty((b, t, words), dtype=torch.int32, device=dev)
     bits = torch.empty((b, t), dtype=torch.uint8, device=dev)
     if b and t:
+        dec = None
+        if needs_scratch(t, k):
+            dec = torch.empty((b, t, max(states // 32, 1)), dtype=torch.int32, device=dev)
         launch.launch("viterbi", dev, x.data_ptr(), out0.contiguous().data_ptr(),
-                      out1.contiguous().data_ptr(), dec.data_ptr(), bits.data_ptr(), b, t, n, k)
+                      out1.contiguous().data_ptr(), None if dec is None else dec.data_ptr(),
+                      bits.data_ptr(), b, t, n, k)
     return bits
+
+
+def needs_scratch(steps: int, k: int) -> bool:
+    """Whether the kernel keeps the decisions of rows of ``steps`` trellis
+    steps in a device-memory scratch (``tpu_sdr_viterbi_needs_scratch``):
+    always for k >= 8, and for k <= 7 only where a row's decisions would not
+    fit in shared memory."""
+    fn = launch._kernel_lib("viterbi").tpu_sdr_viterbi_needs_scratch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return bool(fn(steps, k))
 
 
 def step_probe_cycles(states: int, steps: int, device="cuda") -> float:
