@@ -119,10 +119,12 @@ Phases (each raises on failure):
      its cycles a step and a sample, and at 4 rows), the Q15 paths' wall
      per 16384-sample chunk and ``Q15Stream``'s steady rate at depth 1; K3
      at the burst path's decode beside its latency floor (measured cycles
-     of one dependent trellis step and barrier,
-     ``tpu_sdr_viterbi_step_probe``), its cycles a step, and at k = 12, and
-     the new paths' walls; K2 or K3 faster than its floor by more than 5 %
-     fails (the floor would be wrong);
+     of one dependent step of its warp route,
+     ``tpu_sdr_viterbi_warp_step_probe``; and the block route's floor, a
+     step and barrier, ``tpu_sdr_viterbi_step_probe``), its cycles a
+     step, and at k = 12, and the new paths' walls; K2 or K3 faster than
+     its floor, or than the earlier designs' floor, by more than 5 % fails
+     (the floor would be wrong);
   6. profile: each path's last traced dispatch as
      ``tpu_sdr_torch.bench.trace.capture_op_table`` attributes it (every
      device op charged to the dispatch that launched it, by the launch's
@@ -1800,12 +1802,18 @@ Q15_CHUNKS = 6  # Q15Stream's chunks of one frame, at depth 1 and 3
 FEED_CHUNKS = 8  # StreamFeeder -> SpectrumPipeline.process
 FEED_FRAMES = 8  # frames a channel in one fed chunk (8 channels)
 WELCH_REL = 1e-5  # of the peak, against scipy.signal.welch in float64
-# K2's dependent chain in cycles (4 a dependent integer operation): a
-# (sample, section) step from the accumulator to the clipped output is an
-# IMAD, a shift and an add for the rounding, a shift and two min/max (24);
-# a step to the next sample of a section adds the state update's IMAD (4).
-# The longest path through the T x S grid: S steps down and T - 1 across.
-Q15_STEP_CYCLES, Q15_STATE_CYCLES = 24, 4
+# K2's dependent chain in cycles, 4 a dependent integer operation. What
+# the function needs: a (sample, section) step, from the previous output of
+# its section (or from its input) to its clipped output, is one IMAD (acc
+# and acc + 32 side by side), the add of acc's sign, the shift and the
+# clip's min and max (20); b0 v + b1 v[n-1] + z1[n-1] and the state update
+# are off that chain. The longest path through the T x S grid: S steps
+# down and T - 1 across. The thread-a-row design's floor counted six
+# operations a step (24) and the state update's IMAD on each step across
+# (4), more than the function needs; it is printed beside this one for
+# comparison.
+Q15_CHAIN_CYCLES = 20
+Q15_ROW_STEP_CYCLES, Q15_ROW_STATE_CYCLES = 24, 4
 
 
 # K2's sweep in [3]: samples a row (the plain version walks them one step of
@@ -2160,11 +2168,13 @@ def phase_host_runtime(pipe, sos_custom):
         check((err == 0 if exact else err < 1e-6) and err_db < 1e-4, ("decimate_db", det))
 
 
-def q15_chain_floor_ms(t: int, sections: int) -> tuple[float, float]:
-    """K2's latency floor for a row of t samples: (ms, SM clock MHz)."""
+def q15_chain_floor_ms(t: int, sections: int) -> tuple[float, float, float]:
+    """K2's latency floor for a row of t samples: (ms, the thread-a-row
+    design's floor in ms, SM clock MHz)."""
     mhz = max_sm_mhz()
-    cycles = sections * Q15_STEP_CYCLES + (t - 1) * (Q15_STEP_CYCLES + Q15_STATE_CYCLES)
-    return cycles / (mhz * 1e6) * 1e3, mhz
+    cycles = (sections + t - 1) * Q15_CHAIN_CYCLES
+    row = sections * Q15_ROW_STEP_CYCLES + (t - 1) * (Q15_ROW_STEP_CYCLES + Q15_ROW_STATE_CYCLES)
+    return cycles / (mhz * 1e3), row / (mhz * 1e3), mhz
 
 
 def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
@@ -2197,7 +2207,7 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     sos = torch.as_tensor(padded_q15_sos(), dtype=torch.int32, device="cuda")
     xk = torch.as_tensor(q15_tones(2, 110)[None], device="cuda")
     zi = torch.zeros((1, 6, 2), dtype=torch.int32, device="cuda")
-    floor_ms, mhz = q15_chain_floor_ms(xk.shape[-1], 6)
+    floor_ms, row_floor_ms, mhz = q15_chain_floor_ms(xk.shape[-1], 6)
     kernel = lambda: biquad.sosfilt_q15_cuda(sos, xk, zi, rom=rom)
     plain = lambda: biquad.sosfilt_q15_plain(sos, xk, zi, rom=rom)
     plain()
@@ -2211,22 +2221,28 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     t = timing["sosfilt_q15"]
     by = bound(xk.numel() * (2 + 4), 0, int_ops=xk.numel() * 6 * 12)
     t_len = xk.shape[-1]
-    steps = t_len + biquad.Q15_SECTION_DELAY * 5
+    delay = biquad.q15_section_delay()
+    check(delay == biquad.Q15_SECTION_DELAY, ("sosfilt_q15 delay", delay, biquad.Q15_SECTION_DELAY))
+    steps = t_len + delay * 5
     ms4 = cuda_ms(lambda: biquad.sosfilt_q15_cuda(sos, xk.expand(4, -1).contiguous(),
                                                   zi.expand(4, -1, -1).contiguous(), rom=rom),
                   iters=10)
     print(f"[5] sosfilt_q15 1 row x 2 frames, window + 6 sections: kernel {t['ms']:.4f} ms "
           f"({t['ms'] / 2:.4f} ms a frame; {t['ms'] * mhz * 1e3 / steps:.2f} cycles a step of the "
-          f"wavefront, {steps} steps = T + {biquad.Q15_SECTION_DELAY} x 5; "
+          f"wavefront, {steps} steps = T + {delay} x 5; "
           f"{t['ms'] * mhz * 1e3 / t_len:.2f} cycles a sample, at {mhz:.0f} MHz); plain "
           f"{plain_ms:.1f} ms (one call, host clock: {t_len + 5} steps of tensor operations); "
-          f"library none; bound: the chain's latency floor, {6} x {Q15_STEP_CYCLES} + "
-          f"{t_len - 1} x {Q15_STEP_CYCLES + Q15_STATE_CYCLES} cycles at {mhz:.0f} MHz = "
-          f"{floor_ms:.4f} ms -> kernel at {floor_ms / t['ms']:.1%} of it (a serial walk, samples "
-          f"x sections x {Q15_STEP_CYCLES}: {t_len * 6 * Q15_STEP_CYCLES / (mhz * 1e3):.4f} ms; "
-          f"bytes and throughput {by['bound_ms']:.6f} ms); 4 rows {ms4:.4f} ms "
+          f"library none; bound: the chain's latency floor, ({6} + {t_len - 1}) x "
+          f"{Q15_CHAIN_CYCLES} cycles at {mhz:.0f} MHz = {floor_ms:.4f} ms -> kernel at "
+          f"{floor_ms / t['ms']:.1%} of it (the thread-a-row design's floor, {6} x "
+          f"{Q15_ROW_STEP_CYCLES} + {t_len - 1} x {Q15_ROW_STEP_CYCLES + Q15_ROW_STATE_CYCLES} "
+          f"cycles = {row_floor_ms:.4f} ms: {row_floor_ms / t['ms']:.1%}; a serial walk, samples x sections x {Q15_CHAIN_CYCLES}: "
+          f"{t_len * 6 * Q15_CHAIN_CYCLES / (mhz * 1e3):.4f} ms; bytes and throughput "
+          f"{by['bound_ms']:.6f} ms); 4 rows {ms4:.4f} ms "
           f"({ms4 * mhz * 1e3 / steps:.2f} cycles a step); {profiled(kernel)}")
     check(floor_ms / t["ms"] <= 1.05, ("sosfilt_q15 faster than its floor", floor_ms, t["ms"]))
+    check(row_floor_ms / t["ms"] <= 1.05,
+          ("sosfilt_q15 faster than the thread-a-row floor", row_floor_ms, t["ms"]))
     chunk = q15_tones(1, 120)
     steps = {}
     dev, split = pipes["all-device"], pipes["split"]
@@ -2661,15 +2677,19 @@ def phase_transport() -> dict:
     return {"transport": step}
 
 
-def k3_floor_ms(steps: int, states: int) -> tuple[float, float, float]:
-    """K3's latency floor: ``steps`` dependent trellis steps at the measured
-    cycles of one (tpu_sdr_viterbi_step_probe) at the highest SM clock.
-    Returns (ms, cycles a step, MHz)."""
+def k3_floor_ms(steps: int) -> tuple[float, float, float, float, float]:
+    """K3's latency floor at k = 7: ``steps`` dependent trellis steps at the
+    measured cycles of one step of the warp route
+    (tpu_sdr_viterbi_warp_step_probe) at the highest SM clock; and the
+    block route's floor (tpu_sdr_viterbi_step_probe, 64 threads), kept for
+    comparison. Returns (ms, cycles a step, the block floor's ms, its
+    cycles, MHz)."""
     from tpu_sdr_torch.kernels.cuda import viterbi
 
-    cyc = viterbi.step_probe_cycles(min(max(states, 64), 1024), 8192)
+    cyc = viterbi.warp_step_probe_cycles(8192)
+    block_cyc = viterbi.step_probe_cycles(64, 8192)
     mhz = max_sm_mhz()
-    return steps * cyc / (mhz * 1e3), cyc, mhz
+    return steps * cyc / (mhz * 1e3), cyc, steps * block_cyc / (mhz * 1e3), block_cyc, mhz
 
 
 def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
@@ -2691,7 +2711,7 @@ def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
     fec.viterbi_plain(x, code._tables["sign0"], code._tables["sign1"], FEC_K)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    floor_ms, cyc, mhz = k3_floor_ms(t, code.n_states)
+    floor_ms, cyc, block_floor_ms, block_cyc, mhz = k3_floor_ms(t)
     b = bound(x.numel() * 4 + BURSTS * t, BURSTS * t * code.n_states * K3_FLOPS_PER_STATE)
     bound_ms = max(b["bound_ms"], floor_ms)
     one_row = cuda_ms(lambda: viterbi.viterbi_cuda(x[:1], code._tables["out0"],
@@ -2702,11 +2722,14 @@ def phase_pr10_timing(k3_inputs, steps: dict) -> tuple[dict, dict, dict]:
           f"decode, the warp route): kernel {ms:.4f} ms ({ms * mhz * 1e3 / t:.1f} cycles a step at "
           f"{mhz:.0f} MHz, forward and traceback); one row {one_row:.4f} ms; plain {plain_ms:.1f} ms (one call, "
           f"host clock: {t} Python steps); library none; bound: the latency floor, {t} steps x "
-          f"{cyc:.2f} cycles (tpu_sdr_viterbi_step_probe: a dependent ACS and a barrier, "
-          f"{min(max(code.n_states, 64), 1024)} threads) at {mhz:.0f} MHz = {floor_ms:.4f} ms (bytes "
-          f"and fp32 operations {b['bound_ms']:.6f} ms) -> kernel at {bound_ms / ms:.1%} of it; "
-          f"{profiled(kernel)}")
+          f"{cyc:.2f} cycles (tpu_sdr_viterbi_warp_step_probe: the warp route's dependent step, "
+          f"the maximum's reduction and keys, a subtraction, an add, a compare and a select) at "
+          f"{mhz:.0f} MHz = {floor_ms:.4f} ms (bytes and fp32 operations {b['bound_ms']:.6f} ms) "
+          f"-> kernel at {bound_ms / ms:.1%} of it (the block route's floor, {t} steps x "
+          f"{block_cyc:.2f} cycles of tpu_sdr_viterbi_step_probe, a dependent ACS and a barrier of "
+          f"64 threads, = {block_floor_ms:.4f} ms: {block_floor_ms / ms:.1%}); {profiled(kernel)}")
     check(bound_ms / ms <= 1.05, ("viterbi faster than its floor", bound_ms, ms))
+    check(block_floor_ms / ms <= 1.05, ("viterbi faster than the block floor", block_floor_ms, ms))
     k12 = fec.ConvCode(12, (0o4335, 0o5723), device="cuda")
     x12 = torch.as_tensor(rng.standard_normal((4, 523, 2)).astype(np.float32), device="cuda")
     ms12 = cuda_ms(lambda: viterbi.viterbi_cuda(x12, k12._tables["out0"], k12._tables["out1"], 12),

@@ -3,6 +3,7 @@
     python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq
                                                   iir_summaries sosfilt_q15 sosfilt_q15_4rows
                                                   viterbi viterbi_k12]
+    python3 scripts/torch_kernel_ab.py --variant {fmax_tree,one_imad,shfl_up,no_store} [LABEL ...]
 
 Builds ``tpu_sdr_torch/csrc/<name>.cu`` of this checkout and of OTHER_ROOT
 (another checkout, for example the parent commit unpacked with ``git
@@ -20,12 +21,34 @@ output is bit for bit the same as OTHER_ROOT's (and how far apart), then
 times them in turns (other, this, this, other; CUDA events around 20
 launches queued behind a spin kernel, as ``chip_smoke.py`` times). Needs one
 CUDA device.
+
+With ``--variant NAME`` the other tree is this checkout's csrc with the
+edits of ``VARIANTS[NAME]`` (under ``build/kernel_variants/NAME/``): a design
+choice that K2 or K3 replaced, so that its time stands beside the kernel's.
+Each edit's old text must be in the source once, else the script exits.
+
+- ``fmax_tree`` (K3): the step's maximum as a 5-level ``__shfl_xor_sync``
+  tree of ``fmaxf``, in place of one ``__reduce_max_sync`` of
+  order-preserving integer keys;
+- ``one_imad`` (K2): the rounding as ``acc + 32 + (acc >> 31)`` after one
+  multiply-add, in place of acc and acc + 32 from two multiply-adds side by
+  side (six dependent operations a step, not five);
+- ``shfl_up`` (K2): each section's output handed to the next section by a
+  ``__shfl_up_sync`` a step (lane s at step j filters sample j - s), in
+  place of shared memory a 32-step chunk later;
+- ``no_store`` (K2, a diagnostic, not a design): the last lane's 16-byte
+  output stores left out (the vectors are still packed), so that y is not
+  written; what the stores cost.
+
+The first three compute the same function, so a variant whose bits differ
+fails; ``no_store``'s y is expected to differ.
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +63,40 @@ from tpu_sdr_torch.kernels.cuda import loader  # noqa: E402
 
 HOLD_CYCLES = 100_000_000
 TURNS = 3
+
+_MAX_KEY = """  int key = __float_as_int(v);
+  key ^= (key >> 31) & 0x7fffffff;
+  if (Trellis<K>::LANES < 32 && int(threadIdx.x & 31) >= Trellis<K>::LANES) key = INT_MIN;
+  int m = __reduce_max_sync(kFull, key);
+  m ^= (m >> 31) & 0x7fffffff;
+  return __int_as_float(m);"""
+_ROUND_TWO_IMADS = """  int acc32;
+  asm("mad.lo.s32 %0, %1, %2, %3;" : "=r"(acc32) : "r"(neg_a1), "r"(y_prev), "r"(q_bracket + 32));
+  return min(max((acc32 + (acc >> 31)) >> 6, -32768), 32767);"""
+_OUT_STORE = "      *(put ? reinterpret_cast<uint4*>(y_row) + (i - (kVec - 1)) / kVec : sink) = w;"
+# The last lane's ring, indexed by its sample (i = j0 + u - LAG, j0 a
+# multiple of the chunk), so that a ring of 8 is one aligned vector at any
+# lag.
+_RING_SLOT = "(u + kVec - Sh::LAG % kVec) % kVec"
+
+VARIANTS = {  # name -> (kernel source, case label, exact, [(old text, new text), ...])
+    "fmax_tree": ("viterbi", "viterbi", True, [(_MAX_KEY, """#pragma unroll
+  for (int o = Trellis<K>::LANES / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;""")]),
+    "one_imad": ("sosfilt_q15", "sosfilt_q15", True, [(_ROUND_TWO_IMADS, """\
+  return min(max((acc + 32 + (acc >> 31)) >> 6, -32768), 32767);""")]),
+    "shfl_up": ("sosfilt_q15", "sosfilt_q15", True, [
+        ("static constexpr int LAG = kChunk * (S - 1);", "static constexpr int LAG = S - 1;"),
+        ("    const int v = vin[u];\n",
+         "    const int up = __shfl_up_sync(0xffffffffu, ln.y, 1, Sh::G);\n"
+         "    const int v = sec == 0 ? vin[u] : up;\n"),
+        ("const int i = j0 + u - kChunk * sec;", "const int i = j0 + u - sec;"),
+        ("ln.ring[u % kVec] = y;", f"ln.ring[{_RING_SLOT}] = y;"),
+        ("if (u % kVec == kVec - 1) {", f"if ({_RING_SLOT} == kVec - 1) {{"),
+    ]),
+    "no_store": ("sosfilt_q15", "sosfilt_q15", False, [(_OUT_STORE, (
+        "      if (put && w.x == 0x12345678u && w.y == 0x9abcdef0u) *sink = w;  // never, in effect"))]),
+}
 
 
 def signature(src: Path, name: str) -> list[str]:
@@ -64,6 +121,22 @@ def build(root: Path, name: str, tag: str):
                    else ctypes.c_int for a in params]
     fn.restype = ctypes.c_int
     return fn, [a.split()[-1].lstrip("*") for a in params]
+
+
+def variant_root(name: str) -> Path:
+    """A tree whose csrc is this checkout's with the variant's edits."""
+    src, _, _, edits = VARIANTS[name]
+    root = REPO / "build" / "kernel_variants" / name
+    csrc = root / "tpu_sdr_torch" / "csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    shutil.copytree(REPO / "tpu_sdr_torch" / "csrc", csrc)
+    text = (csrc / f"{src}.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: {old.strip()[:60]!r} is not in csrc/{src}.cu once")
+        text = text.replace(old, new)
+    (csrc / f"{src}.cu").write_text(text)
+    return root
 
 
 def case(label: str):
@@ -191,8 +264,13 @@ def ms(call, iters=20):
 
 
 def main(argv):
-    other = Path(argv[0]).resolve()
-    labels = argv[1:] or ["fft_mag_fused", "fm_demod", "pfb_fold_dft", "pfb_fold_dft_iq"]
+    exact = False
+    if argv[0] == "--variant":
+        other, labels = variant_root(argv[1]), argv[2:] or [VARIANTS[argv[1]][1]]
+        exact = VARIANTS[argv[1]][2]
+    else:
+        other = Path(argv[0]).resolve()
+        labels = argv[1:] or ["fft_mag_fused", "fm_demod", "pfb_fold_dft", "pfb_fold_dft_iq"]
     print(torch.cuda.get_device_name(0), subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
@@ -218,6 +296,8 @@ def main(argv):
                 times[tag].append(ms(calls[tag]))
         for tag, ts in times.items():
             print(f"{label} [{tag}]: ms {', '.join(f'{t:.4f}' for t in ts)}; median {np.median(ts):.4f}")
+        if exact and not same:
+            raise SystemExit(f"{label}: the variant's bits differ from the checkout's")
 
 if __name__ == "__main__":
     main(sys.argv[1:])

@@ -940,6 +940,31 @@ def test_sosfilt_q15_wavefront_sections_rows_and_rails(card, sections, rows, win
         assert torch.equal(torch.cat([xw1, xw2], dim=-1), got[1])
 
 
+def test_viterbi_step_probes_measure_a_step(card):
+    """Both latency probes run and give a step of a few dozen to a few
+    hundred cycles; the warp route's step is no longer than its kernel's
+    (64 rows x 2054 steps at k = 7, forward pass and traceback)."""
+    from tpu_sdr_torch.bench.roofline import max_sm_mhz
+    from tpu_sdr_torch.kernels import fec
+    from tpu_sdr_torch.kernels.cuda import viterbi
+
+    warp = viterbi.warp_step_probe_cycles(4096)
+    block = viterbi.step_probe_cycles(64, 4096)
+    assert 10 < warp < 1000 and 10 < block < 1000, (warp, block)
+    code = fec.ConvCode(7, (0o133, 0o171), device="cuda")
+    x = torch.randn((64, 2054, 2), device="cuda", generator=torch.Generator("cuda").manual_seed(4))
+    call = lambda: viterbi.viterbi_cuda(x, code._tables["out0"], code._tables["out1"], 7)
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    mhz = max_sm_mhz()
+    assert warp <= start.elapsed_time(end) / 20 * mhz * 1e3 / 2054 * 1.05
+
+
 def test_q15_pipeline_on_card_equals_the_cpu_bitwise(card):
     from tpu_sdr_torch.runtime.q15 import Q15Pipeline
 

@@ -17,6 +17,9 @@ package's RTL window) and the port's ``sosfilt_q15_plain``. Nothing on any
 path calls it.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -207,3 +210,12 @@ def test_wavefront_state_matches_the_oracle():
         gy, gz = golden.sosfilt_q15_intended(sos, x[r], zi[r])
         np.testing.assert_array_equal(y[r], gy)
         np.testing.assert_array_equal(zf[r].astype(np.int64), gz)
+
+
+def test_kernel_delay_is_the_sources_chunk():
+    """biquad.Q15_SECTION_DELAY, the delay this model and the CPU read, is
+    the kernel's kChunk (which its library returns on the card)."""
+    src = Path(biquad.__file__).resolve().parent.parent / "csrc" / "sosfilt_q15.cu"
+    m = re.search(r"constexpr int kChunk = (\d+);", src.read_text())
+    assert m is not None and int(m.group(1)) == KERNEL_DELAY
+    assert "return kChunk;" in src.read_text()

@@ -330,4 +330,8 @@ int tpu_sdr_sosfilt_q15(const int* sos, int sections, const int16_t* x, int rows
   return int(err);
 }
 
+// The steps between a section's output and the next section's use of it
+// (kChunk): a row takes t_len + delay * (sections - 1) steps.
+int tpu_sdr_sosfilt_q15_section_delay() { return kChunk; }
+
 }  // extern "C"

@@ -67,9 +67,13 @@
 // maximum, then the warps' maxima in index order. Ballots of 32 states go
 // to dec (B, T, W) in device memory, and one thread a row walks back.
 //
-// chip_smoke.py measures the latency floor of a step with
-// tpu_sdr_viterbi_step_probe (a dependent ACS and a block barrier, nothing
-// else) and the kernels' times; both are in PERF.md.
+// chip_smoke.py measures the latency floor of a step of each route with a
+// probe that runs that route's dependent chain and nothing else:
+// tpu_sdr_viterbi_warp_step_probe (the warp route at K = 7: the maximum's
+// reduction with its key conversions, a subtraction, an add, a compare and
+// a select) and tpu_sdr_viterbi_step_probe (the block route: a dependent
+// ACS and a block barrier). The floors and the kernels' times are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -456,6 +460,39 @@ __global__ void viterbi_step_probe_kernel(long long* cycles, int t_len) {
   }
 }
 
+// The latency floor of one step of the warp route at K = 7 (64 states, two
+// a lane): one warp runs the step's dependent chain and nothing else. The
+// two slots' maximum, its key, the warp reduction and back, and per state
+// (raw - m) + bm, the compare and the select; the four predecessor
+// shuffles run beside the reduction, as in the kernel. The branch metrics
+// are constants, and no observation is read and no decision kept (both
+// are off the chain). Lane 0 writes the clock64 cycles of ``t_len`` steps
+// to cycles[0] and the final metric of state 0 to cycles[1] (kept live).
+__global__ void viterbi_warp_step_probe_kernel(long long* cycles, int t_len) {
+  constexpr int K = kWarpMaxK;
+  static_assert(Trellis<K>::NS == 2, "the probe takes two states a lane");
+  const int lane = threadIdx.x & 31;
+  const int src_a = lane >> 1, src_b = 16 + (lane >> 1);
+  const float bm = (lane & 1) ? 1.0f : -1.0f;
+  float r0 = lane == 0 ? 0.0f : kNeg, r1 = kNeg;
+  const long long t0 = clock64();
+#pragma unroll 32
+  for (int step = 0; step < t_len; ++step) {
+    const float m = states_max<K>(fmaxf(r0, r1));
+    const float a0 = __shfl_sync(kFull, r0, src_a), a1 = __shfl_sync(kFull, r1, src_a);
+    const float b0 = __shfl_sync(kFull, r0, src_b), b1 = __shfl_sync(kFull, r1, src_b);
+    const float c00 = (a0 - m) + bm, c01 = (a1 - m) - bm;
+    const float c10 = (b0 - m) - bm, c11 = (b1 - m) + bm;
+    r0 = c01 > c00 ? c01 : c00;
+    r1 = c11 > c10 ? c11 : c10;
+  }
+  const long long t1 = clock64();
+  if (lane == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = (long long)r0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -500,6 +537,12 @@ int tpu_sdr_viterbi_step_probe(long long* cycles, int states, int t_len, void* s
     return int(cudaErrorInvalidValue);
   }
   viterbi_step_probe_kernel<<<1, states, 0, static_cast<cudaStream_t>(stream)>>>(cycles, t_len);
+  return int(cudaGetLastError());
+}
+
+// cycles: (2,) int64. One warp.
+int tpu_sdr_viterbi_warp_step_probe(long long* cycles, int t_len, void* stream) {
+  viterbi_warp_step_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(cycles, t_len);
   return int(cudaGetLastError());
 }
 

@@ -33,6 +33,7 @@ runs ``sosfilt_q15_plain``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -631,9 +632,20 @@ def sosfilt_scan_ref(sos, x: torch.Tensor, zi: torch.Tensor):
 # The Q15 cascade's kernel takes at most this many sections, one a lane, and
 # hands a section's output on to the next one this many steps later
 # (csrc/sosfilt_q15.cu kChunk): a row takes T + Q15_SECTION_DELAY (S - 1)
-# steps.
+# steps. The kernel's library states its own delay (q15_section_delay); this
+# copy is for code that runs without it, such as the wavefront's CPU model.
 Q15_MAX_SECTIONS = 8
 Q15_SECTION_DELAY = 32
+
+
+def q15_section_delay() -> int:
+    """The Q15 cascade kernel's hand-over delay in steps, as its library
+    states it (``tpu_sdr_sosfilt_q15_section_delay``). Builds the kernel on
+    first use; raises where it cannot be built."""
+    fn = launch._kernel_lib("sosfilt_q15").tpu_sdr_sosfilt_q15_section_delay
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def _q15_check(sos: torch.Tensor, x: torch.Tensor, zi: torch.Tensor, rom):

@@ -65,17 +65,30 @@ def needs_scratch(steps: int, k: int) -> bool:
 
 
 def step_probe_cycles(states: int, steps: int, device="cuda") -> float:
-    """Clock cycles a trellis step of ``states`` threads takes at its
-    latency floor (a dependent add-compare-select and a barrier, nothing
-    else; ``tpu_sdr_viterbi_step_probe``), measured over ``steps`` steps.
-    Not a launch of the decoder: it is not counted."""
-    lib = launch._kernel_lib("viterbi")
-    fn = lib.tpu_sdr_viterbi_step_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    """Clock cycles a trellis step of the block route's ``states`` threads
+    takes at its latency floor (a dependent add-compare-select and a
+    barrier, nothing else; ``tpu_sdr_viterbi_step_probe``), measured over
+    ``steps`` steps. Not a launch of the decoder: it is not counted."""
+    return _probe("tpu_sdr_viterbi_step_probe", [ctypes.c_int], [states], steps, device)
+
+
+def warp_step_probe_cycles(steps: int, device="cuda") -> float:
+    """Clock cycles a trellis step of the warp route at k = 7 takes at its
+    latency floor (the step's dependent chain in one warp: the maximum's
+    reduction with its key conversions, a subtraction, an add, a compare
+    and a select, nothing else; ``tpu_sdr_viterbi_warp_step_probe``),
+    measured over ``steps`` steps. Not a launch of the decoder: it is not
+    counted."""
+    return _probe("tpu_sdr_viterbi_warp_step_probe", [], [], steps, device)
+
+
+def _probe(entry: str, types: list, values: list, steps: int, device) -> float:
+    fn = getattr(launch._kernel_lib("viterbi"), entry)
+    fn.argtypes = [ctypes.c_void_p, *types, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(out.device):
-        err = fn(out.data_ptr(), states, steps, torch.cuda.current_stream().cuda_stream)
+        err = fn(out.data_ptr(), *values, steps, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"viterbi step probe launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return out[0].item() / steps
