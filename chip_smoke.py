@@ -27,8 +27,11 @@ Phases (each raises on failure):
      the channelizer's real and IQ shapes with the channelizer's and random
      planes (1e-5 of the output scale), and against float64 beside the plain
      version (at most 1 dB below it); the Q15 kernels bit for bit: the
-     scaled integer FFT (``q15_fft``) at F = 1, 8 and 64 frames, with and
-     without the RTL window, on random int16 frames and full-scale tones,
+     scaled integer FFT (``q15_fft``) at F = 1, 3, 8, 64 and 133 frames,
+     with and without the RTL window, on random int16 frames and
+     full-scale tones, also against ``fft_q15_np``, and at every frame
+     size 2^1 .. 2^14 (complex input, schedule t % 3; 2^14 at full scale
+     with the schedules all 0 and 2, 0), each with its route and C,
      and the saturating Q15 cascade (``sosfilt_q15``, window included) on 1
      and 4 rows of 2 frames with a carried state, and at 1 to 8 sections on
      1, 4 and 33 rows (packed warps left part-full) of full-scale input that
@@ -115,15 +118,19 @@ Phases (each raises on failure):
      plain version); each
      path's end-to-end dispatch time (the facade's with its device->host
      copy), compared paths in alternating turns; the Q15 kernels (K1 at F
-     = 64, K2 at 1 row x 2 frames beside its chain's latency floor, with
+     = 64 beside its INT32 bound, at F = 1 beside its two floors, the
+     operations' count and its latency: 14 dependent butterflies, a read
+     and a write of device memory, from ``tpu_sdr_q15_butterfly_probe``
+     and ``tpu_sdr_q15_memory_probe``; at F = 1, 8, 64 its cycles a frame
+     and route; K2 at 1 row x 2 frames beside its chain's latency floor, with
      its cycles a step and a sample, and at 4 rows), the Q15 paths' wall
      per 16384-sample chunk and ``Q15Stream``'s steady rate at depth 1; K3
      at the burst path's decode beside its latency floor (measured cycles
      of one dependent step of its warp route,
      ``tpu_sdr_viterbi_warp_step_probe``; and the block route's floor, a
      step and barrier, ``tpu_sdr_viterbi_step_probe``), its cycles a
-     step, and at k = 12, and the new paths' walls; K2 or K3 faster than
-     its floor, or than the earlier designs' floor, by more than 5 % fails
+     step, and at k = 12, and the new paths' walls; K1, K2 or K3 faster
+     than a floor, or than the earlier designs' floor, by more than 5 % fails
      (the floor would be wrong);
   6. profile: each path's last traced dispatch as
      ``tpu_sdr_torch.bench.trace.capture_op_table`` attributes it (every
@@ -702,7 +709,8 @@ LAST_DEVICE_KERNEL = {
     "pfb_fold_dft": ("pfb_fold_dft_kernel",),
     "spectrum_half": ("spectrum_bypass_kernel", "spectrum_iir_kernel"),
     "fft_mag_fused": ("fft_mag_fused_kernel",),
-    "q15_fft": ("q15_fft_kernel",), "sosfilt_q15": ("sosfilt_q15_kernel",),
+    "q15_fft": ("q15_fft_cluster_kernel", "q15_fft_block_kernel"),
+    "sosfilt_q15": ("sosfilt_q15_kernel",),
     "viterbi": ("viterbi_warp_kernel", "viterbi_kernel"),
 }
 
@@ -1797,7 +1805,7 @@ def phase_new_timing(pp, fplan: dict, x_np: np.ndarray, steps: dict) -> tuple[di
 # (three sections, padded with identity sections by upload_sos_q).
 Q15_SOS_Q = np.array([[1, 2, 1, 64, -73, 21], [64, 128, 64, 64, -84, 33],
                       [64, 127, 64, 64, -106, 65]], np.int64)
-Q15_KERNEL_FRAMES = (1, 8, 64)
+Q15_KERNEL_FRAMES = (1, 3, 8, 64, 133)
 Q15_CHUNKS = 6  # Q15Stream's chunks of one frame, at depth 1 and 3
 FEED_CHUNKS = 8  # StreamFeeder -> SpectrumPipeline.process
 FEED_FRAMES = 8  # frames a channel in one fed chunk (8 channels)
@@ -1859,6 +1867,7 @@ def phase_q15_kernels() -> dict:
     rom = window.hann_q16_rom(N, device="cuda")
     errs = {}
     for F in Q15_KERNEL_FRAMES:
+        route = fft_q15.kernel_route(F, N)
         for kind in ("random", "tone"):
             x = q15_kernel_inputs(F, kind, 60 + F)
             for bypass in (True, False):
@@ -1868,11 +1877,42 @@ def phase_q15_kernels() -> dict:
                 torch.cuda.synchronize()
                 same = all(g.dtype == p.dtype and torch.equal(g, p) for g, p in zip(got, ref))
                 err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, ref))
-                print(f"[3] q15_fft F={F:2d} {kind:6s} {'window+fft' if bypass else 'fft':10s}: "
-                      f"re, im, |X| bitwise equal to the plain version: {same} (max_abs_err {err})")
-                check(same, ("q15_fft", F, kind, bypass))
+                oracle = bypass or all(np.array_equal(g.cpu().numpy(), o) for g, o in
+                                       zip(got[:2], fft_q15.fft_q15_np(x.cpu().numpy())))
+                print(f"[3] q15_fft F={F:3d} {kind:6s} {'window+fft' if bypass else 'fft':10s} "
+                      f"(route {route[0]}, {route[1]} CTA(s) a frame): re, im, |X| bitwise equal to "
+                      f"the plain version: {same} (max_abs_err {err}); to fft_q15_np: {oracle}")
+                check(same and oracle, ("q15_fft", F, kind, bypass))
                 if F == 64 and kind == "random" and not bypass:
                     errs["q15_fft"] = err
+    # Every frame size 2^1 .. 2^14 (the block route below 2^14), complex
+    # input, schedules t % 3 (shifts of 0, 1 and 2), the window on even
+    # sizes; then 2^14 at full scale with the schedule all zeros (every rank
+    # saturates) and 2, 0 alternating.
+    rng = np.random.default_rng(66)
+    cases = [(m, tuple(t % 3 for t in range(m)), "random") for m in range(1, 15)]
+    cases += [(14, (0,) * 14, "full"), (14, (2, 0) * 7, "full")]
+    for m, sched, kind in cases:
+        n, F = 1 << m, 3
+        if kind == "random":
+            xs = [np.clip(np.round(rng.standard_normal((F, n)) * 6000), -32768, 32767) for _ in range(2)]
+        else:
+            xs = [rng.choice([-32768.0, 32767.0], (F, n)) for _ in range(2)]
+        xr, xi = (torch.as_tensor(v.astype(np.int16), device="cuda") for v in xs)
+        r = window.hann_q16_rom(n, device="cuda") if m % 2 == 0 and kind == "random" else None
+        got = fft_q15.window_fft_q15_cuda(xr, xi, rom=r, schedule=sched)
+        ref = fft_q15.window_fft_q15_plain(xr, xi, rom=r, schedule=sched)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, p) for g, p in zip(got, ref))
+        oracle = r is not None or all(np.array_equal(g.cpu().numpy(), o) for g, o in zip(
+            got[:2], fft_q15.fft_q15_np(xr.cpu().numpy(), xi.cpu().numpy(), schedule=sched)))
+        rails = int((got[0].abs() >= 32767).sum())
+        route = fft_q15.kernel_route(F, n)
+        print(f"[3] q15_fft n=2^{m:<2d} F={F} complex {kind:6s} schedule {''.join(map(str, sched))}"
+              f"{' window' if r is not None else ''} (route {route[0]}, {route[1]} CTA(s) a frame): "
+              f"bitwise equal to the plain version: {same}; to fft_q15_np: {oracle}; {rails} "
+              f"outputs at the rails")
+        check(same and oracle, ("q15_fft sizes", m, sched, kind))
     sos = padded_q15_sos()
     sos_t = torch.as_tensor(sos, dtype=torch.int32, device="cuda")
     rom_np = golden.hann_q16_rom(N)
@@ -2203,7 +2243,33 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
           f"G int32 operations at {peak_int32_ops() / 1e12:.2f} T/s, the INT32 issue rate, and "
           f"{b['flops'] / 1e9:.4f} GFLOP fp32) -> kernel at {b['bound_ms'] / t['ms']:.1%} of the "
           f"bound; window+fft {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x, rom=rom)):.4f} ms; "
-          f"F=1 {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x[:1])):.4f} ms; {profiled(lambda: fft_q15.window_fft_q15_cuda(x))}")
+          f"{profiled(lambda: fft_q15.window_fft_q15_cuda(x))}")
+    # K1 at the main path's shape (F = 1: one channel's chunk) and between.
+    # Its floors at F = 1: the same count of operations, and the latency of
+    # a frame: 14 dependent butterflies (a rank on the last rank's product;
+    # tpu_sdr_q15_butterfly_probe's cycles), one read of device memory and
+    # one write (tpu_sdr_q15_memory_probe's); the exchanges are the design's,
+    # not the function's, and are left out.
+    mhz = max_sm_mhz()
+    chain = fft_q15.butterfly_probe_cycles(8192)
+    read, write = fft_q15.memory_probe_cycles(256)
+    latency_ms = (14 * chain + read + write) / (mhz * 1e3)
+    b1 = bound(N * (2 + 8) + N // 2 * 4, N * 6, int_ops=N * 14 * 14)
+    for f in (1, 8, 64):
+        ms = t["ms"] if f == F else cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x[:f]))
+        route = fft_q15.kernel_route(f, N)
+        line = (f"[5] q15_fft F={f:2d}: kernel {ms:.4f} ms, {ms * mhz * 1e3 / f:.0f} cycles a frame at "
+                f"{mhz:.0f} MHz (route {route[0]}, {route[1]} CTAs a frame, {f * route[1]} CTAs)")
+        if f == 1:
+            line += (f"; floors: the operations' count {b1['bound_ms'] * 1e3:.3f} us "
+                     f"({b1['int_ops'] / 1e6:.2f} M int32 operations at the INT32 issue rate) -> "
+                     f"kernel at {b1['bound_ms'] / ms:.1%}; the latency, 14 x {chain:.2f} cycles "
+                     f"(tpu_sdr_q15_butterfly_probe) + a read {read:.1f} + a write {write:.1f} "
+                     f"cycles (tpu_sdr_q15_memory_probe) = {latency_ms * 1e3:.3f} us -> kernel at "
+                     f"{latency_ms / ms:.1%}")
+            check(b1["bound_ms"] / ms <= 1.05, ("q15_fft faster than its count floor", b1, ms))
+            check(latency_ms / ms <= 1.05, ("q15_fft faster than its latency floor", latency_ms, ms))
+        print(line)
     sos = torch.as_tensor(padded_q15_sos(), dtype=torch.int32, device="cuda")
     xk = torch.as_tensor(q15_tones(2, 110)[None], device="cuda")
     zi = torch.zeros((1, 6, 2), dtype=torch.int32, device="cuda")

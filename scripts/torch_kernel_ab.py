@@ -2,8 +2,9 @@
 
     python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq
                                                   iir_summaries sosfilt_q15 sosfilt_q15_4rows
-                                                  viterbi viterbi_k12]
-    python3 scripts/torch_kernel_ab.py --variant {fmax_tree,one_imad,shfl_up,no_store} [LABEL ...]
+                                                  viterbi viterbi_k12 q15_fft q15_fft_f8 q15_fft_f64]
+    python3 scripts/torch_kernel_ab.py --variant {fmax_tree,one_imad,shfl_up,no_store,c1,c2,c4,c16}
+                                                  [LABEL ...]
 
 Builds ``tpu_sdr_torch/csrc/<name>.cu`` of this checkout and of OTHER_ROOT
 (another checkout, for example the parent commit unpacked with ``git
@@ -16,7 +17,9 @@ taps 8, random planes; row 3: 512 frames with the plan of butter(12, 0.25),
 each tree's entry point given the arguments it names: the window and the
 chain's constants, or the plan's summary_matrix; K2: 1 or 4 rows of 2
 frames, the window and 6 sections, the Q15 path's; K3: 64 rows x 2054
-steps of the burst path's K = 7 code, or 4 x 523 at k = 12), reports whether every
+steps of the burst path's K = 7 code, or 4 x 523 at k = 12; K1: F = 1 (the
+main path's shape), or F = 8 or 64 with ``_f8`` / ``_f64``, frames of 16384
+random int16, no window, the schedule all ones), reports whether every
 output is bit for bit the same as OTHER_ROOT's (and how far apart), then
 times them in turns (other, this, this, other; CUDA events around 20
 launches queued behind a spin kernel, as ``chip_smoke.py`` times). Needs one
@@ -24,7 +27,7 @@ CUDA device.
 
 With ``--variant NAME`` the other tree is this checkout's csrc with the
 edits of ``VARIANTS[NAME]`` (under ``build/kernel_variants/NAME/``): a design
-choice that K2 or K3 replaced, so that its time stands beside the kernel's.
+choice that K1, K2 or K3 replaced, so that its time stands beside the kernel's.
 Each edit's old text must be in the source once, else the script exits.
 
 - ``fmax_tree`` (K3): the step's maximum as a 5-level ``__shfl_xor_sync``
@@ -38,10 +41,14 @@ Each edit's old text must be in the source once, else the script exits.
   place of shared memory a 32-step chunk later;
 - ``no_store`` (K2, a diagnostic, not a design): the last lane's 16-byte
   output stores left out (the vectors are still packed), so that y is not
-  written; what the stores cost.
+  written; what the stores cost;
+- ``c1``, ``c2``, ``c4``, ``c16`` (K1): a frame of 16384 on a cluster of
+  1, 2, 4 or 16 CTAs in place of 8 (``kClusterCtas``; 16 is the H100's
+  non-portable cluster size). Give the labels ``q15_fft q15_fft_f8
+  q15_fft_f64`` to time each at F = 1, 8 and 64.
 
-The first three compute the same function, so a variant whose bits differ
-fails; ``no_store``'s y is expected to differ.
+All but ``no_store`` compute the same function, so a variant whose bits
+differ fails; ``no_store``'s y is expected to differ.
 """
 
 from __future__ import annotations
@@ -94,6 +101,9 @@ VARIANTS = {  # name -> (kernel source, case label, exact, [(old text, new text)
         ("ln.ring[u % kVec] = y;", f"ln.ring[{_RING_SLOT}] = y;"),
         ("if (u % kVec == kVec - 1) {", f"if ({_RING_SLOT} == kVec - 1) {{"),
     ]),
+    **{f"c{c}": ("q15_fft", "q15_fft", True, [("constexpr int kClusterCtas = 8;",
+                                               f"constexpr int kClusterCtas = {c};")])
+       for c in (1, 2, 4, 16)},
     "no_store": ("sosfilt_q15", "sosfilt_q15", False, [(_OUT_STORE, (
         "      if (put && w.x == 0x12345678u && w.y == 0x9abcdef0u) *sink = w;  // never, in effect"))]),
 }
@@ -106,10 +116,20 @@ def signature(src: Path, name: str) -> list[str]:
     return [a.strip() for a in m.group(1).split(",")]
 
 
+_BUILT = {}
+
+
 def build(root: Path, name: str, tag: str):
-    """(entry point, its parameter declarations) of root's <name>.cu."""
+    """(entry point, its parameter declarations) of root's <name>.cu, built
+    once a process."""
+    if (root, name, tag) not in _BUILT:
+        _BUILT[root, name, tag] = _build(root, name, tag)
+    return _BUILT[root, name, tag]
+
+
+def _build(root: Path, name: str, tag: str):
     src = root / "tpu_sdr_torch" / "csrc"
-    out = REPO / "build" / "kernel_ab" / tag
+    out = REPO / "build" / "kernel_ab" / f"{tag}-{root.name}"  # one library a tree
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"lib{name}.so"
     flags = [f for f in loader.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -209,6 +229,20 @@ def case(label: str):
                         n_rom=rom.shape[0], zi=zi, xw=xw, y=y, zf=zf), [xw, y, zf]
 
         return "sosfilt_q15", args
+    if label.startswith("q15_fft"):
+        from tpu_sdr_torch.kernels import fft_q15
+
+        f = re.search(r"_f(\d+)$", label)
+        frames = int(f.group(1)) if f else 1
+        x = (torch.randn((frames, 16384), device="cuda", generator=gen) * 6000).to(torch.int16)
+        tw, sched = fft_q15._kernel_tables(16384, (1,) * 14, "cuda")
+
+        def args():
+            outs = [torch.empty_like(x), torch.empty_like(x), torch.empty(x.shape, device="cuda")]
+            return dict(x_re=x, x_im=None, rom=None, tw=tw, sched=sched, out_re=outs[0],
+                        out_im=outs[1], mag=outs[2], frames=frames, log2n=14), outs
+
+        return "q15_fft", args
     if label.startswith("viterbi"):
         from tpu_sdr_torch.kernels import fec
 

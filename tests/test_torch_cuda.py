@@ -825,14 +825,22 @@ Q15_SOS = np.array([[18, 36, 18, 64, -38, 14], [64, -120, 64, 64, -110, 52], [64
                     [64, 0, 0, 64, 0, 0], [64, 0, 0, 64, 0, 0], [64, 0, 0, 64, 0, 0]])
 
 
+K1_CLUSTER_CTAS = 8  # csrc/q15_fft.cu kClusterCtas (tests/test_torch_q15_fft_schedule.py)
+
+
 @pytest.mark.parametrize("kind", ["random", "tone"])
 @pytest.mark.parametrize("bypass", [True, False], ids=["bypass", "fft"])
-@pytest.mark.parametrize("frames_", [1, 8, 64])
+@pytest.mark.parametrize("frames_", [1, 3, 8, 64, 133])
 def test_q15_fft_kernel_matches_plain_bitwise(card, frames_, bypass, kind):
+    """F frames of 16384 on the cluster route (133 x 8 CTAs are more than
+    the card holds at once), with and without the ROM: one launch, the
+    plain version's bits, and the last frame's bits as when it is launched
+    alone."""
     from tpu_sdr_torch.kernels import fft_q15
 
     x = torch.as_tensor(_q15_frames((frames_, N), 60 + frames_, kind), device="cuda")
     rom = window.hann_q16_rom(N, device="cuda") if bypass else None
+    assert fft_q15.kernel_route(frames_, N) == ("cluster", K1_CLUSTER_CTAS)
     launch.reset_counts()
     got = fft_q15.window_fft_q15(x, rom=rom)
     torch.cuda.synchronize()
@@ -843,19 +851,44 @@ def test_q15_fft_kernel_matches_plain_bitwise(card, frames_, bypass, kind):
     if not bypass:
         oracle = fft_q15.fft_q15_np(x.cpu().numpy())
         assert all(np.array_equal(g.cpu().numpy(), o) for g, o in zip(got[:2], oracle))
+    last = fft_q15.window_fft_q15_cuda(x[-1:].clone(), rom=rom)
+    assert all(torch.equal(g[-1:], one) for g, one in zip(got, last))
 
 
-@pytest.mark.parametrize("n", [2, 256, 4096])
+@pytest.mark.parametrize("n", [1 << m for m in range(1, 15)])
 def test_q15_fft_kernel_sizes_schedule_and_complex_input(card, n):
+    """Every frame size 2^1 .. 2^14, complex input, schedule t % 3 (shifts
+    0, 1 and 2): the route the library reports (the cluster route at 2^14,
+    one CTA below) gives fft_q15_np's and the plain version's bits."""
     from tpu_sdr_torch.kernels import fft_q15
 
     x = torch.as_tensor(_q15_frames((3, n), 70, "random"), device="cuda")
     xi = torch.as_tensor(_q15_frames((3, n), 71, "random"), device="cuda")
     m = n.bit_length() - 1
     sched = tuple((t % 3) for t in range(m))
+    assert fft_q15.kernel_route(3, n) == (("cluster", K1_CLUSTER_CTAS) if m == 14 else ("block", 1))
     got = fft_q15.fft_q15(x, xi, schedule=sched)
     ref = fft_q15.fft_q15_np(x.cpu().numpy(), xi.cpu().numpy(), schedule=sched)
     assert all(np.array_equal(g.cpu().numpy(), r) for g, r in zip(got, ref))
+    plain = fft_q15.window_fft_q15_plain(x, xi, schedule=sched)
+    assert all(torch.equal(g, p) for g, p in zip(fft_q15.window_fft_q15_cuda(x, xi, schedule=sched), plain))
+
+
+@pytest.mark.parametrize("schedule", ["zeros", "twos", "t%3"])
+def test_q15_fft_full_scale_schedules(card, schedule):
+    """16384-point complex frames at full scale (+-32768 samples): every
+    rank of the all-zero schedule saturates; 2, 0 alternating; t % 3."""
+    from tpu_sdr_torch.kernels import fft_q15
+
+    sched = {"zeros": (0,) * 14, "twos": (2, 0) * 7, "t%3": tuple(t % 3 for t in range(14))}[schedule]
+    rng = np.random.default_rng(95)
+    x, xi = (torch.as_tensor(rng.choice(np.array([-32768, 32767], np.int16), (2, N)), device="cuda")
+             for _ in range(2))
+    got = fft_q15.fft_q15(x, xi, schedule=sched)
+    oracle = fft_q15.fft_q15_np(x.cpu().numpy(), xi.cpu().numpy(), schedule=sched)
+    assert all(np.array_equal(g.cpu().numpy(), o) for g, o in zip(got, oracle))
+    if schedule == "zeros":
+        assert int((got[0].abs() >= 32767).sum()) > 0
 
 
 @pytest.mark.parametrize("rows", [1, 4])
@@ -1157,7 +1190,7 @@ def test_capture_op_table_counts_a_one_kernel_step(card):
     t = capture_op_table(lambda: fft_q15.window_fft_q15_cuda(x), reps=3)
     assert t["device_trace"] and t["executions"] == 3 and t["unattributed"] == 0
     assert t["n_ops"] == 1 and list(t["op_counts"].values()) == [1]
-    assert "q15_fft_kernel" in next(iter(t["op_counts"]))
+    assert "q15_fft_cluster_kernel" in next(iter(t["op_counts"]))
     assert 0 < t["device_busy_ms"] == t["op_sum_ms"] <= t["dispatch_ms"]
     assert t["device_idle_ms"] >= 0
 

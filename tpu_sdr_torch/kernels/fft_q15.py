@@ -21,14 +21,17 @@ gate-exact; ``fft_q15_np`` (NumPy, int64) is its oracle.
 
 ``window_fft_q15`` is the device stage of the Q15 pipeline: [the RTL window,]
 the ranks, the bit-reversal gather and the magnitude of the wire words. On
-a CUDA tensor it launches ``csrc/q15_fft.cu`` (one block a frame, the frame
-in shared memory as int16 pairs); on a CPU tensor it runs
+a CUDA tensor it launches ``csrc/q15_fft.cu``: a frame of 16384 on a
+cluster of CTAs (the ranks in registers between exchanges through shared
+memory, the bit reversal in the store), smaller frames on one CTA each (or
+several frames a CTA); ``kernel_route`` says which. On a CPU tensor it runs
 ``window_fft_q15_plain``, the ranks as int32 tensor operations. The two give
 the same bits. ``fft_q15`` is its FFT alone.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -39,7 +42,7 @@ from tpu_sdr_torch.kernels import window
 from tpu_sdr_torch.kernels.cuda import launch
 
 N_DEFAULT = 16384
-MAX_N = 16384  # the kernel holds a frame in 64 KB of shared memory
+MAX_N = 16384  # the kernel's largest frame: 128 x 128 on its cluster route
 
 Q15_FULL_SCALE = 1 << 15
 
@@ -287,3 +290,53 @@ def fft_q15(x_re, x_im=None, schedule=None, bitrev: str = "take"):
         return re, im
     re, im, _ = window_fft_q15_cuda(x_re, x_im, None, schedule, want_magnitude=False)
     return re, im
+
+
+def kernel_route(frames: int, n: int) -> tuple:
+    """The route of a launch of ``frames`` frames of ``n`` samples
+    (``tpu_sdr_q15_fft_route``, a pure function of the shape): ("cluster",
+    C), a frame on a cluster of C CTAs, or ("block", 1), one CTA a frame or
+    several frames a CTA. Builds the kernel's library on first use."""
+    fn = launch._kernel_lib("q15_fft").tpu_sdr_q15_fft_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    ctas = fn(int(frames), _log2(n))
+    return ("cluster", ctas) if ctas > 0 else ("block", 1)
+
+
+def butterfly_probe_cycles(steps: int, shift: int = 1, device="cuda") -> float:
+    """Clock cycles of one butterfly's dependent chain, a rank on the last
+    rank's product (``tpu_sdr_q15_butterfly_probe``: one warp, ``steps``
+    butterflies at ``shift`` with the twiddle W_8^1), measured over
+    ``steps``. Not a launch of the FFT: it is not counted."""
+    lib = launch._kernel_lib("q15_fft")
+    fn = lib.tpu_sdr_q15_butterfly_probe
+    fn.argtypes = [ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    w_re, w_im = (int(v[1 << 11]) for v in plan_q15(N_DEFAULT)["ranks"][0])
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        err = fn(out.data_ptr(), steps, shift, w_re, w_im, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tpu_sdr_q15_butterfly_probe launch failed: CUDA error {err}")
+    return out[0].item() / steps
+
+
+def memory_probe_cycles(steps: int = 256, device="cuda") -> tuple:
+    """Clock cycles of one read of device memory that misses L2 (a chase of
+    ``steps`` dependent reads) and of one write with the fence that waits
+    for it (``tpu_sdr_q15_memory_probe``, one thread, on a 256 MB scratch).
+    Returns (read cycles, write cycles). Not a launch of the FFT."""
+    lib = launch._kernel_lib("q15_fft")
+    fn = lib.tpu_sdr_q15_memory_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        err = fn(buf.data_ptr(), buf.numel(), out.data_ptr(), steps,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tpu_sdr_q15_memory_probe launch failed: CUDA error {err}")
+    return out[0].item() / steps, out[1].item() / steps
