@@ -83,13 +83,8 @@ def y_word(r, cl, cols):
     return (r * cols + cl) ^ (((r >> 3) & row_mask(cols)) * cols)
 
 
-def x_flip(u):
-    return (u ^ (u >> 2) ^ (u >> 3)) & 1
-
-
 def x_word(u, c):
-    gb, kk = c & 7, c >> 3
-    return u * LINE + ((((gb << 2) | (kk >> 2)) ^ ((gb >> 1) & 3)) << 2) + ((kk & 3) ^ (x_flip(u) << 1))
+    return (u >> 1) * 2 * LINE + 2 * (c ^ (((u >> 1) & 1) << 3)) + (u & 1)
 
 
 def z_word(u, c):
@@ -245,7 +240,8 @@ def cluster_route(x_re, x_im=None, rom=None, schedule=None, C: int = CLUSTER_CTA
         cp, col = mp["push_cp"][q], mp["push_col"][q]
         owner, word = cp // cols, w_word(cp % cols, col)
         W[owner, 0, :, word], W[owner, 1, :, word] = re.transpose(1, 2, 0), im.transpose(1, 2, 0)
-    # the second cluster barrier; then each CTA stores whole output rows
+    # then each CTA stores whole output rows: unit v = tid + T w the
+    # outputs 8 (v % 16) .. of its row v // 16
     for q in range(C):
         for half in range(2):
             v = np.arange(T) + T * half
@@ -346,13 +342,12 @@ def cluster_accesses(C: int) -> dict:
     acc["Y read"] = (1, per_reg(y_word(mp["a2_r"][q], mp["cl"], cols)))
     # a send: a warp's store of register k, per destination CTA (each its
     # own SM's banks)
+    # registers k and k + 8 as one 8-byte vector
     b = mp["send_b"][q]
     dest, word = b // cols, x_word(b % cols, mp["c_a"][q])
-    acc["X send"] = (1, [list(word[ws, k][dest[ws, k] == o]) for ws in warps
-                         for k in range(POINTS) for o in np.unique(dest[ws, k])])
-    # as two 8-byte halves of each 4-word chunk, the half that holds kk % 4
-    # = 0, 1 first
-    acc["X read"] = (2, per_reg(x_word(mp["b_u"], mp["b1_c"][q]), regs=range(0, POINTS, 2)))
+    acc["X send"] = (2, [list(word[ws, k][dest[ws, k] == o]) for ws in warps
+                         for k in range(POINTS // 2) for o in np.unique(dest[ws, k])])
+    acc["X read"] = (1, per_reg(x_word(mp["b_u"], mp["b1_c"][q])))
     acc["Z write"] = (1, per_reg(z_word(mp["b_u"], mp["b1_c"][q])))
     acc["Z read"] = (4, per_reg(z_word(mp["b_u"], mp["b2_c"][q]), regs=range(0, POINTS, 4)))
     cp, col = mp["push_cp"][q], mp["push_col"][q]
@@ -455,11 +450,11 @@ def test_layouts_are_one_to_one_and_keep_vectors_whole(C):
         assert np.array_equal(np.sort(w.ravel()), np.arange(LINE * cols))
     u, c = np.meshgrid(np.arange(cols), np.arange(LINE), indexing="ij")
     assert len(np.unique(z_word(u, c))) == u.size and z_word(u, c).max() < cols * Z_STRIDE
-    for gb in range(8):
-        for kk0 in range(0, POINTS, 2):
-            base = x_word(np.arange(cols), gb + 8 * kk0)
-            assert np.all(base % 2 == 0)
-            assert np.all(x_word(np.arange(cols), gb + 8 * (kk0 + 1)) == base + 1)
+    # a sender's registers k and k + 8 (rows b and b + 1, b even): one
+    # aligned 8-byte vector
+    base = x_word(np.arange(0, cols, 2)[:, None], np.arange(LINE)[None, :])
+    assert np.all(base % 2 == 0)
+    assert np.all(x_word(np.arange(1, cols, 2)[:, None], np.arange(LINE)[None, :]) == base + 1)
     for col0 in range(0, LINE, 4):
         base = w_word(np.arange(cols), col0)
         assert np.all(base % 4 == 0)

@@ -50,7 +50,8 @@
 //     takes r = 8h + k', h = g and g + 8, k' < 8, and runs ranks 4-6 on
 //     both groups of 8.
 //   the X send: phase B runs row r on CTA b / (128 / C) as its local row u
-//     = b % (128 / C), b = brev7(r); each point goes there.
+//     = b % (128 / C), b = brev7(r); each point goes there, a thread's
+//     points of rows b and b + 1 as one 8-byte store.
 //   phase B: 8 threads a row. B1: thread (u, g) takes c = g + 8k from X,
 //     runs ranks 7-10; through shared memory (Z); B2: c = 8h + k', h = g
 //     and g + 8, ranks 11-13.
@@ -237,15 +238,12 @@ __device__ __forceinline__ int y_word(int r, int cl) {
   return (r * S::kCols + cl) ^ (((r >> 3) & S::kRowMask) * S::kCols);
 }
 
-// X: point (local row u, c) of phase B as its CTA receives it. Phase-B
-// thread (u, gb) takes c = gb + 8 kk, kk < 16, from chunks 4 gb + kk / 4
-// of row u (4 words each, permuted by bits 1-2 of gb), each as two 8-byte
-// halves whose order a bit of u swaps (so that the sends of a warp, which
-// span rows apart in bit 2 or 3, fall in distinct banks).
-__device__ __forceinline__ int x_flip(int u) { return (u ^ (u >> 2) ^ (u >> 3)) & 1; }
+// X: point (local row u, c) of phase B as its CTA receives it: rows u and
+// u ^ 1 interleaved, so that a sender's two points of a column for the two
+// rows are one 8-byte vector; c permuted by bit 1 of u (rows 2 apart in a
+// reading warp fall in distinct banks).
 __device__ __forceinline__ int x_word(int u, int c) {
-  const int gb = c & 7, kk = c >> 3;
-  return u * kLine + (((gb << 2 | kk >> 2) ^ ((gb >> 1) & 3)) << 2) + ((kk & 3) ^ (x_flip(u) << 1));
+  return (u >> 1) * 2 * kLine + 2 * (c ^ (((u >> 1) & 1) << 3)) + (u & 1);
 }
 
 // Z: point (u, c) of phase B between B1 and B2.
@@ -259,17 +257,10 @@ __device__ __forceinline__ int w_word(int rl, int col) {
   return rl * kLine + (((ch ^ ((ch >> 3) & 1) ^ ((rl >> 1) & 7))) << 2) + (col & 3);
 }
 
-// kWords (2 or 4) aligned words of shared memory as one vector load.
-template <int kWords>
-__device__ __forceinline__ void load_words(uint32_t* v, const uint32_t* p) {
-  static_assert(kWords == 2 || kWords == 4, "an 8- or 16-byte load");
-  if constexpr (kWords == 4) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  }
+// 4 aligned words of shared memory as one 16-byte load.
+__device__ __forceinline__ void load4(uint32_t* v, const uint32_t* p) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
 }
 
 // The exchanges between the CTAs of a cluster: each point goes to the CTA
@@ -319,6 +310,10 @@ __device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
                ::"r"(addr), "r"(v), "r"(bar) : "memory");
 }
+__device__ __forceinline__ void st_async2(uint32_t addr, uint32_t v0, uint32_t v1, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+               ::"r"(addr), "r"(v0), "r"(v1), "r"(bar) : "memory");
+}
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
@@ -366,12 +361,22 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
   const int tid = int(threadIdx.x);
   const int q = kC > 1 ? int(cg::this_cluster().block_rank()) : 0;
   const size_t base = size_t(blockIdx.x / kC) * kN;
-  // Word `word` of buffer buf (xs or ws) of CTA dest gets v.
-  const auto send = [&](uint32_t* buf, int bar, int dest, int word, uint32_t v) {
+  // Words `word` and `word` + 1 (word even) of X of CTA dest get v0 and
+  // v1, one vector.
+  const auto send_x = [&](int dest, int word, uint32_t v0, uint32_t v1) {
     if constexpr (kC > 1) {
-      st_async(map_rank(smem_addr(buf), dest) + 4 * word, v, map_rank(smem_addr(bars + bar), dest));
+      st_async2(map_rank(smem_addr(xs), dest) + 4 * word, v0, v1, map_rank(smem_addr(bars), dest));
     } else {
-      buf[word] = v;
+      xs[word] = v0;
+      xs[word + 1] = v1;
+    }
+  };
+  // Word `word` of W of CTA dest gets v.
+  const auto send_w = [&](int dest, int word, uint32_t v) {
+    if constexpr (kC > 1) {
+      st_async(map_rank(smem_addr(ws), dest) + 4 * word, v, map_rank(smem_addr(bars + 1), dest));
+    } else {
+      ws[word] = v;
     }
   };
   if constexpr (kC > 1) {
@@ -431,13 +436,15 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
   pass<3, 2>(re, im, wa2, s + 4);  // A2: ranks 4-6, two groups of 8
   // The X send: register k holds r = 64 (k >> 3) + 8 g + (k & 7), and
   // phase B runs row r on CTA b / kCols as its row b % kCols, b = brev7(r)
-  // = brev3(k & 7) 16 + brev3(g) 2 + (k >> 3).
+  // = brev3(k & 7) 16 + brev3(g) 2 + (k >> 3): registers k and k + 8 go to
+  // rows b and b + 1 of one CTA, one vector. (Paired, the sends took half
+  // the time; W's sends paired gained nothing, and stay single.)
   if constexpr (kC > 1) cluster_wait();  // every CTA's mbarriers are ready
   const int ga = brev7(g) >> 4;  // brev3(g)
 #pragma unroll
-  for (int k = 0; k < kPoints; ++k) {
-    const int b = (brev3(k & 7) << 4) | (ga << 1) | (k >> 3);
-    send(xs, 0, b / S::kCols, x_word(b % S::kCols, c), pack(re[k], im[k]));
+  for (int k = 0; k < kPoints / 2; ++k) {
+    const int b = (brev3(k) << 4) | (ga << 1);
+    send_x(b / S::kCols, x_word(b % S::kCols, c), pack(re[k], im[k]), pack(re[k + 8], im[k + 8]));
   }
   if constexpr (kC > 1) {
     mbar_wait(bars);
@@ -463,11 +470,10 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
   }
   // B1: register kk holds c = gb + 8 kk.
 #pragma unroll
-  for (int kk = 0; kk < kPoints; kk += 2) {
-    uint32_t v[2];
-    load_words<2>(v, xs + x_word(u, gb + 8 * kk));
-    re[kk] = lo16(v[0]), im[kk] = hi16(v[0]);
-    re[kk + 1] = lo16(v[1]), im[kk + 1] = hi16(v[1]);
+  for (int kk = 0; kk < kPoints; ++kk) {
+    const uint32_t v = xs[x_word(u, gb + 8 * kk)];
+    re[kk] = lo16(v);
+    im[kk] = hi16(v);
   }
   pass<4>(re, im, wb1, s + 7);  // B1: ranks 7-10
 #pragma unroll
@@ -476,7 +482,7 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
 #pragma unroll
   for (int k = 0; k < kPoints; k += 4) {
     uint32_t v[4];
-    load_words<4>(v, yz + z_word(u, 8 * (gb + 8 * (k >> 3)) + (k & 7)));
+    load4(v, yz + z_word(u, 8 * (gb + 8 * (k >> 3)) + (k & 7)));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       re[k + i] = lo16(v[i]);
@@ -491,7 +497,7 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
 #pragma unroll
   for (int k = 0; k < kPoints; ++k) {
     const int cp = (brev3(k & 7) << 4) | (gr << 1) | (k >> 3);
-    send(ws, 1, cp / S::kCols, w_word(cp % S::kCols, q * S::kCols + u), pack(re[k], im[k]));
+    send_w(cp / S::kCols, w_word(cp % S::kCols, q * S::kCols + u), pack(re[k], im[k]));
   }
   if constexpr (kC > 1) {
     mbar_wait(bars + 1);
@@ -507,8 +513,8 @@ q15_fft_cluster_kernel(const int16_t* __restrict__ x_re, const int16_t* __restri
     const int v = tid + S::kThreads * w;
     const int rl = v >> 4, j = v & 15;
     uint32_t pts[8];
-    load_words<4>(pts, ws + w_word(rl, 8 * j));
-    load_words<4>(pts + 4, ws + w_word(rl, 8 * j + 4));
+    load4(pts, ws + w_word(rl, 8 * j));
+    load4(pts + 4, ws + w_word(rl, 8 * j + 4));
     store8(pts, out_re, out_im, mag, base + size_t(q * S::kCols + rl) * kLine + 8 * j);
   }
   if constexpr (kC > 1) cluster_wait();  // no store into any CTA of the cluster is in flight
