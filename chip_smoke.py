@@ -118,8 +118,9 @@ Phases (each raises on failure):
      plain version); each
      path's end-to-end dispatch time (the facade's with its device->host
      copy), compared paths in alternating turns; the Q15 kernels (K1 at F
-     = 64 beside its INT32 bound, at F = 1 beside its two floors, the
-     operations' count and its latency: 14 dependent butterflies, a read
+     = 64 beside its INT32 bound, the operations its schedule needs
+     (``q15_fft_int_ops``), at F = 1 beside its two floors, that count and
+     its latency: 14 dependent butterflies, a read
      and a write of device memory, from ``tpu_sdr_q15_butterfly_probe``
      and ``tpu_sdr_q15_memory_probe``; at F = 1, 8, 64 its cycles a frame
      and route; K2 at 1 row x 2 frames beside its chain's latency floor, with
@@ -2075,6 +2076,16 @@ def phase_q15_stream(split):
         print(f"[4] Q15Stream depth {depth}: {Q15_CHUNKS} chunks of 1 frame bitwise equal to "
               f"sequential process() calls: {same}")
         check(same, ("Q15Stream", depth))
+    q15_stream_rates(split)
+
+
+def q15_stream_rates(split) -> dict:
+    """Q15Stream's steady rate at depth 1 against sequential process()
+    calls (filtered, the magnitude fetched each chunk), in turns, after the
+    split path's halves alone and side by side. Returns {"stream" |
+    "sequential": [MSPS of each turn]}."""
+    from tpu_sdr_torch.runtime.q15 import Q15Stream
+
     chunks = [q15_tones(1, 130 + i) for i in range(8)]
     reps = 64
 
@@ -2124,12 +2135,15 @@ def phase_q15_stream(split):
     print(f"[5] the split path's halves, ms a chunk of {N}: host stage (native window + 6 "
           f"sections) {alone[0]:.4f} alone, {both[0]:.4f} on a thread beside the device half; "
           f"device half (upload, K1, fetch) {alone[1]:.4f} alone, {both[1]:.4f} beside the host stage")
+    rates = {"stream": [], "sequential": []}
     for label in ("stream", "sequential", "sequential", "stream"):
         dt = streamed() if label == "stream" else sequential()
         what = ("Q15Stream depth 1" if label == "stream"
                 else "sequential process() + the magnitude's fetch")
+        rates[label].append(reps * N / dt / 1e6)
         print(f"[5] {what}, filtered: {reps} chunks of {N} in {dt * 1e3:.2f} ms -> "
-              f"{reps * N / dt / 1e6:.3f} MSPS ({dt / reps * 1e3:.4f} ms a chunk)")
+              f"{rates[label][-1]:.3f} MSPS ({dt / reps * 1e3:.4f} ms a chunk)")
+    return rates
 
 
 def phase_host_runtime(pipe, sos_custom):
@@ -2217,6 +2231,19 @@ def q15_chain_floor_ms(t: int, sections: int) -> tuple[float, float, float]:
     return cycles / (mhz * 1e3), row / (mhz * 1e3), mhz
 
 
+def q15_fft_int_ops(n: int, schedule) -> int:
+    """The int32 operations one frame of fft_q15 needs under ``schedule``,
+    an issue slot each. At rank t each of the n / 2 butterflies adds and
+    subtracts (4), then shifts by s (4) if s >= 1, where (a +- b) >> s
+    already lies in int16, or clamps (8 min / max) if s = 0, where there is
+    no shift; the n / 2 - 2^t butterflies with j != 0 (each of rank t's 2^t
+    groups has one j = 0, which keeps d as it is) form the complex product
+    (2 multiplies and 2 multiply-adds, an IMAD each), shift it (2) and
+    clamp it (4 min / max)."""
+    return sum(n // 2 * (4 + (4 if s else 8)) + (n // 2 - (1 << t)) * 10
+               for t, s in enumerate(schedule))
+
+
 def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     """K1 at F = 64 and K2 at 1 row x 2 frames (kernel, plain, bound; no
     single PyTorch call computes either function), then the Q15 paths'
@@ -2226,12 +2253,16 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     timing = {}
     F = 64
     x = q15_kernel_inputs(F, "random", 64)
-    # The function per sample: 14 ranks of half a butterfly in int32 (4
-    # add/sub, 4 shifts, 8 clamps; the twiddle's 4 multiplies, 2 add/sub,
-    # 2 shifts, 4 clamps: 28 / 2), the magnitude in fp32 (2 converts, 2
-    # multiplies, an add, a square root); 2 bytes in, 8 out, the twiddle
-    # table once.
-    b = bound(F * N * (2 + 8) + N // 2 * 4, F * N * 6, int_ops=F * N * 14 * 14)
+    # The function per frame: the ranks' int32 operations under the timed
+    # schedule (the default, one bit a rank; q15_fft_int_ops), the
+    # magnitude in fp32 per sample (2 converts, 2 multiplies, an add, a
+    # square root); 2 bytes in and 8 out a sample, the twiddle table once.
+    # The uniform count, 28 operations a butterfly at every rank (the sum's
+    # and the difference's clamps too, and the product at j = 0), is
+    # printed beside it.
+    ops = q15_fft_int_ops(N, (1,) * 14)
+    b = bound(F * N * (2 + 8) + N // 2 * 4, F * N * 6, int_ops=F * ops)
+    b_uniform = bound(F * N * (2 + 8) + N // 2 * 4, F * N * 6, int_ops=F * N * 14 * 14)
     timing["q15_fft"] = {"ms": cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x)),
                          "plain_ms": cuda_ms(lambda: fft_q15.window_fft_q15_plain(x), iters=5),
                          "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
@@ -2242,7 +2273,9 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
           f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB; {b['int_ops'] / 1e9:.3f} "
           f"G int32 operations at {peak_int32_ops() / 1e12:.2f} T/s, the INT32 issue rate, and "
           f"{b['flops'] / 1e9:.4f} GFLOP fp32) -> kernel at {b['bound_ms'] / t['ms']:.1%} of the "
-          f"bound; window+fft {cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x, rom=rom)):.4f} ms; "
+          f"bound (the uniform count, {b_uniform['int_ops'] / 1e9:.3f} G: {b_uniform['bound_ms']:.4f} ms, "
+          f"{b_uniform['bound_ms'] / t['ms']:.1%}); window+fft "
+          f"{cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x, rom=rom)):.4f} ms; "
           f"{profiled(lambda: fft_q15.window_fft_q15_cuda(x))}")
     # K1 at the main path's shape (F = 1: one channel's chunk) and between.
     # Its floors at F = 1: the same count of operations, and the latency of
@@ -2254,7 +2287,8 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     chain = fft_q15.butterfly_probe_cycles(8192)
     read, write = fft_q15.memory_probe_cycles(256)
     latency_ms = (14 * chain + read + write) / (mhz * 1e3)
-    b1 = bound(N * (2 + 8) + N // 2 * 4, N * 6, int_ops=N * 14 * 14)
+    b1 = bound(N * (2 + 8) + N // 2 * 4, N * 6, int_ops=ops)
+    b1_uniform = bound(N * (2 + 8) + N // 2 * 4, N * 6, int_ops=N * 14 * 14)
     for f in (1, 8, 64):
         ms = t["ms"] if f == F else cuda_ms(lambda: fft_q15.window_fft_q15_cuda(x[:f]))
         route = fft_q15.kernel_route(f, N)
@@ -2263,7 +2297,9 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
         if f == 1:
             line += (f"; floors: the operations' count {b1['bound_ms'] * 1e3:.3f} us "
                      f"({b1['int_ops'] / 1e6:.2f} M int32 operations at the INT32 issue rate) -> "
-                     f"kernel at {b1['bound_ms'] / ms:.1%}; the latency, 14 x {chain:.2f} cycles "
+                     f"kernel at {b1['bound_ms'] / ms:.1%} (the uniform count "
+                     f"{b1_uniform['bound_ms'] * 1e3:.3f} us: {b1_uniform['bound_ms'] / ms:.1%}); the "
+                     f"latency, 14 x {chain:.2f} cycles "
                      f"(tpu_sdr_q15_butterfly_probe) + a read {read:.1f} + a write {write:.1f} "
                      f"cycles (tpu_sdr_q15_memory_probe) = {latency_ms * 1e3:.3f} us -> kernel at "
                      f"{latency_ms / ms:.1%}")
@@ -2309,6 +2345,13 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     check(floor_ms / t["ms"] <= 1.05, ("sosfilt_q15 faster than its floor", floor_ms, t["ms"]))
     check(row_floor_ms / t["ms"] <= 1.05,
           ("sosfilt_q15 faster than the thread-a-row floor", row_floor_ms, t["ms"]))
+    walls, steps = q15_walls(pipes)
+    return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
+
+
+def q15_walls(pipes: dict, turns: int = 2) -> tuple[dict, dict]:
+    """The Q15 paths' wall per 16384-sample chunk, ``turns`` turns of the
+    three paths. Returns ({label: [median s of each turn]}, {label: step})."""
     chunk = q15_tones(1, 120)
     steps = {}
     dev, split = pipes["all-device"], pipes["split"]
@@ -2317,13 +2360,13 @@ def phase_q15_timing(pipes: dict) -> tuple[dict, dict, dict]:
     steps["Q15 split bypass"] = chained(lambda a, s: split.process(a, s, bypass=True), chunk,
                                         lambda: None)
     walls = {}
-    for label in ["Q15 split filtered", "Q15 split bypass", "Q15 all-device"] * 2:
+    for label in ["Q15 split filtered", "Q15 split bypass", "Q15 all-device"] * turns:
         med, lo, hi = dispatch_wall(steps[label])
         walls.setdefault(label, []).append(med)
         print(f"[5] {label:18s} wall per {N}-sample chunk (process() and a synchronize): median "
               f"{med * 1e3:.4f} ms (min {lo * 1e3:.4f}, max {hi * 1e3:.4f}) -> "
               f"{N / med / 1e6:.3f} MSPS")
-    return {label: statistics.median(v) for label, v in walls.items()}, timing, steps
+    return walls, steps
 
 
 # ---------------------------------------------------------------- burst modem, FEC, receiver extensions, transport

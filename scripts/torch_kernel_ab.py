@@ -3,8 +3,8 @@
     python3 scripts/torch_kernel_ab.py OTHER_ROOT [fft_mag_fused fm_demod pfb_fold_dft pfb_fold_dft_iq
                                                   iir_summaries sosfilt_q15 sosfilt_q15_4rows
                                                   viterbi viterbi_k12 q15_fft q15_fft_f8 q15_fft_f64]
-    python3 scripts/torch_kernel_ab.py --variant {fmax_tree,one_imad,shfl_up,no_store,c1,c2,c4,c16}
-                                                  [LABEL ...]
+    python3 scripts/torch_kernel_ab.py --variant {fmax_tree,one_imad,shfl_up,no_store,c1,c2,c4,c16,
+                                                  phases} [LABEL ...]
 
 Builds ``tpu_sdr_torch/csrc/<name>.cu`` of this checkout and of OTHER_ROOT
 (another checkout, for example the parent commit unpacked with ``git
@@ -45,7 +45,17 @@ Each edit's old text must be in the source once, else the script exits.
 - ``c1``, ``c2``, ``c4``, ``c16`` (K1): a frame of 16384 on a cluster of
   1, 2, 4 or 16 CTAs in place of 8 (``kClusterCtas``; 16 is the H100's
   non-portable cluster size). Give the labels ``q15_fft q15_fft_f8
-  q15_fft_f64`` to time each at F = 1, 8 and 64.
+  q15_fft_f64`` to time each at F = 1, 8 and 64;
+- ``phases`` (K1, a diagnostic): where a launch's time goes. Thread 0 of
+  every CTA of the cluster route records ``clock64`` at its start, around
+  A1 (ranks 0-3), after the Y barrier, after A2 (ranks 4-6), once its X
+  points have come, around B1 (ranks 7-10), after B2 (ranks 11-13), once
+  its W points have come and at its end (after the store and the exit
+  barrier), and the global timer at its start and end. After the times,
+  one more launch of each label, and one at F = 1 without |X| (the
+  magnitude's share of the store), print the CTAs' span on the global
+  timer and per phase the median and the largest SM cycles over the CTAs.
+  The stamps add a few cycles a phase.
 
 All but ``no_store`` compute the same function, so a variant whose bits
 differ fails; ``no_store``'s y is expected to differ.
@@ -86,6 +96,29 @@ _OUT_STORE = "      *(put ? reinterpret_cast<uint4*>(y_row) + (i - (kVec - 1)) /
 # lag.
 _RING_SLOT = "(u + kVec - Sh::LAG % kVec) % kVec"
 
+_MAX_CTAS = 8192
+_STAMP_PRELUDE = f"""
+__device__ long long tpu_sdr_q15_clk[{_MAX_CTAS}][11];
+__device__ long long tpu_sdr_q15_glb[{_MAX_CTAS}][2];
+#define STAMP(i)                                                              \\
+  do {{                                                                        \\
+    if (threadIdx.x == 0 && blockIdx.x < {_MAX_CTAS}) {{                          \\
+      tpu_sdr_q15_clk[blockIdx.x][i] = clock64();                             \\
+      if ((i) == 0 || (i) == 10) {{                                            \\
+        long long t;                                                          \\
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                 \\
+        tpu_sdr_q15_glb[blockIdx.x][(i) == 0 ? 0 : 1] = t;                    \\
+      }}                                                                       \\
+    }}                                                                         \\
+  }} while (0)
+extern "C" int tpu_sdr_q15_stamps(long long* clk, long long* glb) {{
+  cudaMemcpyFromSymbol(clk, tpu_sdr_q15_clk, sizeof(tpu_sdr_q15_clk));
+  return int(cudaMemcpyFromSymbol(glb, tpu_sdr_q15_glb, sizeof(tpu_sdr_q15_glb)));
+}}
+"""
+_PHASES = ["start", "A1 issued", "A1 done", "Y barrier", "A2 done", "X came", "B1 issued",
+           "B1 done", "B2 done", "W came", "end"]
+
 VARIANTS = {  # name -> (kernel source, case label, exact, [(old text, new text), ...])
     "fmax_tree": ("viterbi", "viterbi", True, [(_MAX_KEY, """#pragma unroll
   for (int o = Trellis<K>::LANES / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -104,6 +137,29 @@ VARIANTS = {  # name -> (kernel source, case label, exact, [(old text, new text)
     **{f"c{c}": ("q15_fft", "q15_fft", True, [("constexpr int kClusterCtas = 8;",
                                                f"constexpr int kClusterCtas = {c};")])
        for c in (1, 2, 4, 16)},
+    "phases": ("q15_fft", "q15_fft", True, [
+        ('#include "error_string.cuh"\n', '#include "error_string.cuh"\n' + _STAMP_PRELUDE),
+        ("  const size_t base = size_t(blockIdx.x / kC) * kN;\n",
+         "  const size_t base = size_t(blockIdx.x / kC) * kN;\n  STAMP(0);\n"),
+        ("  pass<4>(re, im, wa1, s);  // A1: ranks 0-3\n",
+         "  STAMP(1);\n  pass<4>(re, im, wa1, s);  // A1: ranks 0-3\n  STAMP(2);\n"),
+        ("  __syncthreads();\n#pragma unroll\n  for (int k = 0; k < kPoints; ++k) {\n"
+         "    const uint32_t v = yz[",
+         "  __syncthreads();\n  STAMP(3);\n#pragma unroll\n  for (int k = 0; k < kPoints; ++k) {\n"
+         "    const uint32_t v = yz["),
+        ("  pass<3, 2>(re, im, wa2, s + 4);  // A2: ranks 4-6, two groups of 8\n",
+         "  pass<3, 2>(re, im, wa2, s + 4);  // A2: ranks 4-6, two groups of 8\n  STAMP(4);\n"),
+        ("  // Phase B: rows.", "  STAMP(5);\n  // Phase B: rows."),
+        ("  pass<4>(re, im, wb1, s + 7);  // B1: ranks 7-10\n",
+         "  STAMP(6);\n  pass<4>(re, im, wb1, s + 7);  // B1: ranks 7-10\n  STAMP(7);\n"),
+        ("  pass<3, 2>(re, im, wb2, s + 11);  // B2: ranks 11-13, two groups of 8\n",
+         "  pass<3, 2>(re, im, wb2, s + 11);  // B2: ranks 11-13, two groups of 8\n  STAMP(8);\n"),
+        ("  // The store: unit v", "  STAMP(9);\n  // The store: unit v"),
+        ("  if constexpr (kC > 1) cluster_wait();  // no store into any CTA of the cluster is in "
+         "flight\n}",
+         "  if constexpr (kC > 1) cluster_wait();  // no store into any CTA of the cluster is in "
+         "flight\n  STAMP(10);\n}"),
+    ]),
     "no_store": ("sosfilt_q15", "sosfilt_q15", False, [(_OUT_STORE, (
         "      if (put && w.x == 0x12345678u && w.y == 0x9abcdef0u) *sink = w;  // never, in effect"))]),
 }
@@ -297,6 +353,27 @@ def ms(call, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def phase_report(lib: Path, call, frames: int, what: str) -> None:
+    """One launch of the stamped K1 (``--variant phases``): the CTAs' span
+    on the global timer and the SM cycles of each phase."""
+    call()
+    torch.cuda.synchronize()
+    clk = np.zeros((_MAX_CTAS, 11), np.int64)
+    glb = np.zeros((_MAX_CTAS, 2), np.int64)
+    dll = ctypes.CDLL(str(lib))
+    dll.tpu_sdr_q15_stamps(clk.ctypes.data_as(ctypes.c_void_p), glb.ctypes.data_as(ctypes.c_void_p))
+    ctas = frames * dll.tpu_sdr_q15_fft_route(frames, 14)
+    d = np.diff(clk[:ctas].astype(np.float64), axis=1)
+    g = glb[:ctas]
+    life = g[:, 1] - g[:, 0]
+    print(f"{what}: {ctas} CTAs; global timer: span {(g[:, 1].max() - g[:, 0].min()) / 1e3:.2f} us, "
+          f"starts spread {(g[:, 0].max() - g[:, 0].min()) / 1e3:.2f} us, CTA life median "
+          f"{np.median(life) / 1e3:.2f} us, max {life.max() / 1e3:.2f} us")
+    print("   SM cycles a phase (median / max over the CTAs): " + "; ".join(
+        f"{_PHASES[i]} -> {_PHASES[i + 1]} {np.median(d[:, i]):.0f} / {d[:, i].max():.0f}"
+        for i in range(10)), flush=True)
+
+
 def main(argv):
     exact = False
     if argv[0] == "--variant":
@@ -332,6 +409,14 @@ def main(argv):
             print(f"{label} [{tag}]: ms {', '.join(f'{t:.4f}' for t in ts)}; median {np.median(ts):.4f}")
         if exact and not same:
             raise SystemExit(f"{label}: the variant's bits differ from the checkout's")
+        if argv[0] == "--variant" and argv[1] == "phases":
+            lib = REPO / "build" / "kernel_ab" / f"other-{other.name}" / f"lib{src}.so"
+            frames = outs["other"][0].shape[0]
+            phase_report(lib, calls["other"], frames, f"{label} F={frames}")
+            if frames == 1:
+                values, _ = make()
+                values["mag"] = 0
+                phase_report(lib, bind(*builds["other"], values), 1, f"{label} F=1 without |X|")
 
 if __name__ == "__main__":
     main(sys.argv[1:])
