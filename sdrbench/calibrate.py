@@ -1,0 +1,103 @@
+"""The readings that a cell's limits are set from, in one process.
+
+    python3 -m sdrbench.calibrate --workload <cell> --seconds <s> \
+        --seeds <n> ... [--control-seeds <n> ...] [--tf32-seeds <n> ...] \
+        [--bf16-seeds <n> ...] [--out <file.jsonl>]
+
+Runs the cell (on the card) once for each seed as the benchmark does, at the
+cell's own sizes and load with a window of ``--seconds``, and prints each
+run's compared numbers (the lower reading is the largest over the seeds).
+Then the controls, once a seed each, whose smallest readings are the upper
+ones:
+
+- ``--control-seeds``: the reference computed with TF32 operands in float32,
+  the precision just below the configuration's, in the system's place;
+- ``--tf32-seeds``: the system itself with its matrix products in TF32
+  (PyTorch's TF32 switch on, and the port's check that refuses it passed
+  over for the run);
+- ``--bf16-seeds``: the system's own bf16 tier with ``bf16_io``.
+
+Each reading is one JSON line, on standard output and in ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import time
+
+from sdrbench import run, spec
+
+
+@contextlib.contextmanager
+def program_tf32():
+    """The port's matrix products in TF32, for the length of the block."""
+    import torch
+    from tpu_sdr_torch.runtime import stream
+
+    check, before = stream.check_matmul_precision, torch.backends.cuda.matmul.allow_tf32
+    stream.check_matmul_precision = lambda expected: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        stream.check_matmul_precision = check
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def one_run(bench: dict, workload: str, seed: int, seconds: float, kind: str) -> dict:
+    cell = spec.find_cell(bench, workload)
+    if kind == "program_bf16":
+        cell.config = dict(cell.config, tier="bf16", bf16_io=True)
+    t = time.time()
+    with program_tf32() if kind == "program_tf32" else contextlib.nullcontext():
+        result, _ = run.run_cell(cell, seed, seconds, False, control=kind == "control", t_start=t)
+    return {"workload": cell.name, "seed": seed, "kind": kind, "checks": result["checks"],
+            "correct": result["correct"], "attempted": result["attempted"],
+            "metrics": result["metrics"], "device": result["device"], "seconds": time.time() - t}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--seeds", type=int, nargs="+", required=True)
+    p.add_argument("--control-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--tf32-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--bf16-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--out")
+    args = p.parse_args(argv)
+    run.set_cache_dirs()
+    bench = spec.load_benchmark()
+    import torch
+
+    if not torch.cuda.is_available():
+        run.log("calibrate needs a CUDA device")
+        return 2
+    runs = ([(s, "program") for s in args.seeds] + [(s, "control") for s in args.control_seeds]
+            + [(s, "program_tf32") for s in args.tf32_seeds]
+            + [(s, "program_bf16") for s in args.bf16_seeds])
+    readings = []
+    for seed, kind in runs:
+        line = one_run(bench, args.workload, seed, args.seconds, kind)
+        readings.append(line)
+        print(json.dumps(line), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(line) + "\n")
+    for name in readings[0]["checks"]:
+        program = [r["checks"][name]["value"] for r in readings if r["kind"] == "program"]
+        run.log(f"{args.workload} {name}: lower reading (largest of {len(program)} program runs) "
+                f"{max(program)!r}")
+        for kind in ("control", "program_tf32", "program_bf16"):
+            upper = [r["checks"][name]["value"] for r in readings
+                     if r["kind"] == kind and name in r["checks"]]
+            if upper:
+                run.log(f"{args.workload} {name}: {kind} (smallest of {len(upper)} runs) {min(upper)!r}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
