@@ -174,7 +174,7 @@ Phases (each raises on failure):
      kernel path (row 8) and the wbfm ``ShardedReceiver``; in each rank
      the launch counts set to 0 just before two carried-state dispatches
      and read just after (rows 1, 2, 3, 5 and 8 must launch, no plain
-     call), each rank's dispatch wall and time in collectives, the device's
+     call), each rank's dispatch wall and collective calls, the device's
      idle share on CUSTOM and fused (profiler); rank 0 holds the gathered
      output and the final state against the single-device run on the card
      bit for bit. A failed or hung rank fails the phase (collectives time
@@ -3310,11 +3310,11 @@ def _shard_pipe(cls, label: str, **kw):
 def _timed(mesh, run):
     """run() with the launch counts and the mesh's collective counters set
     to 0 just before it, read just after: (result, walls, launches, plain
-    calls, collective calls and seconds)."""
+    calls and collective calls)."""
     from tpu_sdr_torch.kernels.cuda import launch
 
     launch.reset_counts()
-    mesh.stats.update(calls=0, seconds=0.0)
+    mesh.stats.update(calls=0)
     res, walls = run()
     return (res, walls, {k: v for k, v in launch.counts["kernel"].items() if v},
             sum(launch.counts["plain"].values()), dict(mesh.stats))
@@ -3340,8 +3340,7 @@ def _shard_spectrum_path(mesh, label: str, rank: int) -> dict:
         return (out, st), walls
 
     (out, st), walls, launches, plain, coll = _timed(mesh, run)
-    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"],
-               coll_s=coll["seconds"])
+    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"])
     if label in SHARD_PROFILED:
         stc = [init()]
 
@@ -3397,8 +3396,7 @@ def _shard_stage(mesh, rank: int, sharded, single, x, state, call) -> dict:
 
     (out, st), walls, launches, plain, coll = _timed(mesh, run)
     got = sharded.gather(out)
-    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"],
-               coll_s=coll["seconds"])
+    rec = dict(walls=walls, launches=launches, plain=plain, coll_calls=coll["calls"])
     if rank == 0:
         sst = state(single)
         for _ in range(SHARD_DISPATCHES):
@@ -3524,7 +3522,7 @@ def phase_shard(smi: str) -> dict:
                 f"; device busy {busy:.4f} ms -> idle share {1 - busy / wall:.1%}")
             n = len(rec["walls"])
             print(f"[13]   rank {r}: dispatch wall {wall:.4f} ms (mean of {n}), collectives "
-                  f"{rec['coll_s'] * 1e3 / n:.4f} ms in {rec['coll_calls'] / n:g} calls a dispatch, "
+                  f"{rec['coll_calls'] / n:g} calls a dispatch, "
                   f"launches {rec['launches'] or 'none'}{idle}")
     return totals
 
@@ -3557,7 +3555,7 @@ def phase_shard_nccl():
         lat.process_frame(x[:N], lat.initial_state(), FilterMode.CUSTOM)  # NCCL's set-up
         torch.cuda.synchronize()
         z, worst = lat.initial_state(), 0.0
-        mesh.stats.update(calls=0, seconds=0.0)
+        mesh.stats.update(calls=0)
         t0 = time.perf_counter()
         for f in range(3):
             mag, z = lat.process_frame(x[f * N : (f + 1) * N], z, FilterMode.CUSTOM)
@@ -3568,7 +3566,7 @@ def phase_shard_nccl():
         check(mesh.stats["calls"] > 0, "no NCCL collective ran")
         print(f"[13] LatencyPipeline on a 1-rank NCCL group: 3 CUSTOM frames within {worst:.3g} "
               f"of the throughput engine's peak (bound 1e-5); {mesh.stats['calls']} NCCL "
-              f"collectives, {mesh.stats['seconds'] * 1e3:.4f} ms; {wall * 1e3:.4f} ms a frame")
+              f"collectives; {wall * 1e3:.4f} ms a frame")
     finally:
         torch.distributed.destroy_process_group()
 

@@ -1195,6 +1195,34 @@ def test_capture_op_table_counts_a_one_kernel_step(card):
     assert t["device_idle_ms"] >= 0
 
 
+def test_capture_op_table_charges_ops_to_the_port_spans(card):
+    """A CUSTOM bank dispatch of 4 channels x 2 frames: every op of the
+    step is launched inside ``tpu_sdr.dispatch``, the frame chain's are 3 a
+    frame and the stack, and the spectrum kernel lies in its launch span."""
+    from tpu_sdr_torch.bench.trace import capture_op_table
+
+    pipe = SpectrumPipeline(PipelineConfig(channels=4))
+    pipe.upload_sos_bank([sps.butter(6, 0.05 * (c + 1), output="sos") for c in range(4)])
+    x = torch.as_tensor(np.random.default_rng(37).standard_normal((4, 2 * N)).astype(np.float32),
+                        device="cuda")
+    held = {"st": pipe.initial_state()}
+
+    def step():
+        _, held["st"] = pipe.process(x, held["st"], FilterMode.CUSTOM)
+
+    step()
+    torch.cuda.synchronize()
+    t = capture_op_table(step, reps=2)
+    spans = t["spans"]
+    iir = ("tpu_sdr.iir.products", "tpu_sdr.iir.frame_chain", "tpu_sdr.iir.emit")
+    assert t["device_trace"] and spans["tpu_sdr.dispatch"]["calls"] == 1
+    assert spans["tpu_sdr.dispatch"]["device_ops"] == t["n_ops"]
+    assert all(spans[name]["calls"] == 1 for name in iir)
+    assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 3 * 2 + 1
+    assert spans["tpu_sdr.launch.spectrum_bypass"]["device_ops"] == 1
+    assert sum(spans[name]["device_ms"] for name in iir) <= spans["tpu_sdr.dispatch"]["device_ms"]
+
+
 def test_gui_backend_on_card_serves_a_frame(card):
     import json
     import queue

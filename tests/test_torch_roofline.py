@@ -116,14 +116,3 @@ def test_bound_takes_the_longer_of_bytes_and_operations():
     by_ops = roofline.bound(3.35e6, 67e9)  # 0.001 ms of bytes, 1 ms of fp32
     assert by_ops["bound_ms"] == pytest.approx(1.0) and by_ops["bound_by"] == "operations"
     assert by_ops["bytes"] == 3.35e6 and by_ops["flops"] == 67e9 and by_ops["int_ops"] == 0
-
-
-def test_profiled_writes_a_chrome_trace(tmp_path):
-    import json
-
-    import torch
-
-    with roofline.profiled(str(tmp_path / "trace")) as logdir:
-        torch.arange(1024.0).sum()
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert logdir == str(tmp_path / "trace") and trace["traceEvents"]

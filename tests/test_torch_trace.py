@@ -91,6 +91,33 @@ def test_driver_launches_and_long_names(tmp_path):
     assert list(t["op_counts"]) == [name[:110]] and t["top_ops_ms"][0][0] == name[:110]
 
 
+def test_spans_of_the_last_step_with_the_ops_launched_inside_them(tmp_path):
+    """A dispatch span holding a frame-chain span: each span's host time,
+    and the ops whose launch lies inside it (the chain's in the dispatch's
+    too); a span of an earlier step and a range not of the port are not
+    counted."""
+    events = [_range(0.0, 20.0), _range(2.0, 10.0, "tpu_sdr.dispatch"), _launch(3.0, 1),
+              _op(30.0, 5.0, 1, "early")]
+    events += [_range(100.0, 50.0), _range(101.0, 40.0, "tpu_sdr.dispatch"),
+               _range(105.0, 20.0, "tpu_sdr.iir.frame_chain"), _range(106.0, 2.0, "other"),
+               _launch(106.0, 2), _launch(110.0, 3), _launch(130.0, 4),
+               _op(150.0, 4.0, 2, "mul"), _op(155.0, 6.0, 3, "sum"), _op(162.0, 10.0, 4, "spectrum"),
+               _launch(145.0, 5), _op(175.0, 1.0, 5, "after")]
+    t = _parse(tmp_path, events)
+    assert list(t["spans"]) == ["tpu_sdr.dispatch", "tpu_sdr.iir.frame_chain"]
+    d, c = t["spans"]["tpu_sdr.dispatch"], t["spans"]["tpu_sdr.iir.frame_chain"]
+    assert d["calls"] == 1 and d["host_ms"] == pytest.approx(0.040)
+    assert d["device_ops"] == 3 and d["device_ms"] == pytest.approx(0.020)
+    assert c["calls"] == 1 and c["host_ms"] == pytest.approx(0.020)
+    assert c["device_ops"] == 2 and c["device_ms"] == pytest.approx(0.010)
+    assert t["n_ops"] == 4  # the op launched after the dispatch is the step's, in no span
+
+
+def test_a_step_with_no_port_span_has_an_empty_table(tmp_path):
+    t = _parse(tmp_path, [_range(0.0, 10.0), _launch(1.0, 1), _op(2.0, 3.0, 1)])
+    assert t["spans"] == {}
+
+
 @pytest.mark.parametrize("events, reason", [
     ([_range(0.0, 10.0), _launch(1.0, 1)], "no CUDA kernel"),
     ([_launch(1.0, 1), _op(2.0, 3.0, 1)], "range in the trace"),

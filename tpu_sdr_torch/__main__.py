@@ -212,7 +212,8 @@ def _cmd_selftest(args) -> int:
 def _cmd_trace(args) -> int:
     """Device-trace one production dispatch and print the op table.
 
-    On the GPU it prints the kernels of the last traced dispatch; with
+    On the GPU it prints the kernels of the last traced dispatch and, under
+    ``spans``, where its host and device time go by the port's spans; with
     ``--device cpu`` the trace has no device events and the command reports
     that. SURVEY §5.1: the on-device observability the reference's debug
     LEDs could never provide.

@@ -1,18 +1,16 @@
-"""Roofline model and profiling hook for the spectrum pipeline on an H100.
+"""Roofline model for the spectrum pipeline on an H100.
 
 An analytic FLOP/byte cost model per pipeline stage, a roofline verdict
-against the card's peaks, the least time (``bound``) the card could take for
-a function, and a ``torch.profiler`` trace helper. The counterpart of
-``tpu_sdr.bench.roofline``, with the card the port runs on.
+against the card's peaks and the least time (``bound``) the card could take
+for a function. The counterpart of ``tpu_sdr.bench.roofline``, with the card
+the port runs on.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
-import os
 import subprocess
 
 from tpu_sdr_torch.core.config import PipelineConfig
@@ -177,20 +175,3 @@ def bound(bytes_moved: float, flops: float, int_ops: float = 0, chip: str = "h10
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": bytes_moved, "flops": flops, "int_ops": int_ops}
-
-
-@contextlib.contextmanager
-def profiled(logdir: str = "tpu_sdr_torch_trace"):
-    """Capture a torch.profiler trace (host, and the card's kernels where
-    there is one) around a code block; the Chrome trace is written to
-    ``logdir/trace.json``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield logdir
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

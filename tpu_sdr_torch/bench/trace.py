@@ -11,7 +11,9 @@ Each device op is charged to the step that launched it: a kernel, memcpy or
 memset carries the correlation id of the runtime (or driver) call that
 enqueued it, and that call lies inside the step's annotated host range. A
 kernel that starts after its step's host range has ended is still that
-step's, and a step of one kernel counts one.
+step's, and a step of one kernel counts one. The same charging gives, for
+the last step, each of the port's profiler spans (``core.spans``) with its
+host time and the device ops launched inside it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import tempfile
 
 # The annotated host range each profiled call runs in.
 STEP_RANGE = "tpu_sdr_torch step"
+# The port's own profiler spans (``core.spans``) start with this.
+SPAN_PREFIX = "tpu_sdr."
 # Chrome-trace categories of work on the device, and of the host calls that
 # enqueue it.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -57,9 +61,13 @@ def parse_trace(path: str, step_name: str = STEP_RANGE) -> dict:
     its last device op's end; ``device_idle_ms`` is that span less the
     union of its device ops, so overlapping ops never make it negative)
     and: ``device_busy_ms`` (the union), ``op_counts`` (the last step's ops
-    by name), ``ops_all_steps`` ({name: [ms, count]} over every step) and
-    ``unattributed`` (device ops whose launch lies in no step). Op names
-    are cut to ``NAME_CHARS``."""
+    by name), ``ops_all_steps`` ({name: [ms, count]} over every step),
+    ``unattributed`` (device ops whose launch lies in no step) and
+    ``spans``: for each of the port's spans (``SPAN_PREFIX``) that starts
+    in the last step, in order of first start, its ``calls``, ``host_ms``
+    and the ``device_ops`` and ``device_ms`` of the ops whose launching
+    call lies inside it (a nested span's ops count in its parent too). Op
+    names are cut to ``NAME_CHARS``."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
@@ -79,20 +87,24 @@ def parse_trace(path: str, step_name: str = STEP_RANGE) -> dict:
                 return i
         return None
 
-    launch_step = {}
+    launch_at = {}
     for e in spans:
         corr = e.get("args", {}).get("correlation")
         if e.get("cat") in LAUNCH_CATEGORIES and corr is not None:
-            launch_step[corr] = step_of(float(e["ts"]))
+            launch_at[corr] = float(e["ts"])
     per_step: list[list[tuple[float, float, str]]] = [[] for _ in steps]
+    last_launches = []  # the launching call's start of each of the last step's ops
     unattributed = 0
     for e in device:
-        i = launch_step.get(e.get("args", {}).get("correlation"))
+        at = launch_at.get(e.get("args", {}).get("correlation"))
+        i = None if at is None else step_of(at)
         if i is None:
             unattributed += 1
             continue
         ts = float(e["ts"])
         per_step[i].append((ts, ts + float(e["dur"]), e["name"][:NAME_CHARS]))
+        if i == len(steps) - 1:
+            last_launches.append(at)
     ops_all: dict[str, list] = {}
     for ops in per_step:
         for a, b, name in ops:
@@ -105,6 +117,18 @@ def parse_trace(path: str, step_name: str = STEP_RANGE) -> dict:
     tot: collections.Counter = collections.Counter()
     for a, b, name in last:
         tot[name] += b - a
+    prog = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                  for e in spans if e.get("cat") == "user_annotation"
+                  and e.get("name", "").startswith(SPAN_PREFIX) and s0 <= float(e["ts"]) <= s1)
+    table: dict[str, dict] = {}
+    for a, b, name in prog:
+        row = table.setdefault(name, {"calls": 0, "host_ms": 0.0, "device_ops": 0, "device_ms": 0.0})
+        row["calls"] += 1
+        row["host_ms"] += (b - a) / 1e3
+        for at, (ta, tb, _) in zip(last_launches, last):
+            if a <= at <= b:
+                row["device_ops"] += 1
+                row["device_ms"] += (tb - ta) / 1e3
     return {
         "device_trace": True,
         "module": step_name,
@@ -118,6 +142,7 @@ def parse_trace(path: str, step_name: str = STEP_RANGE) -> dict:
         "op_counts": dict(collections.Counter(name for _, _, name in last)),
         "ops_all_steps": ops_all,
         "unattributed": unattributed,
+        "spans": table,
     }
 
 

@@ -15,14 +15,10 @@ A failed collective raises, as any other call does; there is no other
 route to fall back to. Each helper takes its tensor whole and returns a new
 one; an axis without a process group (a 1 x 1 mesh outside
 ``torch.distributed``) returns the single-rank result without a call.
-Each call is counted, with its wall time, in the axis's ``stats`` (the time
-starts after the device has finished the work queued before the call, so it
-holds the staging copies and the collective, not the kernels before it).
+Each call is counted in the axis's ``stats``.
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 import torch.distributed as dist
@@ -38,19 +34,15 @@ def _staged(axis, t: torch.Tensor) -> bool:
 
 def _run(axis, t: torch.Tensor, call):
     """Run ``call(host_or_device_tensor) -> result`` on the axis's route,
-    timed into ``axis.stats``; returns the result on t's device."""
-    if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
-    t0 = time.perf_counter()
+    counted in ``axis.stats``; returns the result on t's device. The staged
+    route's copy to the host waits for ``t``, and its copy back is ordered
+    on the current stream; NCCL orders its own stream against the current
+    one."""
     if _staged(axis, t):
         out = call(t.detach().cpu()).to(t.device)
-        torch.cuda.current_stream(t.device).synchronize()
     else:
         out = call(t.contiguous())
-        if t.is_cuda:
-            torch.cuda.current_stream(t.device).synchronize()
     axis.stats["calls"] += 1
-    axis.stats["seconds"] += time.perf_counter() - t0
     return out
 
 

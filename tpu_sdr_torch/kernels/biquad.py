@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as nnf
 
 from tpu_sdr_torch.core import comm
+from tpu_sdr_torch.core.spans import span
 from tpu_sdr_torch.kernels import window
 from tpu_sdr_torch.kernels.cuda import launch
 
@@ -240,10 +241,11 @@ def _composite_frame_terms(op: BlockedSOSComposite, v, frames: int = CANONICAL_F
     m = op.state_dim
     B = op.frame_blocks
     rows = frames * B  # block rows of ``frames`` frames
-    y_zs = _canonical_matmul(v, op.T.mT, rows)
-    f = _canonical_matmul(v, op.P.mT, rows)  # (..., F, B, m)
-    zhat_flat = _canonical_matmul(f.reshape(*f.shape[:-2], B * m), op.W.mT, frames)
-    return y_zs, zhat_flat.reshape(*f.shape[:-2], B, m)
+    with span("tpu_sdr.iir.products"):
+        y_zs = _canonical_matmul(v, op.T.mT, rows)
+        f = _canonical_matmul(v, op.P.mT, rows)  # (..., F, B, m)
+        zhat_flat = _canonical_matmul(f.reshape(*f.shape[:-2], B * m), op.W.mT, frames)
+        return y_zs, zhat_flat.reshape(*f.shape[:-2], B, m)
 
 
 def alb_step(op, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -269,16 +271,19 @@ def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor, time_axis=None):
     all-gathered in frame order, every shard replays the identical global
     chain, and each keeps its own frames' starts; the final state is the
     global one, the same on every shard (bit-identical to one device)."""
-    if time_axis is not None:
+    with span("tpu_sdr.iir.frame_chain"):
         f_loc = w_frames.shape[-2]
-        starts, z = frame_chain(op, z, comm.all_gather(w_frames, time_axis, -2))
+        if time_axis is not None:
+            w_frames = comm.all_gather(w_frames, time_axis, -2)
+        starts = []
+        for f in range(w_frames.shape[-2]):
+            starts.append(z)
+            z = alb_step(op, z, w_frames[..., f, :])
+        starts = torch.stack(starts, dim=-2)
+        if time_axis is None:
+            return starts, z
         lo = time_axis.index * f_loc
         return starts[..., lo : lo + f_loc, :], z
-    starts = []
-    for f in range(w_frames.shape[-2]):
-        starts.append(z)
-        z = alb_step(op, z, w_frames[..., f, :])
-    return torch.stack(starts, dim=-2), z
 
 
 def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
@@ -289,11 +294,12 @@ def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
     B, m = op.frame_blocks, op.state_dim
     lead = z_starts.shape[:-1]  # (..., F)
     batch = op.APow.shape[:-3]  # () or (C,)
-    # z_end[j] = APow[j] z_start + zhat[j]; z_in[0] = z_start, else z_end[j-1].
-    z_end = _canonical_matmul(z_starts, op.APow.reshape(*batch, B * m, m).mT, frames)
-    z_end = z_end.reshape(*lead, B, m) + zhat
-    z_in = torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
-    return y_zs + _canonical_matmul(z_in, op.M.mT, frames * B)
+    with span("tpu_sdr.iir.emit"):
+        # z_end[j] = APow[j] z_start + zhat[j]; z_in[0] = z_start, else z_end[j-1].
+        z_end = _canonical_matmul(z_starts, op.APow.reshape(*batch, B * m, m).mT, frames)
+        z_end = z_end.reshape(*lead, B, m) + zhat
+        z_in = torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
+        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * B)
 
 
 def sosfilt_blocked_composite(

@@ -3,8 +3,9 @@
 One place holds, for all kernels: their names (``KERNELS``, one per
 ``csrc/<name>.cu``), the launch and plain-call counts (``counts``,
 ``reset_counts``), each library's C signature, the library cache and
-``launch``, which calls a kernel's C entry point on the current stream and
-raises if the launch failed. ``iir_fft.counts`` is this module's ``counts``.
+``launch``, which calls a kernel's C entry point on the current stream (in a
+profiler span, ``SPANS``) and raises if the launch failed. ``iir_fft.counts``
+is this module's ``counts``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import threading
 
 import torch
 
+from tpu_sdr_torch.core.spans import span
 from tpu_sdr_torch.kernels.cuda import loader
 
 # The kernels, by the name of their source (``csrc/<name>.cu``).
@@ -89,13 +91,19 @@ def _load_bound(name: str) -> ctypes.CDLL:
     return lib
 
 
+# The profiler span of each kernel's launch (``core.spans``), named once.
+SPANS = {name: f"tpu_sdr.launch.{name}" for name in KERNELS}
+
+
 def launch(name: str, device: torch.device, *args):
     """Call ``tpu_sdr_<name>`` with ``args`` and the current stream of
-    ``device``; raise if the launch failed, else count it."""
+    ``device``, in the span ``SPANS[name]``; raise if the launch failed,
+    else count it."""
     lib = _kernel_lib(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"tpu_sdr_{name}")(*args, stream)
+        with span(SPANS[name]):
+            err = getattr(lib, f"tpu_sdr_{name}")(*args, stream)
     if err != 0:
         msg = lib.tpu_sdr_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

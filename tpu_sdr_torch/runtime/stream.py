@@ -35,6 +35,7 @@ import torch
 from tpu_sdr_torch.control import golden
 from tpu_sdr_torch.core.config import FilterMode, PipelineConfig
 from tpu_sdr_torch.core.halo import left_halo
+from tpu_sdr_torch.core.spans import span
 from tpu_sdr_torch.kernels import biquad, fft, magnitude, window
 from tpu_sdr_torch.kernels.cuda import iir_fft
 from tpu_sdr_torch.runtime import banks
@@ -333,7 +334,9 @@ class SpectrumPipeline:
 
     ``device`` defaults to "cuda"; construction raises when CUDA is absent
     unless the caller asks for the CPU (``device="cpu"``), where the
-    spectrum kernel's plain PyTorch version runs instead.
+    spectrum kernel's plain PyTorch version runs instead. Under a profiler
+    each ``process`` / ``process_planes`` call is a ``tpu_sdr.dispatch``
+    span (``core.spans``).
     """
 
     def __init__(self, cfg: PipelineConfig | None = None, device=None):
@@ -433,18 +436,19 @@ class SpectrumPipeline:
         state from ``initial_state(batch_shape=(2,))``: it is moved to the
         device as complex64 and split there into stacked re/im planes.
         """
-        complex_input = x.is_complex() if torch.is_tensor(x) else np.iscomplexobj(x)
-        if complex_input:
-            self._check_iq_state(state)
-            xc = torch.as_tensor(x).to(self.device, torch.complex64)
-            if xc.ndim == 1:
-                xc = xc[None, :]
-            x = torch.stack([xc.real, xc.imag])
-        else:
-            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-            if x.ndim == 1:
-                x = x[None, :]
-        return self._run(x, state, mode, outputs, complex_input)
+        with span("tpu_sdr.dispatch"):
+            complex_input = x.is_complex() if torch.is_tensor(x) else np.iscomplexobj(x)
+            if complex_input:
+                self._check_iq_state(state)
+                xc = torch.as_tensor(x).to(self.device, torch.complex64)
+                if xc.ndim == 1:
+                    xc = xc[None, :]
+                x = torch.stack([xc.real, xc.imag])
+            else:
+                x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                if x.ndim == 1:
+                    x = x[None, :]
+            return self._run(x, state, mode, outputs, complex_input)
 
     def process_planes(
         self,
@@ -459,14 +463,15 @@ class SpectrumPipeline:
         re/im-stacked state (leading axis 2), e.g.
         ``initial_state(batch_shape=(2,))``; as in the reference, only that
         leading axis is checked."""
-        xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
-        if xs.ndim < 2 or xs.shape[0] != 2:
-            raise ValueError(
-                f"xs must stack re/im as a leading 2-axis, got {tuple(xs.shape)}"
-            )
-        if state.sos_state.shape[:1] != (2,):
-            raise ValueError(
-                "plane-stacked input needs the re/im-stacked state: create it "
-                "with initial_state(batch_shape=(2,))"
-            )
-        return self._run(xs, state, mode, outputs, complex_input=True)
+        with span("tpu_sdr.dispatch"):
+            xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
+            if xs.ndim < 2 or xs.shape[0] != 2:
+                raise ValueError(
+                    f"xs must stack re/im as a leading 2-axis, got {tuple(xs.shape)}"
+                )
+            if state.sos_state.shape[:1] != (2,):
+                raise ValueError(
+                    "plane-stacked input needs the re/im-stacked state: create it "
+                    "with initial_state(batch_shape=(2,))"
+                )
+            return self._run(xs, state, mode, outputs, complex_input=True)

@@ -65,7 +65,7 @@ class MeshAxis:
     coordinate ``index`` on it, the global ranks along it in coordinate
     order, and its process group (None without a process group, where the
     axis has size 1 and no collective runs). ``stats`` (shared by the
-    mesh's axes) counts the collectives and the seconds they took."""
+    mesh's axes) counts the collectives."""
 
     name: str
     size: int
@@ -73,7 +73,7 @@ class MeshAxis:
     ranks: tuple
     group: object = None
     backend: str | None = None
-    stats: dict = dataclasses.field(default_factory=lambda: {"calls": 0, "seconds": 0.0})
+    stats: dict = dataclasses.field(default_factory=lambda: {"calls": 0})
 
     def global_rank(self, index: int) -> int:
         return self.ranks[index]
@@ -110,7 +110,7 @@ class SdrMesh:
         self.device = torch.device(device)
         self.device_mesh = device_mesh
         self.coords = coords
-        self.stats = {"calls": 0, "seconds": 0.0}
+        self.stats = {"calls": 0}
         if coords is None:
             self.channel = self.time = None
             return
