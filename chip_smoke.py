@@ -5,7 +5,7 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (ten), built from
+  2. build: every CUDA kernel library of the port (eleven), built from
      ``tpu_sdr_torch/csrc`` with nvcc, and the native Q15 host filter and
      the native framer (``tpu_sdr_torch/native/q15_filter.cpp``,
      ``framer.cpp``) with the host C++ compiler, one process per source,
@@ -41,11 +41,17 @@ Phases (each raises on failure):
      and hard, whose metrics tie), a punctured rate, k = 3, 4 and 5 (fewer
      states than lanes), k = 12 (2048 states, the block route), one row and
      rows too long for shared memory (the decisions in device memory);
+     the composite IIR's state kernel (``iir_state``, two launches) against
+     its plain version and the GEMM form it replaces (W's product, the
+     Python frame chain, the APow product) at a bank of 64 of bank64's
+     designs x 16 frames and a shared design x 512 frames, both timed
+     beside the bound of the triangular sums (and the launch counts);
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
        Msamples), 5 carried-state dispatches per mode: the default (hybrid)
-       path in CUSTOM (butter(12, 0.25)), FIXED and BYPASS; the fused
+       path in CUSTOM (butter(12, 0.25)), FIXED and BYPASS (the IIR state
+       kernel twice a filtered dispatch); the fused
        two-pass path (f32, f32max); complex (IQ) input through ``process``
        and ``process_planes``; each with one kernel launch per dispatch, no
        plain call, a float64 golden, chunked == one-shot;
@@ -252,6 +258,10 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
                         replaces="tpu_sdr/kernels/biquad.py:746"),
     # K3 replaces the FEC decoder's jitted scans (no Pallas kernel).
     "viterbi": dict(name="_viterbi (ConvCode.decode)", replaces="tpu_sdr/kernels/fec.py:221"),
+    # The composite IIR's state path replaces XLA products and a jitted
+    # scan (no Pallas kernel).
+    "iir_state": dict(name="sosfilt_blocked_composite[_bank] state path (frame_ends, "
+                           "entry_states)", replaces="tpu_sdr/kernels/biquad.py:467"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -429,6 +439,99 @@ def phase_kernel_vs_plain(pp) -> dict:
     return errs
 
 
+# The IIR state kernel (``csrc/iir_state.cu``) and the GEMM form it replaces:
+# a bank of 64 of bank64's designs x 16 frames (the benchmark's chunk) and
+# one shared design x 512 frames (the call shape of this file's 8 x 64
+# dispatch). The kernel against its plain version and the GEMM form, of the
+# reference's largest |state|: tests/test_torch_cuda.py's STATE_KERNEL_REL.
+IIR_STATE_SHAPES = {"bank 64 x 16": (64, 16), "shared 1 x 512": (1, 512)}
+IIR_STATE_REL = 1e-6
+
+
+def gemm_state_path(op, f: torch.Tensor, z: torch.Tensor, calls: int):
+    """What the state kernel replaces, from the forcing f: W's product, the
+    Python frame chain, z_end = APow z_start + zhat and the entry states."""
+    from tpu_sdr_torch.kernels import biquad
+
+    zhat = biquad._canonical_matmul(f.flatten(-2), op.W.mT, calls).reshape(f.shape)
+    starts, zf = biquad.frame_chain(op, z, zhat[..., -1, :])
+    return biquad._gemm_entry_states(op, zhat, starts, calls), zf
+
+
+def phase_iir_state() -> tuple[dict, dict]:
+    """[3] and [5] for the IIR state kernel: against its plain version and
+    the GEMM form at IIR_STATE_SHAPES, two launches a dispatch, chunked ==
+    one-shot, and their times beside the bound of what the function needs
+    (the triangular sums, each frame's end and the chain; the forcing read
+    and the entry states written once, each row's powers read once).
+    Returns ({"iir_state": max |kernel - plain|}, {"iir_state": timing at
+    the bank shape, the shared shape's under "shared"})."""
+    from sdrbench import inputs, spec
+    from tpu_sdr_torch.kernels import biquad
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    errs, timing = {}, {}
+    for label, (C, F) in IIR_STATE_SHAPES.items():
+        if C > 1:
+            bank64 = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config
+            op = biquad.precompute_composite_bank(inputs.make_designs(bank64, 64)[:C],
+                                                  device="cuda")
+            calls = biquad.bank_frames(C)
+        else:
+            op = biquad.precompute_composite(sps.butter(12, 0.25, output="sos"), device="cuda")
+            calls = biquad.CANONICAL_FRAMES
+        gen = torch.Generator(device="cuda").manual_seed(C * 1000 + F)
+        v = torch.randn((C, F, 128, 128), device="cuda", generator=gen)
+        z = torch.randn((C, 12), device="cuda", generator=gen)
+        f = biquad._composite_products(op, v, calls)[1].contiguous()
+        launch.reset_counts()
+        w = biquad.frame_ends(op, f)
+        z_in, zf = biquad.entry_states(op, f, z, w)
+        torch.cuda.synchronize()
+        counts = {kind: launch.counts[kind]["iir_state"] for kind in ("kernel", "plain")}
+        check(counts == {"kernel": 2, "plain": 0}, (label, counts))
+        pw = biquad.frame_ends_plain(op, f)
+        pz_in, pzf = biquad.entry_states_plain(op, f, z, pw)
+        gz_in, gzf = gemm_state_path(op, f, z, calls)
+        rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+        gaps = {"w": rel(w, pw), "z_in": rel(z_in, pz_in), "zf": rel(zf, pzf),
+                "z_in vs GEMM": rel(z_in, gz_in), "zf vs GEMM": rel(zf, gzf)}
+        h = F // 2 + 3
+        parts, zc = [], z
+        for part in (f[:, :h].contiguous(), f[:, h:].contiguous()):
+            zp, zc = biquad.entry_states(op, part, zc, biquad.frame_ends(op, part))
+            parts.append(zp)
+        bitwise = torch.equal(torch.cat(parts, dim=1), z_in) and torch.equal(zc, zf)
+        print(f"[3] iir_state {label}: launches {counts['kernel']} (plain {counts['plain']}); "
+              f"of the reference's max |state|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+              + f" (tol {IIR_STATE_REL}); chunked ({h} + {F - h} frames) == one-shot: {bitwise}")
+        check(max(gaps.values()) <= IIR_STATE_REL and bitwise, (label, gaps, bitwise))
+        if C > 1:
+            errs["iir_state"] = float((z_in - pz_in).abs().max())
+        sets = C if op.APow.ndim == 4 else 1
+        b = bound(4 * (2 * f.numel() + sets * 128 * 144 + 2 * C * F * 12 + 2 * C * 12),
+                  2 * C * F * 144 * (128 * 129 / 2 + 128 + 1))
+        kernel = lambda: biquad.entry_states(op, f, z, biquad.frame_ends(op, f))
+        t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: biquad.entry_states_plain(
+                 op, f, z, biquad.frame_ends_plain(op, f)), iters=2, warmup=1),
+             "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "ends_ms": cuda_ms(lambda: biquad.frame_ends(op, f)),
+             "entries_ms": cuda_ms(lambda: biquad.entry_states(op, f, z, w)),
+             "gemm_form_ms": cuda_ms(lambda: gemm_state_path(op, f, z, calls), iters=5, warmup=1)}
+        print(f"[5] iir_state {label}: kernel {t['ms']:.4f} ms (frame_ends {t['ends_ms']:.4f}, "
+              f"entry_states {t['entries_ms']:.4f}); plain {t['plain_ms']:.4f} ms; the GEMM form "
+              f"it replaces {t['gemm_form_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) "
+              f"-> kernel at {b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}; "
+              f"GEMM form: {profiled(lambda: gemm_state_path(op, f, z, calls))}")
+        if C > 1:
+            timing["iir_state"] = t
+        else:
+            timing["iir_state"]["shared"] = t
+    return errs, timing
+
+
 def summaries64(x: torch.Tensor, pp) -> torch.Tensor:
     """iir_summaries in float64 on the plan's own fp32 constants: window,
     forcing, the block chain from rest."""
@@ -551,7 +654,8 @@ def phase_main_path(pipe, x_np: np.ndarray, sos_custom) -> int:
     iir_fft.reset_counts()
     for k, mode in enumerate((FilterMode.CUSTOM, FilterMode.FIXED, FilterMode.BYPASS), start=1):
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
-        check_counts(mode.name, {"spectrum_bypass": k * DISPATCHES})
+        check_counts(mode.name, {"spectrum_bypass": k * DISPATCHES,
+                                 "iir_state": 2 * DISPATCHES * min(k, 2)})
         check(int(st.frame_count) == DISPATCHES * FRAMES and int(st.window_phase) == 0)
         check_golden(f"{mode.name:6s} {DISPATCHES} dispatches, spectrum_bypass launches "
                      f"{DISPATCHES}, plain 0", outs[0], x_np, golden_sos[mode])
@@ -656,7 +760,8 @@ def phase_iq(pipe, xc_np: np.ndarray, sos_custom) -> int:
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), xc, state())
         p_outs, p_st = run_dispatches(lambda a, s: pipe.process_planes(a, s, mode), planes,
                                       state())
-        check_counts(f"IQ {mode.name}", {"spectrum_complex": k * DISPATCHES})
+        check_counts(f"IQ {mode.name}", {"spectrum_complex": k * DISPATCHES,
+                                         "iir_state": 2 * (k - 2) * DISPATCHES})
         check(int(st.frame_count) == DISPATCHES * FRAMES)
         same = all(torch.equal(a, b) for a, b in zip(outs, p_outs)) and torch.equal(
             st.sos_state, p_st.sos_state)
@@ -713,6 +818,7 @@ LAST_DEVICE_KERNEL = {
     "q15_fft": ("q15_fft_cluster_kernel", "q15_fft_block_kernel"),
     "sosfilt_q15": ("sosfilt_q15_kernel",),
     "viterbi": ("viterbi_warp_kernel", "viterbi_kernel"),
+    "iir_state": ("iir_state_ends_kernel", "iir_state_entries_kernel"),
 }
 
 
@@ -1570,7 +1676,8 @@ def phase_hop(sos_custom, x_np: np.ndarray):
     launch.reset_counts()
     for k, mode in enumerate((FilterMode.BYPASS, FilterMode.CUSTOM), start=1):
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
-        check_counts(f"hop {mode.name}", {"spectrum_bypass": k * DISPATCHES})
+        check_counts(f"hop {mode.name}", {"spectrum_bypass": k * DISPATCHES,
+                                          "iir_state": 2 * (k - 1) * DISPATCHES})
         check(outs[0].shape == (CHANNELS, spectra, N), outs[0].shape)
         check(int(st.frame_count) == DISPATCHES * spectra and st.history.shape == (CHANNELS, N - HOP))
         y = x_np[0].astype(np.float64)
@@ -1628,7 +1735,7 @@ def phase_bank(x_noise: np.ndarray):
     launch.reset_counts()
     outs, st = run_dispatches(lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x,
                               pipe.initial_state())
-    check_counts("bank", {"spectrum_bypass": DISPATCHES})
+    check_counts("bank", {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES})
     win = golden.hann_true(N)
     worst = []
     for c in range(CHANNELS):
@@ -1644,7 +1751,8 @@ def phase_bank(x_noise: np.ndarray):
     launch.reset_counts()
     f_outs, _ = run_dispatches(lambda a, s: fused.process(a, s, FilterMode.CUSTOM), x,
                                fused.initial_state())
-    check_counts("bank, fused_two_pass config", {"spectrum_bypass": DISPATCHES})
+    check_counts("bank, fused_two_pass config",
+                 {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES})
     same = all(torch.equal(a, b) for a, b in zip(outs, f_outs))
     print(f"[4] bank under fused_two_pass=True: the hybrid branch (spectrum_bypass "
           f"{DISPATCHES}, iir_summaries 0, spectrum_iir 0), the same bits: {same}")
@@ -1687,7 +1795,7 @@ def phase_analyzer(x_np: np.ndarray):
     sb = SpectrumAnalyzer(PipelineConfig(channels=CHANNELS))
     sb.restore(ck)
     resumed = sb.process(x)["magnitude"]
-    check_counts("analyzer", {"spectrum_bypass": 4})
+    check_counts("analyzer", {"spectrum_bypass": 4, "iir_state": 2 * 3})
     same = np.array_equal(after, resumed)
     cut = [cus[0, 0, k] / byp[0, 0, k] for k in TONE_BINS]
     frames = sa.stats.frames_produced
@@ -3273,13 +3381,13 @@ SHARD_COLLECTIVE_S = 300.0  # a collective (or a sub-mesh's wait) fails after th
 SHARD_JOIN_S = 540.0  # the phase kills its ranks and fails after this
 SHARD_PATHS = {  # label -> (PipelineConfig kwargs, mode, input, kernels it must launch)
     "BYPASS": (dict(), "BYPASS", "real", ("spectrum_bypass",)),
-    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass",)),
-    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass",)),
+    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass", "iir_state")),
+    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass", "iir_state")),
     "fused f32 CUSTOM": (dict(fused_two_pass=True), "CUSTOM", "real",
                          ("iir_summaries", "spectrum_iir")),
-    "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real", ("spectrum_bypass",)),
-    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass",)),
-    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex",)),
+    "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real", ("spectrum_bypass", "iir_state")),
+    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass", "iir_state")),
+    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex", "iir_state")),
 }
 SHARD_PROFILED = ("CUSTOM", "fused f32 CUSTOM")
 SHARD_RX_T = 62 * 16_000  # the wbfm receiver's granularity x 62, split over 2 time shards
@@ -3582,23 +3690,28 @@ def main():
     phase_chain()
     bench = phase_cli()
     from tpu_sdr_torch import PipelineConfig, SpectrumPipeline
+    from tpu_sdr_torch.kernels.cuda import launch
 
     sos_custom = sps.butter(12, 0.25, output="sos")
     pipe = SpectrumPipeline(PipelineConfig(channels=CHANNELS))
     pipe.upload_sos(sos_custom)
     pp = pipe.bank_custom["pp"]
     errs = phase_kernel_vs_plain(pp)
+    state_errs, state_timing = phase_iir_state()
+    errs.update(state_errs)
     phase_summaries_accuracy(pp)
     rng = np.random.default_rng(1)
     x_np = two_tone(rng)
     xc_np = two_tone_iq(rng)
     launches = {"spectrum_bypass": phase_main_path(pipe, x_np, sos_custom)}
+    launches["iir_state"] = launch.counts["kernel"]["iir_state"]
     phase_chunked(pipe, x_np)
     pipes = fused_pipes(sos_custom)
     launches.update(phase_fused(pipes, x_np, sos_custom))
     launches["spectrum_complex"] = phase_iq(pipe, xc_np, sos_custom)
     steps = paths(pipe, pipes, x_np, xc_np)
     walls, timing = phase_timing(pp, sos_custom, x_np, steps)
+    timing.update(state_timing)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
     fplan = pipe.plan

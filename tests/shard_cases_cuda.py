@@ -1,7 +1,8 @@
 """The sharded engines on the card (``tests/test_torch_cuda.py``): ranks
 spawned on cuda:0. ``GLOO`` runs in a 2-rank Gloo group (several ranks on
-one card: the collectives stage through the host), ``NCCL`` in a 1-rank
-NCCL group. Imports ``tpu_sdr_torch``, numpy and scipy only."""
+one card: the collectives stage through the host), ``GLOO4`` in a 4-rank
+Gloo group, ``NCCL`` in a 1-rank NCCL group. Imports ``tpu_sdr_torch``,
+numpy and scipy only."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import scipy.signal as sps
 
 from tpu_sdr_torch import FilterMode, PipelineConfig
+from tpu_sdr_torch.kernels.cuda import launch
 from tpu_sdr_torch.shard import LatencyPipeline, ShardedSpectrumPipeline, make_sdr_mesh
 
 N = 16384
@@ -17,6 +19,20 @@ SOS = sps.butter(12, 0.25, output="sos")
 
 def spectrum_input() -> np.ndarray:
     return np.random.default_rng(7).standard_normal((4, 8 * N)).astype(np.float32)
+
+
+# The 4-rank cases' meshes (channel, time), chunks and channels' designs.
+TIME_MESHES = [(1, 4), (2, 2)]
+TIME_CHUNKS = 2
+
+
+def bank_designs() -> list:
+    return [sps.butter(12, 0.1 * (c + 1), output="sos") for c in range(4)]
+
+
+def time_input() -> np.ndarray:
+    """4 channels x 16 frames: 2 chunks of 8 frames, 2 or 4 a rank."""
+    return np.random.default_rng(9).standard_normal((4, 16 * N)).astype(np.float32)
 
 
 def latency_input() -> np.ndarray:
@@ -35,6 +51,31 @@ def gloo_spectrum():
             out, st = pipe.process(part, st, mode)
             mags.append(pipe.gather(out)["magnitude"].cpu().numpy())
         res[mode.name] = (np.concatenate(mags, axis=-2), st.sos_state.cpu().numpy())
+    return res
+
+
+def gloo_time4():
+    """CUSTOM with a shared design and with a per-channel bank on the 4
+    ranks' (1, 4) and (2, 2) meshes, TIME_CHUNKS carried-state dispatches:
+    the gathered magnitudes, the final state and each rank's launches of
+    the IIR state kernel (``csrc/iir_state.cu``)."""
+    res = {}
+    for shape in TIME_MESHES:
+        mesh = make_sdr_mesh(*shape, devices="cuda:0")
+        for path in ("shared", "bank"):
+            pipe = ShardedSpectrumPipeline(PipelineConfig(channels=4), mesh)
+            if path == "shared":
+                pipe.upload_sos(SOS)
+            else:
+                pipe.upload_sos_bank(bank_designs())
+            st, mags = pipe.initial_state(), []
+            launch.reset_counts()
+            for part in np.split(time_input(), TIME_CHUNKS, axis=-1):
+                out, st = pipe.process(part, st, FilterMode.CUSTOM)
+                mags.append(pipe.gather(out)["magnitude"].cpu().numpy())
+            res[shape, path] = (np.concatenate(mags, axis=-2), st.sos_state.cpu().numpy(),
+                                launch.counts["kernel"]["iir_state"],
+                                launch.counts["plain"]["iir_state"])
     return res
 
 
@@ -57,4 +98,5 @@ def nccl_latency():
 
 
 GLOO = [gloo_spectrum]
+GLOO4 = [gloo_time4]
 NCCL = [nccl_latency]

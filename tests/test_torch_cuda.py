@@ -7,12 +7,15 @@ JAX, so the file also runs where JAX is not installed:
 """
 
 import dataclasses
+import hashlib
+from pathlib import Path
 
 import numpy as np
 import pytest
 import scipy.signal as sps
 import torch
 
+from sdrbench import inputs, spec
 from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
 from tpu_sdr_torch.kernels import biquad, fft, window
 from tpu_sdr_torch.kernels.cuda import affine_scan, iir_fft, launch, pfb_kernel
@@ -136,6 +139,115 @@ def test_canonical_matmul_is_row_count_independent_on_card(cuda_plan, rows):
     bt = torch.randn((1536, 1536), device="cuda", generator=gen)
     whole = biquad._canonical_matmul(a, bt, 128)
     assert torch.equal(biquad._canonical_matmul(a[-rows:], bt, 128), whole[-rows:])
+
+
+# ---------------------------------------------------------------- iir_state
+
+
+# The state kernel against its plain version and the GEMM form (W's product,
+# the frame chain, the APow product), of the reference's largest |state|:
+# fp32 sums of the same products in other orders. chip_smoke.py's [3] on
+# the same bank draw read at most 7.8e-8 (64 x 16), 1.1e-7 (shared, 512
+# frames).
+STATE_KERNEL_REL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def state_ops(cuda_plan):
+    # The bank: a bank64 draw, the benchmark's own (seed 64).
+    bank64 = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config
+    return {"bank": biquad.precompute_composite_bank(inputs.make_designs(bank64, 64), device="cuda"),
+            "shared": biquad.precompute_composite(SOS, device="cuda")}
+
+
+def _state_inputs(op, frames: int, seed: int):
+    """The composite products' input, forcing and a random entry state of
+    the kernel's rows: a bank's 64 channels, or 4 rows of a shared design."""
+    rows = op.T.shape[0] if op.T.ndim == 3 else 4
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn((rows, frames, 128, 128), device="cuda", generator=gen)
+    z = torch.randn((rows, 12), device="cuda", generator=gen)
+    calls = biquad.bank_frames(rows) if op.T.ndim == 3 else biquad.CANONICAL_FRAMES
+    return v, biquad._composite_products(op, v, calls)[1].contiguous(), z, calls
+
+
+def _gemm_states(op, v, z, calls: int):
+    _, zhat = biquad._composite_frame_terms(op, v, calls)
+    starts, zf = biquad.frame_chain(op, z, zhat[..., -1, :])
+    return biquad._gemm_entry_states(op, zhat, starts, calls), zf
+
+
+@pytest.mark.parametrize("frames_", [16, 64])
+@pytest.mark.parametrize("kind", ["bank", "shared"])
+def test_state_kernel_matches_plain_and_gemm_form(state_ops, kind, frames_):
+    op = state_ops[kind]
+    v, f, z, calls = _state_inputs(op, frames_, seed=frames_)
+    launch.reset_counts()
+    w = biquad.frame_ends(op, f)
+    z_in, zf = biquad.entry_states(op, f, z, w)
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["iir_state"] == 2 and launch.counts["plain"]["iir_state"] == 0
+    pw = biquad.frame_ends_plain(op, f)
+    pz_in, pzf = biquad.entry_states_plain(op, f, z, pw)
+    gz_in, gzf = _gemm_states(op, v, z, calls)
+    rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+    errs = {"w": rel(w, pw), "z_in": rel(z_in, pz_in), "zf": rel(zf, pzf),
+            "z_in vs GEMM": rel(z_in, gz_in), "zf vs GEMM": rel(zf, gzf)}
+    assert max(errs.values()) <= STATE_KERNEL_REL, errs
+
+
+@pytest.mark.parametrize("kind", ["bank", "shared"])
+def test_state_kernel_path_chunked_equals_one_shot(state_ops, kind):
+    """The composite filters on the card take the kernel path: chunks of 3,
+    5 and 8 frames with the state carried give the one-shot output and
+    final state bit for bit."""
+    op = state_ops[kind]
+    rows = op.T.shape[0] if op.T.ndim == 3 else 4
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((rows, 16 * N), device="cuda", generator=gen)
+    zi = torch.randn((rows, 6, 2), device="cuda", generator=gen)
+    run = biquad.sosfilt_blocked_composite_bank if kind == "bank" else biquad.sosfilt_blocked_composite
+    launch.reset_counts()
+    y, zf = run(op, x, zi)
+    parts, z = [], zi
+    for part in x.split([3 * N, 5 * N, 8 * N], dim=-1):
+        yp, z = run(op, part, z)
+        parts.append(yp)
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["iir_state"] == 2 * 4
+    assert torch.equal(torch.cat(parts, dim=-1), y) and torch.equal(z, zf)
+
+
+# The card's composite filters against the JAX package's, whose outputs on
+# the same inputs ``tests/test_torch_iir_state.py`` keeps in this file (and
+# holds to JAX's output of today on the CPU); its bounds, of each row's own
+# largest |y| and |zf|.
+JAX_REFERENCE = Path(__file__).with_name("data") / "iir_state_jax.npz"
+JAX_Y_REL, JAX_ZF_REL = 1e-6, 2e-6
+
+
+@pytest.mark.parametrize("case", ["bank", "shared"])
+def test_state_kernel_path_matches_jax(cuda_plan, case):
+    with np.load(JAX_REFERENCE) as ref:
+        ref = {k[len(case) + 1 :]: ref[k] for k in ref.files if k.startswith(case + "_")}
+    x = np.random.default_rng(int(ref["x_seed"])).standard_normal(tuple(ref["x_shape"]),
+                                                                  dtype=np.float32)
+    assert hashlib.sha256(x.tobytes()).hexdigest() == str(ref["x_sha256"])
+    if case == "bank":
+        op = biquad.precompute_composite_bank(ref["sos"], device="cuda")
+        run = biquad.sosfilt_blocked_composite_bank
+    else:
+        op = biquad.precompute_composite(ref["sos"], device="cuda")
+        run = biquad.sosfilt_blocked_composite
+    launch.reset_counts()
+    y, zf = run(op, torch.as_tensor(x, device="cuda"), torch.as_tensor(ref["zi"], device="cuda"))
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["iir_state"] == 2 and launch.counts["plain"]["iir_state"] == 0
+    rows = x.shape[0]
+    gap = lambda got, want: float((np.abs(got.cpu().numpy() - want).reshape(rows, -1).max(-1)
+                                   / np.abs(want).reshape(rows, -1).max(-1)).max())
+    gy, gz = gap(y, ref["y"]), gap(zf, ref["zf"])
+    assert gy <= JAX_Y_REL and gz <= JAX_ZF_REL, (case, gy, gz)
 
 
 def test_plan_leaves_match_cpu_build(cuda_plan):
@@ -1197,8 +1309,9 @@ def test_capture_op_table_counts_a_one_kernel_step(card):
 
 def test_capture_op_table_charges_ops_to_the_port_spans(card):
     """A CUSTOM bank dispatch of 4 channels x 2 frames: every op of the
-    step is launched inside ``tpu_sdr.dispatch``, the frame chain's are 3 a
-    frame and the stack, and the spectrum kernel lies in its launch span."""
+    step is launched inside ``tpu_sdr.dispatch``, the frame chain's are the
+    IIR state kernel's two launches, and the spectrum kernel lies in its
+    launch span."""
     from tpu_sdr_torch.bench.trace import capture_op_table
 
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
@@ -1218,7 +1331,8 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     assert t["device_trace"] and spans["tpu_sdr.dispatch"]["calls"] == 1
     assert spans["tpu_sdr.dispatch"]["device_ops"] == t["n_ops"]
     assert all(spans[name]["calls"] == 1 for name in iir)
-    assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 3 * 2 + 1
+    assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 2
+    assert spans["tpu_sdr.launch.iir_state"]["device_ops"] == 2
     assert spans["tpu_sdr.launch.spectrum_bypass"]["device_ops"] == 1
     assert sum(spans[name]["device_ms"] for name in iir) <= spans["tpu_sdr.dispatch"]["device_ms"]
 
@@ -1276,6 +1390,17 @@ def gloo_ranks(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def gloo4_ranks(tmp_path_factory):
+    """A 4-rank Gloo group on cuda:0, the rank count of the CPU shard tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch_shard_harness import run_group
+
+    return run_group(tmp_path_factory.mktemp("gloo4_cuda"), "shard_cases_cuda", 4,
+                     backend="gloo", cases="GLOO4")
+
+
+@pytest.fixture(scope="module")
 def nccl_rank(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -1300,6 +1425,33 @@ def test_sharded_gloo_ranks_on_one_card_equal_single_device(gloo_ranks, mode):
         out, st = pipe.process(part, st, FilterMode[mode])
         mags.append(out["magnitude"].cpu().numpy())
     mag, sos_state = got[mode]
+    assert np.array_equal(mag, np.concatenate(mags, axis=-2))
+    assert np.array_equal(sos_state, st.sos_state.cpu().numpy())
+
+
+@pytest.mark.parametrize("path", ["shared", "bank"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=str)
+def test_time_sharded_state_kernel_on_4_gloo_ranks_equals_single_device(gloo4_ranks, shape,
+                                                                        path):
+    """Each rank launches the IIR state kernel twice a dispatch: its frames'
+    end states, all-gathered over the time axis, then the chain from the
+    stream's head and its frames' entry states. The gathered magnitudes and
+    the final state are the single-device run's, bit for bit."""
+    import shard_cases_cuda as cases
+
+    results, errors = gloo4_ranks
+    assert "gloo_time4" in results, errors
+    mag, sos_state, kernel, plain = results["gloo_time4"][shape, path]
+    assert kernel == 2 * cases.TIME_CHUNKS and plain == 0
+    pipe = SpectrumPipeline(PipelineConfig(channels=4))
+    if path == "shared":
+        pipe.upload_sos(cases.SOS)
+    else:
+        pipe.upload_sos_bank(cases.bank_designs())
+    st, mags = pipe.initial_state(), []
+    for part in np.split(cases.time_input(), cases.TIME_CHUNKS, axis=-1):
+        out, st = pipe.process(part, st, FilterMode.CUSTOM)
+        mags.append(out["magnitude"].cpu().numpy())
     assert np.array_equal(mag, np.concatenate(mags, axis=-2))
     assert np.array_equal(sos_state, st.sos_state.cpu().numpy())
 

@@ -18,6 +18,12 @@ one 12-dim affine step per frame (``alb_step``). A per-channel bank
 axis; its products are batched over the channels
 (``sosfilt_blocked_composite_bank``).
 
+On a CUDA tensor at B = 128 and m = 12 the state path is one hand-written
+kernel (``csrc/iir_state.cu``, ``state_path``): each frame's end state from
+rest, the frame chain and every block's entry state as triangular sums of
+products with the powers APow, so W is not read; the T, P and M products
+stay. The GEMM form above is the CPU path.
+
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
 the dispatch shape (``_canonical_matmul``), and the frame chain is an exact
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -229,6 +236,14 @@ def _canonical_matmul(a: torch.Tensor, bt: torch.Tensor, rows: int) -> torch.Ten
     return out[..., :M, :].reshape(*lead, bt.shape[-1])
 
 
+def _composite_products(op: BlockedSOSComposite, v, frames: int):
+    """The zero-state output and the forcing of every block: v (..., F, B, L)
+    -> (y_zs (..., F, B, L), f (..., F, B, m)), in calls of ``frames``
+    frames; for a per-channel bank v is (C, ..., F, B, L)."""
+    rows = frames * op.frame_blocks  # block rows of ``frames`` frames
+    return _canonical_matmul(v, op.T.mT, rows), _canonical_matmul(v, op.P.mT, rows)
+
+
 def _composite_frame_terms(op: BlockedSOSComposite, v, frames: int = CANONICAL_FRAMES):
     """Per-frame parallel work: v (..., F, B, L) windowed input blocks ->
     (y_zs (..., F, B, L), zhat (..., F, B, m)); for a per-channel bank v is
@@ -240,10 +255,8 @@ def _composite_frame_terms(op: BlockedSOSComposite, v, frames: int = CANONICAL_F
     """
     m = op.state_dim
     B = op.frame_blocks
-    rows = frames * B  # block rows of ``frames`` frames
     with span("tpu_sdr.iir.products"):
-        y_zs = _canonical_matmul(v, op.T.mT, rows)
-        f = _canonical_matmul(v, op.P.mT, rows)  # (..., F, B, m)
+        y_zs, f = _composite_products(op, v, frames)  # f (..., F, B, m)
         zhat_flat = _canonical_matmul(f.reshape(*f.shape[:-2], B * m), op.W.mT, frames)
         return y_zs, zhat_flat.reshape(*f.shape[:-2], B, m)
 
@@ -255,7 +268,9 @@ def alb_step(op, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     kernel plan). Written as an elementwise multiply and a sum over the
     last axis, never as a matrix product: the sum's order then depends only
     on m, not on how many channels or frames a dispatch holds, which keeps
-    chunked == one-shot bitwise. Every frame chain goes through this helper.
+    chunked == one-shot bitwise. Every frame chain walked in Python goes
+    through this helper; the state kernel's (``csrc/iir_state.cu``) is the
+    same step as a fixed-order FMA sum.
     """
     return (op.ALB * z[..., None, :]).sum(dim=-1) + w
 
@@ -286,20 +301,215 @@ def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor, time_axis=None):
         return starts[..., lo : lo + f_loc, :], z
 
 
+def _gemm_entry_states(op, zhat, z_starts, frames: int = CANONICAL_FRAMES):
+    """Every block's entry state by the GEMM form: zhat (..., F, B, m) the
+    blocks' end states from rest, z_starts (..., F, m) (a bank's: (C, ...,
+    F, m)) -> z_in (..., F, B, m), the APow product in calls of ``frames``
+    frames. z_end[j] = APow[j] z_start + zhat[j]; z_in[0] = z_start, else
+    z_end[j-1]."""
+    B, m = op.frame_blocks, op.state_dim
+    lead = z_starts.shape[:-1]  # (..., F)
+    batch = op.APow.shape[:-3]  # () or (C,)
+    z_end = _canonical_matmul(z_starts, op.APow.reshape(*batch, B * m, m).mT, frames)
+    z_end = z_end.reshape(*lead, B, m) + zhat
+    return torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
+
+
 def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
     """Assemble outputs from per-frame start states z_starts (..., F, m)
     (a bank's: (C, ..., F, m)), products in calls of ``frames`` frames.
     Returns y (..., F, B, L).
     """
-    B, m = op.frame_blocks, op.state_dim
-    lead = z_starts.shape[:-1]  # (..., F)
-    batch = op.APow.shape[:-3]  # () or (C,)
     with span("tpu_sdr.iir.emit"):
-        # z_end[j] = APow[j] z_start + zhat[j]; z_in[0] = z_start, else z_end[j-1].
-        z_end = _canonical_matmul(z_starts, op.APow.reshape(*batch, B * m, m).mT, frames)
-        z_end = z_end.reshape(*lead, B, m) + zhat
-        z_in = torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
-        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * B)
+        z_in = _gemm_entry_states(op, zhat, z_starts, frames)
+        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks)
+
+
+# The state kernel (``csrc/iir_state.cu``) takes frames of this many blocks
+# and states of this size; on the card other geometries take the GEMM form.
+STATE_BLOCKS = 128
+STATE_DIM = 12
+
+
+def _powers(op, rows: int) -> torch.Tensor:
+    """P_0 = I .. P_B = ALB of each of ``rows`` rows: (rows, B + 1, m, m).
+    A per-channel bank's rows are channel-major, rows // C to a channel."""
+    apow = op.APow
+    m = apow.shape[-1]
+    if apow.ndim == 4:
+        apow = apow.repeat_interleave(rows // apow.shape[0], dim=0)
+    else:
+        apow = apow.expand(rows, *apow.shape)
+    eye = torch.eye(m, dtype=apow.dtype, device=apow.device).expand(rows, 1, m, m)
+    return torch.cat([eye, apow], dim=1)
+
+
+def frame_ends_plain(op, f: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``frame_ends``, in the kernel's order:
+    per block i and half h of the columns b, the 6 products of P_{B-1-i} with
+    f[i] summed in ascending b; then pairwise over the 32 (i % 16, h) of
+    each run of 16 blocks; then the 8 runs in ascending order."""
+    lead, (F, B, m) = f.shape[:-3], f.shape[-3:]
+    rows = math.prod(f.shape[:-3])
+    fr = f.reshape(rows, F, B, 2, m // 2)
+    pw = _powers(op, rows)[:, :B].flip(1).reshape(rows, 1, B, m, 2, m // 2)
+    s = torch.zeros((rows, F, B, 2, m), dtype=f.dtype, device=f.device)
+    for c in range(m // 2):
+        s = s + pw[..., c].transpose(-1, -2) * fr[..., c, None]
+    s = s.reshape(rows, F, B // 16, 32, m)
+    while s.shape[-2] > 1:
+        s = s[..., 0::2, :] + s[..., 1::2, :]
+    w = s[:, :, 0, 0]
+    for run in range(1, B // 16):
+        w = w + s[:, :, run, 0]
+    return w.reshape(*lead, F, m)
+
+
+def entry_states_plain(op, f: torch.Tensor, z: torch.Tensor, w: torch.Tensor, frame_lo: int = 0):
+    """The plain PyTorch version of ``entry_states``, in the kernel's order:
+    the frame chain z' = ALB z + w (12 products in ascending order, then
+    w); every block's entry state as sum_{1 <= k <= j} P_{j-k} f[k-1] (k,
+    then the state, ascending) + P_j z_f."""
+    lead, (F, B, m) = f.shape[:-3], f.shape[-3:]
+    rows = math.prod(f.shape[:-3])
+    fr = f.reshape(rows, F, B, m)
+    wr = w.reshape(rows, -1, m)
+    pw = _powers(op, rows)
+    zr = z.reshape(rows, m)
+    starts = []
+    for g in range(wr.shape[1]):
+        if frame_lo <= g < frame_lo + F:
+            starts.append(zr)
+        acc = torch.zeros_like(zr)
+        for b in range(m):
+            acc = acc + pw[:, B, :, b] * zr[:, b, None]
+        zr = acc + wr[:, g]
+    zs = torch.stack(starts, dim=1) if starts else fr.new_empty((rows, 0, m))
+    z_in = torch.zeros_like(fr)
+    for k in range(1, B):
+        pk = pw[:, None, : B - k]  # P_{j-k} for j = k .. B - 1
+        for b in range(m):
+            z_in[:, :, k:] = z_in[:, :, k:] + pk[..., b] * fr[:, :, k - 1, None, None, b]
+    for b in range(m):
+        z_in = z_in + pw[:, None, :B, :, b] * zs[:, :, None, None, b]
+    return z_in.reshape(*lead, F, B, m), zr.reshape(*lead, m)
+
+
+def _state_check(op, f: torch.Tensor) -> tuple[int, int, int]:
+    """Validate the state kernel's forcing and constants; returns (rows,
+    set_stride, set_rows): row r of the dispatch uses the powers of set r //
+    set_rows, set_stride floats apart (0 for a shared design)."""
+    apow = op.APow
+    if f.dtype != torch.float32 or f.ndim < 3 or tuple(f.shape[-2:]) != (STATE_BLOCKS, STATE_DIM):
+        raise ValueError(f"f must be (..., F, {STATE_BLOCKS}, {STATE_DIM}) float32; got "
+                         f"{tuple(f.shape)} {f.dtype}")
+    if apow.dtype != torch.float32 or apow.device != f.device or apow.ndim not in (3, 4) \
+            or tuple(apow.shape[-3:]) != (STATE_BLOCKS, STATE_DIM, STATE_DIM) \
+            or tuple(apow.stride()[-3:]) != (STATE_DIM**2, STATE_DIM, 1) \
+            or apow.data_ptr() % 16:
+        raise ValueError(f"APow must be 16-byte aligned (..., {STATE_BLOCKS}, {STATE_DIM}, "
+                         f"{STATE_DIM}) float32 with contiguous powers on {f.device}")
+    rows = math.prod(f.shape[:-3])
+    if apow.ndim == 3:
+        return rows, 0, max(rows, 1)
+    C = apow.shape[0]
+    if rows % C or apow.stride(0) % 4:
+        raise ValueError(f"{rows} rows do not split over a bank of {C} channels")
+    return rows, apow.stride(0), rows // C
+
+
+def frame_ends_cuda(op, f: torch.Tensor) -> torch.Tensor:
+    """Launch ``iir_state.cu``'s step 1 on a CUDA tensor: w (..., F, m)."""
+    rows, stride, set_rows = _state_check(op, f)
+    F = f.shape[-3]
+    f = launch.aligned(f)
+    w = torch.empty((*f.shape[:-2], STATE_DIM), dtype=torch.float32, device=f.device)
+    launch.launch("iir_state", f.device, 0, f.data_ptr(), op.APow.data_ptr(), stride, set_rows,
+                  None, w.data_ptr(), None, None, rows, F, F, 0)
+    return w
+
+
+def entry_states_cuda(op, f: torch.Tensor, z: torch.Tensor, w: torch.Tensor, frame_lo: int = 0):
+    """Launch ``iir_state.cu``'s steps 2 and 3 on CUDA tensors: (z_in (...,
+    F, B, m), the final state (..., m))."""
+    rows, stride, set_rows = _state_check(op, f)
+    F, m = f.shape[-3], STATE_DIM
+    lead = f.shape[:-3]
+    f_global = w.shape[-2]
+    if tuple(z.shape) != (*lead, m) or tuple(w.shape) != (*lead, f_global, m) \
+            or not 0 <= frame_lo <= f_global - F or {z.dtype, w.dtype} != {torch.float32} \
+            or z.device != f.device or w.device != f.device:
+        raise ValueError(f"z must be {(*lead, m)} and w {(*lead, f_global, m)} float32 on "
+                         f"{f.device}, frames {frame_lo} + {F} within {f_global}")
+    if F == 0:
+        if f_global:
+            raise ValueError("a dispatch of no frames of its own walks no chain")
+        return torch.empty_like(f), z.clone()
+    f, z, w = launch.aligned(f), launch.aligned(z), launch.aligned(w)
+    z_in = torch.empty_like(f)
+    zf = torch.empty_like(z)
+    launch.launch("iir_state", f.device, 1, f.data_ptr(), op.APow.data_ptr(), stride, set_rows,
+                  z.data_ptr(), w.data_ptr(), z_in.data_ptr(), zf.data_ptr(), rows, F, f_global,
+                  frame_lo)
+    return z_in, zf
+
+
+def frame_ends(op, f: torch.Tensor) -> torch.Tensor:
+    """Each frame's end state from rest: f (..., F, B, m), the forcing of
+    every block -> w (..., F, m), w_f = sum_i P_{B-1-i} f[i]. A per-channel
+    bank's rows are channel-major, (C, ..., F, B, m). The plain version on a
+    CPU tensor, ``iir_state.cu`` (B = 128, m = 12) on a CUDA one."""
+    if launch.on_cpu("iir_state", f):
+        return frame_ends_plain(op, f)
+    return frame_ends_cuda(op, f)
+
+
+def entry_states(op, f: torch.Tensor, z: torch.Tensor, w: torch.Tensor, frame_lo: int = 0):
+    """The frame chain and every block's entry state: f (..., F, B, m), z
+    (..., m) the state entering frame 0 of w, w (..., F_global, m) every
+    frame's end state from rest, the dispatch's frames being frame_lo ..
+    frame_lo + F - 1 of w's. Returns (z_in (..., F, B, m), the state after
+    all of w's frames (..., m)). As ``frame_ends`` for the layout and the
+    device."""
+    if launch.on_cpu("iir_state", f):
+        return entry_states_plain(op, f, z, w, frame_lo)
+    return entry_states_cuda(op, f, z, w, frame_lo)
+
+
+def state_path(op, f: torch.Tensor, z: torch.Tensor, time_axis=None):
+    """The state path of a dispatch from its forcing: ``frame_ends``, then
+    ``entry_states``, in the span ``tpu_sdr.iir.frame_chain``. Returns
+    (z_in (..., F, B, m), the final state (..., m)).
+
+    ``time_axis``: the frames are this shard's run of a stream sharded over
+    that axis; the (..., F, m) end states are all-gathered in frame order,
+    every shard walks the identical global chain from the global z, and the
+    final state is the global one (bit-identical to one device)."""
+    with span("tpu_sdr.iir.frame_chain"):
+        w = frame_ends(op, f)
+        lo = 0
+        if time_axis is not None:
+            w = comm.all_gather(w, time_axis, -2)
+            lo = time_axis.index * f.shape[-3]
+        return entry_states(op, f, z, w, lo)
+
+
+def _takes_state_kernel(op, x: torch.Tensor) -> bool:
+    """The composite filters' state path runs ``state_path`` on the card at
+    the kernel's geometry, the GEMM form elsewhere."""
+    return x.is_cuda and op.frame_blocks == STATE_BLOCKS and op.state_dim == STATE_DIM
+
+
+def _composite_by_state_kernel(op, v, z, frames: int, time_axis):
+    """The composite cascade through ``state_path``: v (..., F, B, L), z
+    (..., m) (a bank's channel-major, (C, ...)) -> (y (..., F, B, L), the
+    final state (..., m)); the products in calls of ``frames`` frames."""
+    with span("tpu_sdr.iir.products"):
+        y_zs, f = _composite_products(op, v, frames)
+        f = f.contiguous()  # a padded call's rows are a view
+    z_in, z = state_path(op, f, z, time_axis)
+    with span("tpu_sdr.iir.emit"):
+        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks), z
 
 
 def sosfilt_blocked_composite(
@@ -308,7 +518,8 @@ def sosfilt_blocked_composite(
     """Composite-cascade filter: x (..., T), T a multiple of B*L.
 
     zi: (..., S, 2) scipy-convention state. Returns (y (..., T),
-    zf (..., S, 2)). The frame chain is ``frame_chain``.
+    zf (..., S, 2)). The state path is ``state_path`` on the card (at B =
+    128, m = 12), else W's product, ``frame_chain`` and ``_composite_emit``.
 
     ``time_axis`` (a ``MeshAxis``): x is this shard's run of frames of a
     stream sharded over that axis, and zi the GLOBAL stream-head state
@@ -323,12 +534,13 @@ def sosfilt_blocked_composite(
     v = x.reshape(*lead, F, B, L)
     z = zi.reshape(*lead, m)
 
-    y_zs, zhat = _composite_frame_terms(op, v)
-
-    # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
-    z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
-
-    y = _composite_emit(op, y_zs, zhat, z_starts)
+    if _takes_state_kernel(op, x):
+        y, z = _composite_by_state_kernel(op, v, z, CANONICAL_FRAMES, time_axis)
+    else:
+        y_zs, zhat = _composite_frame_terms(op, v)
+        # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
+        z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
+        y = _composite_emit(op, y_zs, zhat, z_starts)
     return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)
 
 
@@ -401,6 +613,8 @@ def sosfilt_blocked_composite_bank(
     all channels at once (``alb_step`` broadcasts ALB (C, m, m)). One batched
     call per product held chunked == one-shot on an H100 with less device
     time than one call per channel (``scripts/torch_bank_call_shape.py``).
+    On the card (B = 128, m = 12) the state path is ``state_path`` with each
+    row's constants those of its channel.
     """
     L, B, m = op.block, op.frame_blocks, op.state_dim
     C = op.T.shape[0]
@@ -408,10 +622,15 @@ def sosfilt_blocked_composite_bank(
     F = x.shape[-1] // (B * L)
     v = x.reshape(*lead, C, F, B, L).movedim(-4, 0)  # (C, ..., F, B, L)
     frames = bank_frames(C if channels is None else channels)
-    y_zs, zhat = _composite_frame_terms(op, v, frames)
-    w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
-    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w, time_axis)
-    y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
+    z = zi.reshape(*lead, C, m)
+    if _takes_state_kernel(op, x):
+        y, z = _composite_by_state_kernel(op, v, z.movedim(-2, 0).contiguous(), frames, time_axis)
+        z = z.movedim(0, -2)
+    else:
+        y_zs, zhat = _composite_frame_terms(op, v, frames)
+        w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
+        z_starts, z = frame_chain(op, z, w, time_axis)
+        y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
     return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
 
 
