@@ -17,13 +17,16 @@ ones:
   over for the run);
 - ``--bf16-seeds``: the system's own bf16 tier with ``bf16_io``.
 
-Each reading is one JSON line, on standard output and in ``--out``.
+Each reading is one JSON line, on standard output and in ``--out``. A cell
+with ``chips`` > 1 starts its ranks once (``ranks.py``) and makes every run
+over them in turn.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -33,30 +36,68 @@ from sdrbench import run, spec
 
 @contextlib.contextmanager
 def program_tf32():
-    """The port's matrix products in TF32, for the length of the block."""
+    """The port's matrix products in TF32, for the length of the block: the
+    check that refuses TF32 is passed over where the single-device and the
+    sharded pipeline call it."""
     import torch
     from tpu_sdr_torch.runtime import stream
+    from tpu_sdr_torch.shard import pipeline as sharded
 
     check, before = stream.check_matmul_precision, torch.backends.cuda.matmul.allow_tf32
-    stream.check_matmul_precision = lambda expected: None
+    stream.check_matmul_precision = sharded.check_matmul_precision = lambda expected: None
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         yield
     finally:
-        stream.check_matmul_precision = check
+        stream.check_matmul_precision = sharded.check_matmul_precision = check
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def one_run(bench: dict, workload: str, seed: int, seconds: float, kind: str) -> dict:
-    cell = spec.find_cell(bench, workload)
+def setting(kind: str):
+    """What a run of ``kind`` runs under: the port's TF32 for
+    ``program_tf32``, nothing else for the others."""
+    return program_tf32() if kind == "program_tf32" else contextlib.nullcontext()
+
+
+def for_kind(cell: spec.Cell, kind: str) -> spec.Cell:
+    """The cell as a run of ``kind`` runs it: ``program_bf16`` on the bf16
+    tier with ``bf16_io``."""
     if kind == "program_bf16":
-        cell.config = dict(cell.config, tier="bf16", bf16_io=True)
-    t = time.time()
-    with program_tf32() if kind == "program_tf32" else contextlib.nullcontext():
-        result, _ = run.run_cell(cell, seed, seconds, False, control=kind == "control", t_start=t)
+        cell = dataclasses.replace(cell, config=dict(cell.config, tier="bf16", bf16_io=True))
+    return cell
+
+
+def _line(cell: spec.Cell, seed: int, kind: str, result: dict, t: float) -> dict:
     return {"workload": cell.name, "seed": seed, "kind": kind, "checks": result["checks"],
             "correct": result["correct"], "attempted": result["attempted"],
             "metrics": result["metrics"], "device": result["device"], "seconds": time.time() - t}
+
+
+def one_run(bench: dict, workload: str, seed: int, seconds: float, kind: str) -> dict:
+    cell = for_kind(spec.find_cell(bench, workload), kind)
+    t = time.time()
+    with setting(kind):
+        result, _ = run.run_cell(cell, seed, seconds, False, control=kind == "control", t_start=t)
+    return _line(cell, seed, kind, result, t)
+
+
+def ranked_runs(cell: spec.Cell, runs: list[tuple[int, str]], seconds: float,
+                device: str = "cuda"):
+    """Each (seed, kind) of ``runs`` over ``cell.chips`` ranks started once;
+    yields each run's line in turn."""
+    from sdrbench import ranks
+
+    jobs = [ranks.job_run(for_kind(cell, kind), seed, seconds, False, kind) for seed, kind in runs]
+    group = ranks.start(cell, jobs, device)
+    try:
+        group.join()
+        for job in jobs:
+            t = time.time()
+            result, _ = ranks.execute(job, group, t_start=t)
+            yield _line(cell, job["seed"], job["kind"], result, t)
+        group.close()
+    finally:
+        group.stop()
 
 
 def main(argv=None) -> int:
@@ -79,9 +120,13 @@ def main(argv=None) -> int:
     runs = ([(s, "program") for s in args.seeds] + [(s, "control") for s in args.control_seeds]
             + [(s, "program_tf32") for s in args.tf32_seeds]
             + [(s, "program_bf16") for s in args.bf16_seeds])
+    cell = spec.find_cell(bench, args.workload)
+    if cell.chips > 1:
+        lines = ranked_runs(cell, runs, args.seconds)
+    else:
+        lines = (one_run(bench, args.workload, seed, args.seconds, kind) for seed, kind in runs)
     readings = []
-    for seed, kind in runs:
-        line = one_run(bench, args.workload, seed, args.seconds, kind)
+    for line in lines:
         readings.append(line)
         print(json.dumps(line), flush=True)
         if args.out:

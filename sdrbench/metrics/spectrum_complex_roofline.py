@@ -2,7 +2,8 @@
 function's least time (both planes read once and the magnitudes written once
 at 3.35 TB/s, or 5 N log2 N fp32 operations a frame at 67 TFLOP/s; the
 longer) over the device time of ``spectrum_complex_kernel`` (row 5), a
-chunk. The counts come from the chunk's shape."""
+chunk. The counts come from the chunk's shape (rank 0's block of it in a
+multi-rank cell)."""
 
 from sdrbench import roofline
 
@@ -13,5 +14,5 @@ def read(ctx):
     ms = ctx.trace.ms_per_chunk(lambda name, cat: "spectrum_complex_kernel" in name)
     if ms is None:
         return None
-    frames = ctx.cell.config["channels"] * ctx.cell.traffic["frames_per_chunk"]
+    frames = roofline.traced_frames(ctx.cell)
     return 100.0 * roofline.bound_s(*roofline.spectrum_complex(frames, ctx.cell.config["fft_size"])) * 1e3 / ms

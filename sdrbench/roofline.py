@@ -22,6 +22,13 @@ def bound_s(bytes_moved: float, flops: float, peaks: dict = H100) -> float:
     return max(bytes_moved / peaks["hbm_bytes_s"], flops / peaks["fp32_flops_s"])
 
 
+def traced_frames(cell) -> int:
+    """The frames of a chunk that the traced process's card computes: the
+    whole chunk on one card, rank 0's block of it (a chips-th) in a
+    multi-rank cell, since only rank 0 traces."""
+    return cell.config["channels"] * cell.traffic["frames_per_chunk"] // cell.chips
+
+
 def spectrum_real(frames: int, n: int) -> tuple[float, float]:
     """(bytes, flops) of magnitudes of ``frames`` real fp32 frames of n
     points: the frames read once and the (frames, n) fp32 magnitudes

@@ -13,6 +13,11 @@ After the window the compared outputs are copied to the host, the system is
 freed, and the float64 reference judges them (``check.py``). The last line of
 standard output is the result; the numbers compared, each beside its limit,
 are the last lines of standard error.
+
+A cell with ``chips`` > 1 runs one rank a card (``ranks.py``): this process
+is rank 0 and starts the others, every rank builds the same inputs and
+system on its own card and runs the same statements, and rank 0 alone runs
+the loops' clock, traces, checks and prints the line.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ def period_s(cell: spec.Cell) -> float:
     return real / traffic["rate_x_realtime"]
 
 
-def _loop(cell: spec.Cell, dispatch, mark):
+def _loop(cell: spec.Cell, dispatch, mark, clock=time.perf_counter, sleep=time.sleep):
     """The traffic mix's loop as run(seconds, max_chunks, fractions, span,
     wait_span) -> Window."""
     traffic = cell.traffic
@@ -96,14 +101,15 @@ def _loop(cell: spec.Cell, dispatch, mark):
                 wait_span=contextlib.nullcontext):
             return loops.closed_loop(dispatch, seconds, in_flight=traffic["in_flight"],
                                      samples_per_chunk=cell.samples_per_chunk, mark=mark,
-                                     fractions=fractions, max_chunks=max_chunks, span=span)
+                                     fractions=fractions, max_chunks=max_chunks, span=span,
+                                     clock=clock)
     elif traffic["loop"] == "open":
         def run(seconds, max_chunks=None, fractions=(), span=contextlib.nullcontext,
                 wait_span=contextlib.nullcontext):
             return loops.open_loop(dispatch, seconds, period_s=period_s(cell),
                                    samples_per_chunk=cell.samples_per_chunk,
                                    fractions=fractions, max_chunks=max_chunks, span=span,
-                                   wait_span=wait_span)
+                                   wait_span=wait_span, clock=clock, sleep=sleep)
     else:
         raise ValueError(f"unknown loop {traffic['loop']!r}")
     return run
@@ -139,31 +145,46 @@ def card_line(device: int = 0) -> str:
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
              control: bool = False, t_start: float = T_START,
-             stages: list | None = None) -> tuple[dict, list[str]]:
+             stages: list | None = None, ranks=None) -> tuple[dict | None, list[str]]:
     """Run ``cell`` once. Returns the result line's object and the check
     lines. ``control``: the reference in TF32 stands in for the system's
     outputs in the comparison (the runs that set the limit's upper end).
     ``stages``: (name, time it ended) of the set-up so far, from
-    ("start", t_start)."""
+    ("start", t_start). ``ranks``: this rank's ``ranks.Group`` in a
+    multi-rank run, where the other ranks return (None, []) once they have
+    sent rank 0 their memory peak."""
     import torch
 
     on_cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     stages = list(stages or [("start", t_start)])
     cfg, traffic = cell.config, cell.traffic
+    if ranks is not None:
+        ranks.start_run()
     designs = inputs.make_designs(cfg, seed)
     ring = inputs.make_ring(cfg, traffic, seed, device)
     sync()
     stages.append(("designs and ring", time.time()))
-    entry = spec.load_module("entries", traffic["entry"]).build(cfg, traffic, designs, device)
+    module = spec.load_module("entries", traffic["entry"])
+    if ranks is None:
+        entry = module.build(cfg, traffic, designs, device)
+    else:
+        entry = module.build(cfg, traffic, designs, device, ranks)
     sync()
     stages.append(("system", time.time()))
     slots = ring.shape[0]
 
-    def dispatch(k):
-        return entry.dispatch(ring[k % slots])
+    blocks, clock, sleep = ring, time.perf_counter, time.sleep
+    if ranks is not None:
+        # Each rank's own blocks, placed once, so that no input crosses
+        # between cards in the window; rank 0's clock for every rank.
+        blocks = entry.place(ring) if hasattr(entry, "place") else ring
+        clock, sleep = ranks.clock, ranks.sleep
 
-    run = _loop(cell, dispatch, _Mark if on_cuda else (lambda: None))
+    def dispatch(k):
+        return entry.dispatch(blocks[k % slots])
+
+    run = _loop(cell, dispatch, _Mark if on_cuda else (lambda: None), clock, sleep)
     fractions, channels = inputs.check_sample(traffic, cfg["channels"], seed)
 
     # Warm up every shape the window runs, holding as many outputs at once
@@ -175,7 +196,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device:
     stages.append(("warm-up", time.time()))
 
     view = None
-    if trace:
+    if trace and ranks is not None and ranks.rank:
+        # The traced stretch without the profiler, as rank 0 runs it.
+        for chunks in (2, traffic["trace_chunks"]):
+            run(seconds=1e9, max_chunks=chunks)
+            sync()
+        entry.reset()
+    elif trace:
         record = lambda name: (lambda: torch.profiler.record_function(name))
         view = tracing.capture(
             lambda: run(seconds=1e9, max_chunks=2),
@@ -186,6 +213,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device:
         entry.reset()
         stages.append(("traced stretch", time.time()))
 
+    if ranks is not None:
+        ranks.barrier()
+        stages.append(("barrier", time.time()))
     t_first = time.time()
     host_before = host_counters()
     window = run(seconds=seconds, fractions=fractions)
@@ -199,8 +229,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device:
     custom = traffic["mode"] == "CUSTOM"
     state = entry.iir_state(channels) if custom else None
     frames_counted = entry.frames_counted()
+    if ranks is not None:
+        peak = ranks.report(peak, forbidden_modules())
+        if ranks.rank:
+            return None, []
     host_ring = (ring[:, :, channels] if cell.complex_input else ring[:, channels]).cpu().numpy()
-    del entry, ring
+    del entry, ring, blocks
     if on_cuda:
         torch.cuda.empty_cache()
 
@@ -278,11 +312,55 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def run_ranked(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
+               stages: list | None = None):
+    """Run a cell of ``cell.chips`` ranks from this process, rank 0. Returns
+    (exit code, the result line's object, the check lines): 2 where the
+    cell's devices are not found, 3 where a rank has a forbidden module
+    loaded; the result only with 0. ``device``: "cuda" (one card a rank)
+    or "cpu" (every rank on the CPU, Gloo)."""
+    from sdrbench import ranks
+
+    stages = list(stages or [("start", T_START)])
+    job = ranks.job_run(cell, seed, seconds, trace)
+    group = ranks.start(cell, [job], device)
+    try:
+        stages.append(("ranks started", time.time()))
+        import torch
+
+        stages.append(("import torch", time.time()))
+        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if device != "cpu" and found < cell.chips:
+            log(f"{cell.name} needs {cell.chips} CUDA device(s); found {found}")
+            return 2, None, []
+        group.join()
+        stages.append(("ranks joined", time.time()))
+        result, lines = ranks.execute(job, group, stages=stages)
+        group.close()
+    finally:
+        group.stop()
+    bad = sorted(set(forbidden_modules()) | group.forbidden)
+    if bad:
+        log(f"modules that may not be loaded are: {bad}")
+        return 3, None, []
+    return 0, result, lines
+
+
 def main(argv=None) -> int:
     stages = [("start", T_START), ("python and the harness", time.time())]
     args = parse_args(argv)
     set_cache_dirs()
     cell = spec.find_cell(spec.load_benchmark(), args.workload)
+    if cell.chips > 1:
+        code, result, lines = run_ranked(cell, args.seed, args.seconds, bool(args.trace),
+                                         stages=stages)
+        if code:
+            return code
+        for line in lines:
+            print(line, file=sys.stderr)
+        sys.stderr.flush()
+        print(json.dumps(result), flush=True)
+        return 0
     import torch
 
     stages.append(("import torch", time.time()))

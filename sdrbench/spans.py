@@ -8,10 +8,11 @@ The names are spelled out here, not imported: the harness imports nothing
 of the program to read it, and a span the program renames reads None.
 
 A span counts for a chunk when it starts inside that chunk's range. A
-device op is tied to the call that launched it by order: the traced ops run
-on one stream, so a chunk's k-th launching call (``LAUNCHES``) enqueued its
-k-th op by start time. Where a chunk's launching calls and ops differ in
-number the pairing reads None rather than a guess.
+device op is tied to the call that launched it by its correlation id, so an
+op on another stream (NCCL's, in a multi-rank run) pairs as well as one on
+the current stream. A chunk in which a launching call (``LAUNCHES``) has no
+op, because the profiler lost it, is left out of the op readers rather than
+read short; the other chunks still read.
 """
 
 from __future__ import annotations
@@ -63,29 +64,30 @@ def host_ms(view, names) -> float | None:
     return sum(b - a for chunk in spans for a, b in chunk) / 1e3 / len(spans)
 
 
-def launched(view) -> list[list[tuple[float, tuple]]] | None:
+def launched(view) -> list[list[tuple[float, tuple]] | None]:
     """Per chunk, (start of the launching call, op) for each of its device
-    ops; None where a chunk's launching calls and ops differ in number."""
-    calls = by_chunk(view, lambda name: name.startswith(LAUNCHES))
-    if len(calls) != len(view.chunks):
-        return None
+    ops, in the order of the calls; None for a chunk in which a launching
+    call has no op."""
     pairs = []
-    for starts, ops in zip(calls, view.chunks):
-        if len(starts) != len(ops):
-            return None
-        pairs.append(list(zip(sorted(a for a, _ in starts), sorted(ops))))
+    for ops, corrs, calls in zip(view.chunks, view.correlations, view.launches):
+        seen = set(corrs)
+        if any(name.startswith(LAUNCHES) and c not in seen for c, (_, name) in calls.items()):
+            pairs.append(None)
+            continue
+        pairs.append(sorted((calls[c][0], op) for c, op in zip(corrs, ops)))
     return pairs
 
 
 def ops_in(view, names) -> list[list[tuple]] | None:
-    """Per chunk, the device ops whose launching call lies inside a span of
-    ``names``; None when the stretch has no such span or its calls and ops
-    do not pair."""
-    spans, pairs = _spans(view, names), launched(view)
-    if spans is None or pairs is None:
+    """Per chunk whose every launching call has its op, the device ops whose
+    launching call lies inside a span of ``names``; None when the stretch
+    has no such span or no such chunk."""
+    spans = _spans(view, names)
+    if spans is None:
         return None
-    return [[op for at, op in chunk if any(a <= at <= b for a, b in inside)]
-            for chunk, inside in zip(pairs, spans)]
+    ops = [[op for at, op in chunk if any(a <= at <= b for a, b in inside)]
+           for chunk, inside in zip(launched(view), spans) if chunk is not None]
+    return ops or None
 
 
 def idle_share_in(view, names) -> float | None:

@@ -255,6 +255,39 @@ def test_each_seed_gets_the_same_mix_of_designs_in_another_order():
 
 # ------------------------------------------------------------ BENCHMARK.json's format
 
+def _check_chips(workloads: list[dict], config_of):
+    """Each cell on 1 or 4 chips, and on 4 only within the cap: a quarter of
+    the cells, rounded down, or one. A configuration's optional ``mesh``
+    (``config_of(name)["mesh"]``) spans exactly each of its cells' chips."""
+    for w in workloads:
+        assert w["chips"] in (1, 4)
+        mesh = config_of(w["config"]).get("mesh")
+        if mesh is not None:
+            assert set(mesh) == {"channel", "time"} and mesh["channel"] * mesh["time"] == w["chips"]
+    assert sum(w["chips"] == 4 for w in workloads) <= max(1, len(workloads) // 4)
+
+
+@pytest.mark.parametrize("chips, mesh, ok", [
+    ([1, 1, 1, 4], {"channel": 2, "time": 2}, True),
+    ([1, 4], {"channel": 4, "time": 1}, True),
+    ([1, 1, 4, 4], {"channel": 2, "time": 2}, False),
+    ([1, 1, 1, 4], {"channel": 2, "time": 1}, False),
+    ([1, 1, 1, 2], {"channel": 2, "time": 1}, False),
+    ([1, 1, 1, 4], None, True),
+])
+def test_four_chips_within_the_cap_and_a_mesh_that_spans_them(chips, mesh, ok):
+    """The rules that the format test holds BENCHMARK.json to, on made-up
+    cells: the last cell's configuration carries ``mesh``."""
+    cells = [{"name": f"c{i}", "config": "m" if i == len(chips) - 1 else "s", "chips": n}
+             for i, n in enumerate(chips)]
+    config_of = lambda name: {"mesh": mesh} if name == "m" and mesh else {}
+    if ok:
+        _check_chips(cells, config_of)
+    else:
+        with pytest.raises(AssertionError):
+            _check_chips(cells, config_of)
+
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
@@ -278,9 +311,11 @@ def test_benchmark_json_keeps_to_its_format():
     for w in cells.values():
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["config"] in configs
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert len(w["why"]) <= 200
         pairs.add((w["config"], w["traffic"]))
     assert len(pairs) == len(cells)
+    _check_chips(bench["workloads"],
+                 lambda name: json.loads((spec.ROOT / configs[name]["file"]).read_text()))
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
@@ -301,3 +336,12 @@ def test_benchmark_json_keeps_to_its_format():
     # a full check of 24 cells (2 + 14 runs a cell, each the window plus a
     # minute, 3 minutes a cell to build, 20 minutes spare) fits in 12 hours
     assert (2 + 14 * 24) * (bench["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+def test_a_multi_rank_cells_roofline_counts_rank_0s_block():
+    """Only rank 0 traces, so its kernel's time is for its block: a quarter
+    of the kept-out cell's chunk, which is bank64.custom.sat's chunk."""
+    one = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat")
+    trace = _kernel_trace("spectrum_bypass_kernel", 0.08)
+    assert _read("spectrum_bypass_roofline", trace=trace, cell=tiny.sharded()) == \
+        _read("spectrum_bypass_roofline", trace=trace, cell=one)

@@ -5,7 +5,12 @@ the designs' kind and the traffic's loop, entry and mode stay.
 
 ``benchmark()`` is BENCHMARK.json with the cell it leaves out for now,
 ``bank64.custom.rt`` (its files are here; PERF.md says why it is out), so
-that the tests drive the open loop and the analyzer entry too."""
+that the tests drive the open loop and the analyzer entry too.
+
+``sharded()`` is a multi-rank cell kept out of BENCHMARK.json: the pod's
+intended size over four ranks, for the tests of the multi-rank path."""
+
+import dataclasses
 
 from sdrbench import spec
 
@@ -28,6 +33,22 @@ def benchmark() -> dict:
     bench["end_to_end"] += KEPT_OUT_E2E
     bench["per_layer"] += KEPT_OUT_PER_LAYER
     return bench
+
+
+SHARDED = "bank128.sharded.x4"
+
+
+def sharded() -> spec.Cell:
+    """``bank64.custom.sat``'s designs, traffic, limits and metrics on 128
+    channels over a (channel 2, time 2) mesh of four ranks through
+    ``entries/sharded.py``: chunks of 128 channels x 32 frames (67.1 M
+    samples, 268 MB), so each rank's block is bank64's chunk of 64 x 16;
+    a ring of 4, every channel compared."""
+    base = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat")
+    config = dict(base.config, channels=128, mesh={"channel": 2, "time": 2})
+    traffic = dict(base.traffic, entry="sharded", frames_per_chunk=32,
+                   check=dict(base.traffic["check"], channels=128))
+    return dataclasses.replace(base, name=SHARDED, chips=4, config=config, traffic=traffic)
 
 
 def shrink(cell: spec.Cell, channels: int = 4) -> spec.Cell:

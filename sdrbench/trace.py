@@ -56,15 +56,23 @@ def _gaps(intervals, lo: float, hi: float) -> list[tuple[float, float]]:
 
 
 class TraceView:
-    """The ops of each traced chunk and the traced window, in microseconds."""
+    """The ops of each traced chunk and the traced window, in microseconds.
+    ``correlations[i][j]`` is the correlation id of chunk i's op j, and
+    ``launches[i]`` maps the correlation id of every runtime or driver call
+    that started in chunk i's range to its (start, name): an op's launching
+    call is ``launches[i][correlations[i][j]]``, on whatever stream the op
+    ran."""
 
-    def __init__(self, chunks, window, busy_us, gaps, host_events, unattributed):
+    def __init__(self, chunks, window, busy_us, gaps, host_events, unattributed, correlations,
+                 launches):
         self.chunks = chunks  # per chunk: [(ts, te, name, cat)]
         self.window = window  # (start, end)
         self.busy_us = busy_us
         self.gaps = gaps
         self.host_events = host_events  # [(ts, te, name)]
         self.unattributed = unattributed
+        self.correlations = correlations  # per chunk: [correlation id], beside chunks
+        self.launches = launches  # per chunk: {correlation id: (ts, name)}
 
     @property
     def n_chunks(self) -> int:
@@ -127,19 +135,25 @@ def parse(path: str, chunk_range: str = CHUNK_RANGE) -> TraceView | None:
         return None
 
     launch_chunk = {}
+    launches: list[dict] = [{} for _ in ranges]
     for e in spans:
         corr = e.get("args", {}).get("correlation")
         if e.get("cat") in LAUNCH_CATEGORIES and corr is not None:
-            launch_chunk[corr] = chunk_of(float(e["ts"]))
+            i = launch_chunk[corr] = chunk_of(float(e["ts"]))
+            if i is not None:
+                launches[i][corr] = (float(e["ts"]), e["name"])
     chunks: list[list] = [[] for _ in ranges]
+    correlations: list[list] = [[] for _ in ranges]
     unattributed = 0
     for e in device:
-        i = launch_chunk.get(e.get("args", {}).get("correlation"))
+        corr = e.get("args", {}).get("correlation")
+        i = launch_chunk.get(corr)
         if i is None:
             unattributed += 1
             continue
         ts = float(e["ts"])
         chunks[i].append((ts, ts + float(e["dur"]), e["name"][:NAME_CHARS], e["cat"]))
+        correlations[i].append(corr)
     lo = ranges[0][0]
     hi = max([ranges[-1][1]] + [te for ops in chunks for _, te, _, _ in ops])
     intervals = [(max(float(e["ts"]), lo), min(float(e["ts"]) + float(e["dur"]), hi))
@@ -148,7 +162,7 @@ def parse(path: str, chunk_range: str = CHUNK_RANGE) -> TraceView | None:
     host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"][:NAME_CHARS])
             for e in spans if e.get("cat") in HOST_CATEGORIES]
     return TraceView(chunks, (lo, hi), union_us(intervals), _gaps(intervals, lo, hi), host,
-                     unattributed)
+                     unattributed, correlations, launches)
 
 
 def capture(warm, stretch) -> TraceView | None:
