@@ -8,6 +8,7 @@ JAX, so the file also runs where JAX is not installed:
 
 import dataclasses
 import hashlib
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,7 @@ from sdrbench import inputs, spec
 from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
 from tpu_sdr_torch.kernels import biquad, fft, window
 from tpu_sdr_torch.kernels.cuda import affine_scan, iir_fft, launch, pfb_kernel
+from tpu_sdr_torch.runtime import stream
 
 pytestmark = pytest.mark.cuda
 
@@ -919,6 +921,133 @@ def test_analyzer_on_card(cuda_plan):
     assert np.array_equal(sb.process(x)["magnitude"], a)
 
 
+# ------------------------------------------- the filtered dispatch's graphs
+# (``runtime/dispatch_graphs.py``): a bank64 draw (seed 64) or the shared
+# FIXED design on 64 channels, against ``process_stream`` without graphs.
+
+
+@pytest.fixture(scope="module")
+def bank64_designs(cuda_plan):
+    return inputs.make_designs(spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config, 64)
+
+
+def _graph_pipe(kind: str, designs):
+    p = SpectrumPipeline(PipelineConfig(channels=64))
+    if kind == "bank":
+        p.upload_sos_bank(designs)
+        return p, FilterMode.CUSTOM
+    return p, FilterMode.FIXED
+
+
+def _eager_stream(p, chunks, mode, state):
+    outs = []
+    for x in chunks:
+        out, state = stream.process_stream(
+            x, state, p.bank_fixed, p.bank_custom, p.hann_w, p.plan,
+            mode_index=stream._MODE_TO_INDEX[mode], cfg=p.cfg)
+        outs.append(out["magnitude"])
+    return outs, state
+
+
+def _stream_input(frames_: int, seed: int, chunks: int = 6) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((64, chunks * frames_ * N), device="cuda", generator=gen)
+
+
+@pytest.mark.parametrize("frames_", [16, 64])
+@pytest.mark.parametrize("kind", ["bank", "fixed"])
+def test_graph_replay_equals_eager_bitwise(bank64_designs, kind, frames_):
+    """Six chunks: the first runs eagerly, the second captures, the rest
+    replay. Every chunk's magnitudes and the carried state equal the eager
+    dispatch's and the one-shot run's bit for bit, outputs kept from
+    earlier chunks are unchanged after the last, and each dispatch counts
+    the eager path's launches."""
+    p, mode = _graph_pipe(kind, bank64_designs)
+    x = _stream_input(frames_, seed=frames_)
+    chunks = x.chunk(6, dim=-1)
+    launch.reset_counts()
+    state, outs, kept, per_dispatch = p.initial_state(), [], [], []
+    for chunk in chunks:
+        before = dict(launch.counts["kernel"])
+        out, state = p.process(chunk, state, mode)
+        per_dispatch.append({k: n - before[k] for k, n in launch.counts["kernel"].items()
+                             if n != before[k]})
+        outs.append(out["magnitude"])
+        kept.append(out["magnitude"].clone())
+    torch.cuda.synchronize()
+    assert launch.graph_counts == {"captures": 1, "replays": 4, "eager": 1, "evictions": 0}
+    assert all(d == {"iir_state": 2, "spectrum_bypass": 1} for d in per_dispatch), per_dispatch
+    refs, ref_state = _eager_stream(p, chunks, mode, p.initial_state())
+    for k, (out, copy, ref) in enumerate(zip(outs, kept, refs)):
+        assert torch.equal(out, ref) and torch.equal(out, copy), k
+    assert torch.equal(state.sos_state, ref_state.sos_state)
+    whole, st_whole = p.process(x, p.initial_state(), mode)
+    assert torch.equal(torch.cat(outs, dim=-2), whole["magnitude"])
+    assert torch.equal(state.sos_state, st_whole.sos_state)
+
+
+def test_graph_upload_after_capture_takes_the_new_design(bank64_designs):
+    """``upload_sos_bank`` after the graphs are captured: the next chunk is
+    the new bank's eager result from the carried state."""
+    p, mode = _graph_pipe("bank", bank64_designs)
+    chunks = _stream_input(16, seed=5, chunks=4).chunk(4, dim=-1)
+    state = p.initial_state()
+    launch.reset_counts()
+    for chunk in chunks[:3]:
+        _, state = p.process(chunk, state, mode)
+    assert launch.graph_counts["captures"] == 1 and launch.graph_counts["replays"] == 1
+    new = np.ascontiguousarray(bank64_designs[::-1])
+    p.upload_sos_bank(new)
+    out, _ = p.process(chunks[3], state, mode)
+    ref, _ = _graph_pipe("bank", new)
+    want, _ = _eager_stream(ref, chunks[3:], mode, state)
+    assert torch.equal(out["magnitude"], want[0])
+    old, _ = _eager_stream(_graph_pipe("bank", bank64_designs)[0], chunks[3:], mode, state)
+    assert not torch.equal(out["magnitude"], old[0])
+
+
+@pytest.mark.parametrize("streams", ["two", "one"])
+def test_graph_threads_give_their_own_results(bank64_designs, streams):
+    """Two threads dispatch their own streams of six chunks through one
+    pipeline, each on a stream of its own or both on the default stream:
+    each gets its eager results bit for bit."""
+    p, mode = _graph_pipe("bank", bank64_designs)
+    xs = [_stream_input(16, seed=20 + i) for i in range(2)]
+    on = ([torch.cuda.Stream(), torch.cuda.Stream()] if streams == "two"
+          else [torch.cuda.default_stream()] * 2)
+    torch.cuda.synchronize()
+    launch.reset_counts()
+    got = {}
+
+    def work(i):
+        try:
+            with torch.cuda.stream(on[i]):
+                state, outs = p.initial_state(), []
+                for chunk in xs[i].chunk(6, dim=-1):
+                    out, state = p.process(chunk, state, mode)
+                    outs.append(out["magnitude"])
+                on[i].synchronize()
+            got[i] = (torch.cat(outs, dim=-2), state.sos_state)
+        except Exception as e:  # noqa: BLE001 - read by the main thread
+            got[i] = e
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    keys = 2 if streams == "two" else 1
+    assert launch.graph_counts == {"captures": keys, "replays": 12 - 2 * keys, "eager": keys,
+                                   "evictions": 0}
+    for i in range(2):
+        assert not isinstance(got[i], Exception), got[i]
+        refs, ref_state = _eager_stream(p, xs[i].chunk(6, dim=-1), mode, p.initial_state())
+        assert torch.equal(got[i][0], torch.cat(refs, dim=-2)), i
+        assert torch.equal(got[i][1], ref_state.sos_state), i
+
+
 # ---------------------------------------------------------------- the Q15 path
 
 
@@ -1308,10 +1437,11 @@ def test_capture_op_table_counts_a_one_kernel_step(card):
 
 
 def test_capture_op_table_charges_ops_to_the_port_spans(card):
-    """A CUSTOM bank dispatch of 4 channels x 2 frames: every op of the
-    step is launched inside ``tpu_sdr.dispatch``, the frame chain's are the
-    IIR state kernel's two launches, and the spectrum kernel lies in its
-    launch span."""
+    """A CUSTOM bank dispatch of 4 channels x 2 frames, replayed from the
+    dispatch's graphs (the profiler's warm-up call captures them): every op
+    of the step is launched inside ``tpu_sdr.dispatch``, the frame chain's
+    are the IIR state kernel's two kernels, from the chain's graph launch,
+    and the spectrum kernel lies in its launch span."""
     from tpu_sdr_torch.bench.trace import capture_op_table
 
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
@@ -1323,6 +1453,7 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     def step():
         _, held["st"] = pipe.process(x, held["st"], FilterMode.CUSTOM)
 
+    launch.reset_counts()
     step()
     torch.cuda.synchronize()
     t = capture_op_table(step, reps=2)
@@ -1332,7 +1463,9 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     assert spans["tpu_sdr.dispatch"]["device_ops"] == t["n_ops"]
     assert all(spans[name]["calls"] == 1 for name in iir)
     assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 2
-    assert spans["tpu_sdr.launch.iir_state"]["device_ops"] == 2
+    assert sum(n for name, n in t["op_counts"].items() if "iir_state" in name) == 2
+    assert "tpu_sdr.launch.iir_state" not in spans  # replayed, not launched from Python
+    assert launch.graph_counts == {"captures": 1, "replays": 2, "eager": 1, "evictions": 0}
     assert spans["tpu_sdr.launch.spectrum_bypass"]["device_ops"] == 1
     assert sum(spans[name]["device_ms"] for name in iir) <= spans["tpu_sdr.dispatch"]["device_ms"]
 

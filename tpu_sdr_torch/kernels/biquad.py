@@ -22,7 +22,10 @@ On a CUDA tensor at B = 128 and m = 12 the state path is one hand-written
 kernel (``csrc/iir_state.cu``, ``state_path``): each frame's end state from
 rest, the frame chain and every block's entry state as triangular sums of
 products with the powers APow, so W is not read; the T, P and M products
-stay. The GEMM form above is the CPU path.
+stay. That path runs in three steps, one a span (``cascade_products``,
+``cascade_chain``, ``cascade_emit``), which the filtered dispatch replays
+from CUDA graphs (``runtime/dispatch_graphs.py``). The GEMM form above is
+the CPU path.
 
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
@@ -500,16 +503,69 @@ def _takes_state_kernel(op, x: torch.Tensor) -> bool:
     return x.is_cuda and op.frame_blocks == STATE_BLOCKS and op.state_dim == STATE_DIM
 
 
-def _composite_by_state_kernel(op, v, z, frames: int, time_axis):
-    """The composite cascade through ``state_path``: v (..., F, B, L), z
-    (..., m) (a bank's channel-major, (C, ...)) -> (y (..., F, B, L), the
-    final state (..., m)); the products in calls of ``frames`` frames."""
+# The composite cascade through ``state_path``, in three steps, one a span,
+# that a caller may run one at a time (``runtime/dispatch_graphs.py``
+# captures each in a CUDA graph): ``cascade_products``, ``cascade_chain``
+# and ``cascade_emit``; ``cascade_state`` puts the final state in the
+# caller's layout. A per-channel bank's (op.T (C, L, L)) steps hold the
+# channel axis first; ``channels`` is the whole bank's channel count where
+# op holds one channel shard's rows (``sosfilt_blocked_composite_bank``).
+
+
+def _cascade_frames(op, channels: int | None) -> int:
+    """Frames of each channel per product call."""
+    if op.T.ndim == 3:
+        return bank_frames(op.T.shape[0] if channels is None else channels)
+    return CANONICAL_FRAMES
+
+
+def cascade_products(op, x: torch.Tensor, channels: int | None = None):
+    """Step 1, in the span ``tpu_sdr.iir.products``: x (..., T) (a bank's
+    (..., C, T)) -> (the zero-state output y_zs (..., F, B, L), the forcing
+    f (..., F, B, m), contiguous); a bank's with the channel axis first."""
+    v = x.reshape(*x.shape[:-1], -1, op.frame_blocks, op.block)
+    if op.T.ndim == 3:
+        v = v.movedim(-4, 0)
     with span("tpu_sdr.iir.products"):
-        y_zs, f = _composite_products(op, v, frames)
-        f = f.contiguous()  # a padded call's rows are a view
-    z_in, z = state_path(op, f, z, time_axis)
+        y_zs, f = _composite_products(op, v, _cascade_frames(op, channels))
+        return y_zs, f.contiguous()  # a padded call's rows are a view
+
+
+def cascade_chain(op, f: torch.Tensor, zi: torch.Tensor, time_axis=None):
+    """Step 2, ``state_path`` (its span ``tpu_sdr.iir.frame_chain``): f
+    from step 1, zi (..., S, 2) (a bank's (..., C, S, 2)) the state
+    entering the dispatch -> (z_in (..., F, B, m), the final state (...,
+    m)); a bank's with the channel axis first."""
+    z = zi.reshape(*zi.shape[:-2], -1)
+    if op.T.ndim == 3:
+        z = z.movedim(-2, 0).contiguous()
+    return state_path(op, f, z, time_axis)
+
+
+def cascade_emit(op, y_zs: torch.Tensor, z_in: torch.Tensor, channels: int | None = None):
+    """Step 3, in the span ``tpu_sdr.iir.emit``: y = y_zs + z_in M^T, from
+    steps 1 and 2, in x's layout (..., T) (a bank's (..., C, T))."""
+    rows = _cascade_frames(op, channels) * op.frame_blocks
     with span("tpu_sdr.iir.emit"):
-        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks), z
+        y = y_zs + _canonical_matmul(z_in, op.M.mT, rows)
+    if op.T.ndim == 3:
+        y = y.movedim(0, -4)
+    return y.reshape(*y.shape[:-3], -1)
+
+
+def cascade_state(op, z: torch.Tensor) -> torch.Tensor:
+    """Step 2's final state in zi's layout (..., S, 2) (a bank's (..., C,
+    S, 2))."""
+    if op.T.ndim == 3:
+        z = z.movedim(0, -2)
+    return z.reshape(*z.shape[:-1], -1, 2)
+
+
+def _composite_by_state_kernel(op, x, zi, time_axis=None, channels=None):
+    """The three steps in turn: (y (..., T), zf (..., S, 2))."""
+    y_zs, f = cascade_products(op, x, channels)
+    z_in, z = cascade_chain(op, f, zi, time_axis)
+    return cascade_emit(op, y_zs, z_in, channels), cascade_state(op, z)
 
 
 def sosfilt_blocked_composite(
@@ -528,19 +584,17 @@ def sosfilt_blocked_composite(
     starts, so y is bit-identical to this shard's frames of the one-device
     result and zf is the global final state.
     """
+    if _takes_state_kernel(op, x):
+        return _composite_by_state_kernel(op, x, zi, time_axis)
     L, B, m = op.block, op.frame_blocks, op.state_dim
     lead = x.shape[:-1]
     F = x.shape[-1] // (B * L)
     v = x.reshape(*lead, F, B, L)
     z = zi.reshape(*lead, m)
-
-    if _takes_state_kernel(op, x):
-        y, z = _composite_by_state_kernel(op, v, z, CANONICAL_FRAMES, time_axis)
-    else:
-        y_zs, zhat = _composite_frame_terms(op, v)
-        # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
-        z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
-        y = _composite_emit(op, y_zs, zhat, z_starts)
+    y_zs, zhat = _composite_frame_terms(op, v)
+    # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
+    z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
+    y = _composite_emit(op, y_zs, zhat, z_starts)
     return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)
 
 
@@ -616,21 +670,18 @@ def sosfilt_blocked_composite_bank(
     On the card (B = 128, m = 12) the state path is ``state_path`` with each
     row's constants those of its channel.
     """
+    if _takes_state_kernel(op, x):
+        return _composite_by_state_kernel(op, x, zi, time_axis, channels)
     L, B, m = op.block, op.frame_blocks, op.state_dim
     C = op.T.shape[0]
     lead = x.shape[:-2]
     F = x.shape[-1] // (B * L)
     v = x.reshape(*lead, C, F, B, L).movedim(-4, 0)  # (C, ..., F, B, L)
-    frames = bank_frames(C if channels is None else channels)
-    z = zi.reshape(*lead, C, m)
-    if _takes_state_kernel(op, x):
-        y, z = _composite_by_state_kernel(op, v, z.movedim(-2, 0).contiguous(), frames, time_axis)
-        z = z.movedim(0, -2)
-    else:
-        y_zs, zhat = _composite_frame_terms(op, v, frames)
-        w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
-        z_starts, z = frame_chain(op, z, w, time_axis)
-        y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
+    frames = _cascade_frames(op, channels)
+    y_zs, zhat = _composite_frame_terms(op, v, frames)
+    w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
+    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w, time_axis)
+    y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
     return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
 
 

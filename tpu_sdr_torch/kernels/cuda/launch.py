@@ -5,11 +5,15 @@ One place holds, for all kernels: their names (``KERNELS``, one per
 ``reset_counts``), each library's C signature, the library cache and
 ``launch``, which calls a kernel's C entry point on the current stream (in a
 profiler span, ``SPANS``) and raises if the launch failed. ``iir_fft.counts``
-is this module's ``counts``.
+is this module's ``counts``. Launches made while a CUDA graph is captured
+(``captured``) count when the graph is replayed (``add_counts``), and
+``graph_counts`` counts the filtered dispatch's graphs.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import threading
 
@@ -34,7 +38,16 @@ COUNTERS = KERNELS + ("spectrum_half",)
 # launch counts under "spectrum_half" and under the kernel it runs. Read and
 # reset (``reset_counts``) by callers that check which path a run took.
 counts = {"kernel": dict.fromkeys(COUNTERS, 0), "plain": dict.fromkeys(COUNTERS, 0)}
+# The filtered dispatch's CUDA graphs (``runtime/dispatch_graphs.py``), per
+# dispatch they cover: "eager" the first of a key, run without a graph;
+# "captures" the second, which captures the graphs and replays them;
+# "replays" every later one; and "evictions" the keys the cache dropped as
+# least recently used. The hit share is replays / (replays + eager).
+graph_counts = dict.fromkeys(("captures", "replays", "eager", "evictions"), 0)
 _counts_lock = threading.Lock()
+# While a thread captures a CUDA graph, its counts go to a sink of its own
+# (``captured``) instead of ``counts``: the capture runs nothing.
+_capture = threading.local()
 
 # ctypes argument types of each library's entry point ``tpu_sdr_<name>``
 # (p: pointer or stream, i: int, f: float), in the order of its C signature
@@ -56,15 +69,45 @@ _SIGNATURES = {
 
 def reset_counts():
     with _counts_lock:
-        for per_kernel in counts.values():
+        for per_kernel in (*counts.values(), graph_counts):
             for name in per_kernel:
                 per_kernel[name] = 0
 
 
 def count(kind: str, name: str):
-    """Add one to ``counts[kind][name]`` ("kernel" or "plain")."""
+    """Add one to ``counts[kind][name]`` ("kernel" or "plain"), or to the
+    sink of this thread's capture."""
+    sink = getattr(_capture, "sink", None)
+    if sink is not None:
+        sink[kind, name] += 1
+        return
     with _counts_lock:
         counts[kind][name] += 1
+
+
+def count_graph(event: str):
+    """Add one to ``graph_counts[event]``."""
+    with _counts_lock:
+        graph_counts[event] += 1
+
+
+@contextlib.contextmanager
+def captured():
+    """Within the block, this thread's counts go to the yielded sink, a
+    Counter of (kind, name), and not to ``counts``."""
+    _capture.sink = sink = collections.Counter()
+    try:
+        yield sink
+    finally:
+        _capture.sink = None
+
+
+def add_counts(sink):
+    """Add a sink of ``captured`` to ``counts``: a replay of the graph
+    whose capture filled it."""
+    with _counts_lock:
+        for (kind, name), n in sink.items():
+            counts[kind][name] += n
 
 
 # Loaded libraries by name. GUI threads launch kernels concurrently, so

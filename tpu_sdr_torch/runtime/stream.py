@@ -17,6 +17,8 @@ kernel with ``apply_window=False`` (the hybrid structure, every tier's
 default), or, with ``fused_two_pass`` at the f32/f32max tiers, run the IIR
 inside two kernels (``iir_summaries``, then ``spectrum_from_state`` from
 each frame's entry state) with only the 12-float frame chain between them.
+On one card the hybrid branch replays its IIR from CUDA graphs captured
+once a shape (``runtime/dispatch_graphs.py``).
 A per-channel CUSTOM bank (``upload_sos_bank``) always takes the hybrid
 branch. Complex (IQ) input runs as stacked re/im planes
 (``process_stream_complex``, kernel ``spectrum_mag_complex``). Other shapes
@@ -39,6 +41,7 @@ from tpu_sdr_torch.core.spans import span
 from tpu_sdr_torch.kernels import biquad, fft, magnitude, window
 from tpu_sdr_torch.kernels.cuda import iir_fft
 from tpu_sdr_torch.runtime import banks
+from tpu_sdr_torch.runtime.dispatch_graphs import DispatchGraphs
 from tpu_sdr_torch.runtime.state import StreamState
 
 _MODE_TO_INDEX = {FilterMode.BYPASS: 0, FilterMode.FIXED: 1, FilterMode.CUSTOM: 2}
@@ -116,6 +119,7 @@ def process_stream(
     cfg: PipelineConfig,
     outputs: str = "magnitude",
     time_axis=None,
+    graphs: DispatchGraphs | None = None,
 ):
     """Process a stream chunk x (..., channels, T), T a multiple of fft_size.
 
@@ -128,6 +132,10 @@ def process_stream(
     stream sharded over that axis. The IIR state chain then all-gathers
     per-frame summaries and stays bit-identical to the unsharded run; the
     counters account for the global stream (``shard/pipeline.py``).
+
+    ``graphs`` (``SpectrumPipeline``'s): on one device, the hybrid branch
+    replays its IIR from these CUDA graphs where they cover the dispatch
+    (``runtime/dispatch_graphs.py``).
     """
     n = cfg.fft_size
     if cfg.effective_hop != n:
@@ -170,12 +178,19 @@ def process_stream(
             mag = iir_fft.spectrum_from_state(flat, z_starts.reshape(-1, m), pp)
             zf = z_final.reshape(*lead, m // 2, 2)
         else:
-            xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
-            y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
-            mag = iir_fft.spectrum_from_state(
+            spectrum = lambda y: iir_fft.spectrum_from_state(
                 _maybe_bf16_y(cfg, y).reshape(-1, n), zs(), pp,
                 apply_window=False, **kw,
             )
+            got = None
+            if graphs is not None and time_axis is None:
+                got = graphs.run(mode_index, x, hann_w, bank["op"], state.sos_state,
+                                 cfg.channels, spectrum)
+            if got is None:
+                xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
+                y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
+                got = spectrum(y), zf
+            mag, zf = got
         out = {"magnitude": mag.reshape(*lead, n_frames, n)}
     else:
         # 1. Window over the frame-aligned stream.
@@ -336,7 +351,9 @@ class SpectrumPipeline:
     unless the caller asks for the CPU (``device="cpu"``), where the
     spectrum kernel's plain PyTorch version runs instead. Under a profiler
     each ``process`` / ``process_planes`` call is a ``tpu_sdr.dispatch``
-    span (``core.spans``).
+    span (``core.spans``). On the card the hybrid branch's dispatches
+    replay their IIR from CUDA graphs (``runtime/dispatch_graphs.py``),
+    which the uploads drop.
     """
 
     def __init__(self, cfg: PipelineConfig | None = None, device=None):
@@ -361,6 +378,7 @@ class SpectrumPipeline:
         self.bank_custom = self._build_bank(
             biquad.sos_identity(self.cfg.n_sections)
         )
+        self._graphs = DispatchGraphs()
 
     def _build_bank(self, sos: np.ndarray) -> dict:
         return banks.build_bank(self.cfg, self.hann_w, self.plan, sos)
@@ -382,6 +400,7 @@ class SpectrumPipeline:
         self.bank_custom = self._build_bank(
             banks.prepare_sos(sos, self.cfg.n_sections)
         )
+        self._graphs.clear()
 
     def upload_sos_bank(self, sos_bank):
         """Per-channel coefficient reload of the custom bank.
@@ -395,6 +414,7 @@ class SpectrumPipeline:
         padded = banks.prepare_bank(sos_bank, self.cfg.channels, self.cfg.n_sections)
         op = banks.build_channel_bank_op(self.cfg, padded, self.device)
         self.bank_custom = {"op": op, "pp": self.bank_fixed["pp"]}
+        self._graphs.clear()
 
     def _check_iq_state(self, state: StreamState):
         expected = (2, self.cfg.channels, self.cfg.n_sections, 2)
@@ -415,12 +435,11 @@ class SpectrumPipeline:
     def _run(self, x, state, mode, outputs, complex_input: bool):
         self._check_length(x.shape[-1])
         check_matmul_precision(self.matmul_precision)
-        fn = process_stream_complex if complex_input else process_stream
-        return fn(
-            x, state, self.bank_fixed, self.bank_custom, self.hann_w, self.plan,
-            mode_index=_MODE_TO_INDEX[FilterMode(mode)], cfg=self.cfg,
-            outputs=outputs,
-        )
+        kw = dict(mode_index=_MODE_TO_INDEX[FilterMode(mode)], cfg=self.cfg, outputs=outputs)
+        args = (x, state, self.bank_fixed, self.bank_custom, self.hann_w, self.plan)
+        if complex_input:
+            return process_stream_complex(*args, **kw)
+        return process_stream(*args, **kw, graphs=self._graphs)
 
     def process(
         self,
