@@ -32,23 +32,21 @@ N = 16384
 SHAPES = ((2, 8), (8, 64))
 
 
-def bank_per_channel(op, x, zi):
+def bank_per_channel(op, x, zi, **_):
     """``sosfilt_blocked_composite_bank`` for x (C, T) with each channel's
-    products on their own (the frame chain still steps all channels at
+    products on their own (the state step still takes all channels at
     once)."""
-    L, B, m = op.block, op.frame_blocks, op.state_dim
     C = op.T.shape[0]
-    F = x.shape[-1] // (B * L)
     frames = biquad.bank_frames(C)
-    ops = [biquad.BlockedSOSComposite(**{f.name: getattr(op, f.name)[c]
+    ops = [biquad.BlockedSOSComposite(**{f.name: None if getattr(op, f.name) is None
+                                         else getattr(op, f.name)[c]
                                          for f in dataclasses.fields(op)}) for c in range(C)]
-    v = x.reshape(C, F, B, L)
-    terms = [biquad._composite_frame_terms(ops[c], v[c], frames) for c in range(C)]
-    zhat = torch.stack([t[1] for t in terms])  # (C, F, B, m)
-    z_starts, z = biquad.frame_chain(op, zi.reshape(C, m), zhat[:, :, -1, :])
-    y = torch.stack([biquad._composite_emit(ops[c], y_zs, zh, z_starts[c], frames)
-                     for c, (y_zs, zh) in enumerate(terms)])
-    return y.reshape(C, F * B * L), z.reshape(C, m // 2, 2)
+    terms = [biquad.cascade_products(ops[c], x[c], frames) for c in range(C)]
+    f = torch.stack([t[1] for t in terms])  # (C, F, B, m)
+    z_in, z = biquad.cascade_chain(op, f, zi, frames)
+    y = torch.stack([biquad.cascade_emit(ops[c], y_zs, z_in[c], frames)
+                     for c, (y_zs, _) in enumerate(terms)])
+    return y, biquad.cascade_state(op, z)
 
 
 def run(pipe, x):

@@ -173,10 +173,11 @@ def _state_inputs(op, frames: int, seed: int):
     return v, biquad._composite_products(op, v, calls)[1].contiguous(), z, calls
 
 
-def _gemm_states(op, v, z, calls: int):
-    _, zhat = biquad._composite_frame_terms(op, v, calls)
-    starts, zf = biquad.frame_chain(op, z, zhat[..., -1, :])
-    return biquad._gemm_entry_states(op, zhat, starts, calls), zf
+def _gemm_states(op, f, z, calls: int):
+    """The GEMM form's states, on the operator given the W that the card's
+    build leaves out."""
+    gop = dataclasses.replace(op, W=biquad.block_toeplitz(op))
+    return biquad.gemm_state_path(gop, f, z, calls)
 
 
 @pytest.mark.parametrize("frames_", [16, 64])
@@ -191,7 +192,7 @@ def test_state_kernel_matches_plain_and_gemm_form(state_ops, kind, frames_):
     assert launch.counts["kernel"]["iir_state"] == 2 and launch.counts["plain"]["iir_state"] == 0
     pw = biquad.frame_ends_plain(op, f)
     pz_in, pzf = biquad.entry_states_plain(op, f, z, pw)
-    gz_in, gzf = _gemm_states(op, v, z, calls)
+    gz_in, gzf = _gemm_states(op, f, z, calls)
     rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
     errs = {"w": rel(w, pw), "z_in": rel(z_in, pz_in), "zf": rel(zf, pzf),
             "z_in vs GEMM": rel(z_in, gz_in), "zf vs GEMM": rel(zf, gzf)}
@@ -250,6 +251,38 @@ def test_state_kernel_path_matches_jax(cuda_plan, case):
                                    / np.abs(want).reshape(rows, -1).max(-1)).max())
     gy, gz = gap(y, ref["y"]), gap(zf, ref["zf"])
     assert gy <= JAX_Y_REL and gz <= JAX_ZF_REL, (case, gy, gz)
+
+
+def test_bank64_upload_builds_no_w_and_matches_jax(cuda_plan):
+    """A bank64 upload on the card leaves W out (its state step takes the
+    state kernel) and allocates under 50 MB; its first six channels, the
+    stored JAX case's designs, still give JAX's outputs and states."""
+    bank64 = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config
+    designs = inputs.make_designs(bank64, 64)
+    pipe = SpectrumPipeline(PipelineConfig(channels=64))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pipe.upload_sos_bank(designs)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    op = pipe.bank_custom["op"]
+    assert biquad.takes_state_kernel(op) and op.W is None
+    assert grown < 50e6, grown
+    with np.load(JAX_REFERENCE) as ref:
+        ref = {k[len("bank_"):]: ref[k] for k in ref.files if k.startswith("bank_")}
+    rows = ref["sos"].shape[0]
+    assert np.array_equal(ref["sos"], designs[:rows])
+    x = np.random.default_rng(int(ref["x_seed"])).standard_normal(tuple(ref["x_shape"]),
+                                                                  dtype=np.float32)
+    head = biquad.BlockedSOSComposite(**{f.name: None if getattr(op, f.name) is None
+                                         else getattr(op, f.name)[:rows]
+                                         for f in dataclasses.fields(op)})
+    y, zf = biquad.sosfilt_blocked_composite_bank(
+        head, torch.as_tensor(x, device="cuda"), torch.as_tensor(ref["zi"], device="cuda"))
+    gap = lambda got, want: float((np.abs(got.cpu().numpy() - want).reshape(rows, -1).max(-1)
+                                   / np.abs(want).reshape(rows, -1).max(-1)).max())
+    gy, gz = gap(y, ref["y"]), gap(zf, ref["zf"])
+    assert gy <= JAX_Y_REL and gz <= JAX_ZF_REL, (gy, gz)
 
 
 def test_plan_leaves_match_cpu_build(cuda_plan):

@@ -7,14 +7,14 @@ powers P_d = (A^L)^d, the frame chain as a fixed-order 12-term step, and
 each frame's end state from rest as a sum (``biquad.frame_ends``,
 ``entry_states``, ``state_path``). No CUDA kernel runs here: the plain
 versions (``frame_ends_plain``, ``entry_states_plain``), which sum in the
-kernel's order, are held against the GEMM form (the block-Toeplitz W
-product, ``frame_chain`` and the APow product, still the CPU path) and
-against float64 ``scipy.signal.sosfilt`` states, on the extremes of the
-``bank64`` benchmark configuration's design mix (Butterworth low-, band- and
-high-passes, 20-450 kHz at 1 MSPS) and on two narrow low-passes, whose
-poles near the unit circle cost a 128-step fp32 block recurrence digits:
-``iir_blocks.cuh``'s ``block_chain`` reached 6.1e-3 of max |state| on
-butter(12, 0.002) (ROADMAP C9). The kernel itself is held to the plain
+kernel's order, are held against the GEMM form (``gemm_state_path``: the
+block-Toeplitz W product, ``frame_chain`` and the APow product, the CPU's
+route) and against float64 ``scipy.signal.sosfilt`` states, on the extremes
+of the ``bank64`` benchmark configuration's design mix (Butterworth low-,
+band- and high-passes, 20-450 kHz at 1 MSPS) and on two narrow low-passes,
+whose poles near the unit circle cost a 128-step fp32 block recurrence
+digits: ``iir_blocks.cuh``'s ``block_chain`` reached 6.1e-3 of max |state|
+on butter(12, 0.002) (ROADMAP C9). The kernel itself is held to the plain
 version on the card (``tests/test_torch_cuda.py``).
 
 The composite filters through the state path (the plain version here) are
@@ -27,7 +27,9 @@ to JAX's output of today. To write the file anew:
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_iir_state.py
 """
 
+import dataclasses
 import hashlib
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -91,14 +93,6 @@ def _input(channels: int, frames: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal((channels, frames * B * L)).astype(np.float32)
 
 
-def _gemm_states(op, v, z, frames: int):
-    """Every block's entry state and the final state by the GEMM form:
-    W's product, ``frame_chain``, then z_end = APow z_start + zhat."""
-    _, zhat = biquad._composite_frame_terms(op, v, frames)
-    starts, zf = biquad.frame_chain(op, z, zhat[..., -1, :])
-    return biquad._gemm_entry_states(op, zhat, starts, frames), zf
-
-
 def _sosfilt_states(sos: np.ndarray, x: np.ndarray, frames: int) -> np.ndarray:
     """float64 scipy states entering every block, and after the last:
     (frames * B + 1, 12), each the stacked (S, 2) zi of a section cascade."""
@@ -124,7 +118,7 @@ def design_run(request):
     _, f = biquad._composite_products(op, v, frames)
     w = biquad.frame_ends_plain(op, f)
     z_in, zf = biquad.entry_states_plain(op, f, z0, w)
-    gz_in, gzf = _gemm_states(op, v, z0, frames)
+    gz_in, gzf = biquad.gemm_state_path(op, f, z0, frames)
     ref = [_sosfilt_states(biquad.pad_sos(s, 6), x[c].astype(np.float64), FRAMES)
            for c, s in enumerate(designs)]
     return request.param, (z_in, zf), (gz_in, gzf), ref
@@ -221,9 +215,52 @@ def test_state_functions_take_the_plain_version_on_the_cpu():
     assert z_in.shape == f.shape and zf.shape == (2, M)
     assert launch.counts["plain"]["iir_state"] == 2 and launch.counts["kernel"]["iir_state"] == 0
     x = torch.as_tensor(_input(2, 1, seed=10))
-    assert not biquad._takes_state_kernel(op, x)
+    assert not biquad.takes_state_kernel(op)
     biquad.sosfilt_blocked_composite_bank(op, x, torch.zeros((2, 6, 2)))
     assert launch.counts["plain"]["iir_state"] == 2
+
+
+@pytest.mark.parametrize("blocks,sections", [(128, 6), (64, 6), (128, 4)],
+                         ids=["B128-m12", "B64-m12", "B128-m8"])
+@pytest.mark.parametrize("kind", ["shared", "bank"])
+def test_w_is_built_exactly_where_the_gemm_form_reads_it(monkeypatch, kind, blocks, sections):
+    """``takes_state_kernel`` reads the operator alone: true on the card at
+    B = 128, m = 12, false on the CPU and at any other geometry. Those
+    operators hold W (``block_toeplitz``'s placement) and the state step
+    takes the GEMM form there (no state-path call); where the predicate
+    holds, the build leaves W out and the state step runs ``state_path``."""
+    designs = [sps.butter(2 * sections, 0.1 * (c + 1), output="sos") for c in range(2)]
+    m = 2 * sections
+    on_geometry = blocks == biquad.STATE_BLOCKS and m == biquad.STATE_DIM
+
+    def build():
+        if kind == "bank":
+            return biquad.precompute_composite_bank(np.stack(designs), L, blocks, device="cpu")
+        return biquad.precompute_composite(designs[0], L, blocks, device="cpu")
+
+    op = build()
+    lead = (2,) if kind == "bank" else ()
+    assert op.W is not None and op.W.shape == (*lead, blocks * m, blocks * m)
+    assert torch.equal(op.W, biquad.block_toeplitz(op))
+    assert not biquad.takes_state_kernel(op)
+    card = dataclasses.replace(op, APow=types.SimpleNamespace(is_cuda=True, shape=op.APow.shape))
+    assert biquad.takes_state_kernel(card) == on_geometry
+    x = torch.as_tensor(_input(2, 1, seed=12)[:, : blocks * L])
+    zi = torch.zeros((2, sections, 2))
+    run = biquad.sosfilt_blocked_composite_bank
+    launch.reset_counts()
+    y, zf = run(op, x, zi)
+    assert launch.counts["plain"]["iir_state"] == 0 and y.shape == x.shape
+    # The card's rule on CPU tensors: W is left out where the state kernel runs.
+    monkeypatch.setattr(biquad, "takes_state_kernel",
+                        lambda op: (op.frame_blocks, op.state_dim) == (B, M))
+    op = build()
+    assert (op.W is None) == on_geometry
+    launch.reset_counts()
+    y2, zf2 = run(op, x, zi)
+    assert launch.counts["plain"]["iir_state"] == (2 if on_geometry else 0)
+    if not on_geometry:
+        assert torch.equal(y2, y) and torch.equal(zf2, zf)
 
 
 def test_state_kernel_wrappers_refuse_what_the_kernel_does_not_take():
@@ -310,12 +347,13 @@ def _composite(case: str, sos):
 
 @pytest.mark.parametrize("case", list(JAX_CASES))
 def test_state_path_matches_jax(monkeypatch, case):
-    """The composite filter as it runs on the card (``_composite_by_state_kernel``,
-    here with the plain ``state_path``) against JAX on the same inputs."""
+    """The composite filter as it runs on the card (the state step's kernel
+    route, here with the plain ``state_path``) against JAX on the same
+    inputs."""
     sos, x, zi = jax_case_inputs(case)
     ref_y, ref_zf = jax_outputs(case, sos, x, zi)
     op, run = _composite(case, sos)
-    monkeypatch.setattr(biquad, "_takes_state_kernel", lambda op, x: True)
+    monkeypatch.setattr(biquad, "takes_state_kernel", lambda op: True)
     launch.reset_counts()
     y, zf = run(op, torch.as_tensor(x), torch.as_tensor(zi))
     assert launch.counts["plain"]["iir_state"] == 2 and launch.counts["kernel"]["iir_state"] == 0

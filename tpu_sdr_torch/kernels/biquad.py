@@ -18,14 +18,15 @@ one 12-dim affine step per frame (``alb_step``). A per-channel bank
 axis; its products are batched over the channels
 (``sosfilt_blocked_composite_bank``).
 
-On a CUDA tensor at B = 128 and m = 12 the state path is one hand-written
-kernel (``csrc/iir_state.cu``, ``state_path``): each frame's end state from
-rest, the frame chain and every block's entry state as triangular sums of
-products with the powers APow, so W is not read; the T, P and M products
-stay. That path runs in three steps, one a span (``cascade_products``,
+Both layouts run one body in three steps, one a span (``cascade_products``,
 ``cascade_chain``, ``cascade_emit``), which the filtered dispatch replays
-from CUDA graphs (``runtime/dispatch_graphs.py``). The GEMM form above is
-the CPU path.
+from CUDA graphs (``runtime/dispatch_graphs.py``). The state step has two
+routes, chosen from the operator alone (``takes_state_kernel``): on the
+card at B = 128 and m = 12 one hand-written kernel (``csrc/iir_state.cu``,
+``state_path``) takes each frame's end state from rest, the frame chain and
+every block's entry state as triangular sums of products with the powers
+APow; everywhere else the GEMM form above (``gemm_state_path``). W is built
+only for operators that take the GEMM form.
 
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
@@ -131,14 +132,16 @@ class BlockedSOSComposite:
     """Device constants of the composite cascade.
 
     Leaves: T (L,L), M (L,m), P (m,L), APow (B,m,m), W (B*m,B*m), ALB (m,m);
-    a per-channel bank has a leading channel axis C on each.
+    a per-channel bank has a leading channel axis C on each. W is None
+    where the operator takes the state kernel (``takes_state_kernel``),
+    which does not read it.
     """
 
     T: torch.Tensor
     M: torch.Tensor
     P: torch.Tensor
     APow: torch.Tensor
-    W: torch.Tensor
+    W: torch.Tensor | None
     ALB: torch.Tensor
 
     @property
@@ -154,22 +157,37 @@ class BlockedSOSComposite:
         return self.APow.shape[-3]
 
 
-def _expand_block_toeplitz(alpows: torch.Tensor) -> torch.Tensor:
-    """W[j*m+a, i*m+b] = alpows[j-i][a,b] for i <= j, else 0.
+# The state kernel (``csrc/iir_state.cu``) takes frames of this many blocks
+# and states of this size.
+STATE_BLOCKS = 128
+STATE_DIM = 12
 
-    Pure placement of already-rounded alpows entries, so the result is
-    bit-identical to building W on the host.
-    """
-    B = alpows.shape[0] - 1
-    m = alpows.shape[-1]
-    ar = torch.arange(B, device=alpows.device)
-    dj = ar[:, None] - ar[None, :]
-    Wb = torch.where(
-        (dj >= 0)[:, :, None, None],
-        alpows[dj.clamp(0, B)],
-        torch.zeros((), dtype=alpows.dtype, device=alpows.device),
-    )  # (B, B, m, m)
-    return Wb.permute(0, 2, 1, 3).reshape(B * m, B * m)
+
+def takes_state_kernel(op) -> bool:
+    """Whether the composite cascade's state step runs the state kernel
+    (``state_path``) for ``op``: its leaves on the card, B = 128 and m = 12.
+    Every other operator takes the GEMM form (``gemm_state_path``) and holds
+    W."""
+    return op.APow.is_cuda and op.frame_blocks == STATE_BLOCKS and op.state_dim == STATE_DIM
+
+
+def block_toeplitz(op) -> torch.Tensor:
+    """The GEMM form's W from ``op``'s powers: W[j*m+a, i*m+b] =
+    (A^L)^(j-i)[a, b] for i <= j, else 0; (B*m, B*m), a bank's (C, B*m,
+    B*m). Pure placement of the rounded powers, a diagonal of blocks at a
+    time, so the result is bit-identical to building W on the host."""
+    apow = op.APow
+    *lead, B, m, _ = apow.shape
+    W = apow.new_zeros((*lead, B, m, B, m))
+    for d in range(B):
+        p = torch.eye(m, dtype=apow.dtype, device=apow.device) if d == 0 else apow[..., d - 1, :, :]
+        torch.diagonal(W, -d, -4, -2).copy_(p[..., None])
+    return W.reshape(*lead, B * m, B * m)
+
+
+def _with_w(op: BlockedSOSComposite) -> BlockedSOSComposite:
+    """``op`` with W where its state step takes the GEMM form."""
+    return op if takes_state_kernel(op) else dataclasses.replace(op, W=block_toeplitz(op))
 
 
 def precompute_composite(
@@ -181,18 +199,49 @@ def precompute_composite(
     dtype=torch.float32,
 ) -> BlockedSOSComposite:
     """Build the composite blocked operator on ``device`` (host float64
-    internals; the large W leaf is expanded on the device from alpows)."""
+    internals; the large W leaf, where built, is expanded on the device
+    from the powers)."""
     T, M, P, alpows = _composite_host_parts(sos, block, frame_blocks)
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     ap = as_t(alpows)  # (B+1, m, m)
-    return BlockedSOSComposite(
+    return _with_w(BlockedSOSComposite(
         T=as_t(T),
         M=as_t(M),
         P=as_t(P),
         APow=ap[1:],
-        W=_expand_block_toeplitz(ap),
+        W=None,
         ALB=ap[-1],
+    ))
+
+
+def precompute_composite_bank(
+    sos_bank: np.ndarray,
+    block: int = 128,
+    frame_blocks: int = 128,
+    *,
+    device="cuda",
+    dtype=torch.float32,
+) -> BlockedSOSComposite:
+    """Per-channel composite operators: sos_bank (C, S, 6) -> leaves with a
+    leading channel axis, built on ``device`` (host float64 parts per
+    channel; W, where built, expanded on the device). One (S, 6) design is
+    a 1-channel bank. About (L^2 + (B*m)^2) * 4 bytes a channel with W (9.5
+    MB at the default shape), 0.15 MB without.
+    """
+    sos_bank = np.asarray(sos_bank, np.float64)
+    if sos_bank.ndim == 2:
+        # (S, 6) -> (1, S, 6); np.atleast_3d would append the axis instead
+        sos_bank = sos_bank[None]
+    parts = [
+        _composite_host_parts(sos_bank[c], block, frame_blocks)
+        for c in range(sos_bank.shape[0])
+    ]
+    as_t = lambda k: torch.as_tensor(
+        np.stack([p[k] for p in parts]), dtype=dtype, device=device
     )
+    ap = as_t(3)  # (C, B+1, m, m)
+    return _with_w(BlockedSOSComposite(T=as_t(0), M=as_t(1), P=as_t(2), APow=ap[:, 1:], W=None,
+                                       ALB=ap[:, -1]))
 
 
 # Every product over the (channel, frame) axes runs in calls that hold
@@ -247,23 +296,6 @@ def _composite_products(op: BlockedSOSComposite, v, frames: int):
     return _canonical_matmul(v, op.T.mT, rows), _canonical_matmul(v, op.P.mT, rows)
 
 
-def _composite_frame_terms(op: BlockedSOSComposite, v, frames: int = CANONICAL_FRAMES):
-    """Per-frame parallel work: v (..., F, B, L) windowed input blocks ->
-    (y_zs (..., F, B, L), zhat (..., F, B, m)); for a per-channel bank v is
-    (C, ..., F, B, L).
-
-    Every product runs through ``_canonical_matmul`` in calls of ``frames``
-    frames (the reference's single-frame guard, generalised to any dispatch
-    shape).
-    """
-    m = op.state_dim
-    B = op.frame_blocks
-    with span("tpu_sdr.iir.products"):
-        y_zs, f = _composite_products(op, v, frames)  # f (..., F, B, m)
-        zhat_flat = _canonical_matmul(f.reshape(*f.shape[:-2], B * m), op.W.mT, frames)
-        return y_zs, zhat_flat.reshape(*f.shape[:-2], B, m)
-
-
 def alb_step(op, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One frame-chain step: z' = ALB z + w, broadcasting over leading axes.
 
@@ -290,18 +322,23 @@ def frame_chain(op, z: torch.Tensor, w_frames: torch.Tensor, time_axis=None):
     chain, and each keeps its own frames' starts; the final state is the
     global one, the same on every shard (bit-identical to one device)."""
     with span("tpu_sdr.iir.frame_chain"):
-        f_loc = w_frames.shape[-2]
-        if time_axis is not None:
-            w_frames = comm.all_gather(w_frames, time_axis, -2)
-        starts = []
-        for f in range(w_frames.shape[-2]):
-            starts.append(z)
-            z = alb_step(op, z, w_frames[..., f, :])
-        starts = torch.stack(starts, dim=-2)
-        if time_axis is None:
-            return starts, z
-        lo = time_axis.index * f_loc
-        return starts[..., lo : lo + f_loc, :], z
+        return _walk_chain(op, z, w_frames, time_axis)
+
+
+def _walk_chain(op, z: torch.Tensor, w_frames: torch.Tensor, time_axis):
+    """``frame_chain`` inside its caller's span."""
+    f_loc = w_frames.shape[-2]
+    if time_axis is not None:
+        w_frames = comm.all_gather(w_frames, time_axis, -2)
+    starts = []
+    for f in range(w_frames.shape[-2]):
+        starts.append(z)
+        z = alb_step(op, z, w_frames[..., f, :])
+    starts = torch.stack(starts, dim=-2)
+    if time_axis is None:
+        return starts, z
+    lo = time_axis.index * f_loc
+    return starts[..., lo : lo + f_loc, :], z
 
 
 def _gemm_entry_states(op, zhat, z_starts, frames: int = CANONICAL_FRAMES):
@@ -318,20 +355,23 @@ def _gemm_entry_states(op, zhat, z_starts, frames: int = CANONICAL_FRAMES):
     return torch.cat([z_starts[..., None, :], z_end[..., :-1, :]], dim=-2)
 
 
-def _composite_emit(op, y_zs, zhat, z_starts, frames: int = CANONICAL_FRAMES):
-    """Assemble outputs from per-frame start states z_starts (..., F, m)
-    (a bank's: (C, ..., F, m)), products in calls of ``frames`` frames.
-    Returns y (..., F, B, L).
-    """
-    with span("tpu_sdr.iir.emit"):
-        z_in = _gemm_entry_states(op, zhat, z_starts, frames)
-        return y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks)
-
-
-# The state kernel (``csrc/iir_state.cu``) takes frames of this many blocks
-# and states of this size; on the card other geometries take the GEMM form.
-STATE_BLOCKS = 128
-STATE_DIM = 12
+def gemm_state_path(op, f: torch.Tensor, z: torch.Tensor, frames: int, time_axis=None):
+    """The state path of a dispatch by the GEMM form, from its forcing f
+    (..., F, B, m) and the entering state z (..., m), in the steps' layout
+    (a bank's channel axis first), in the span ``tpu_sdr.iir.frame_chain``
+    as ``state_path``: zhat = W's product in calls of ``frames`` frames,
+    the frame chain over each frame's last block (over ``time_axis`` as in
+    ``frame_chain``), then ``_gemm_entry_states``. Returns (z_in (..., F,
+    B, m), the final state (..., m))."""
+    with span("tpu_sdr.iir.frame_chain"):
+        zhat = _canonical_matmul(f.flatten(-2), op.W.mT, frames).reshape(f.shape)
+        w = zhat[..., -1, :]
+        if op.T.ndim == 3:  # alb_step broadcasts a bank's ALB over (..., C, m)
+            w, z = w.movedim(0, -3), z.movedim(0, -2)
+        starts, z = _walk_chain(op, z, w, time_axis)
+        if op.T.ndim == 3:
+            starts, z = starts.movedim(-3, 0), z.movedim(-2, 0)
+        return _gemm_entry_states(op, zhat, starts, frames), z
 
 
 def _powers(op, rows: int) -> torch.Tensor:
@@ -497,57 +537,64 @@ def state_path(op, f: torch.Tensor, z: torch.Tensor, time_axis=None):
         return entry_states(op, f, z, w, lo)
 
 
-def _takes_state_kernel(op, x: torch.Tensor) -> bool:
-    """The composite filters' state path runs ``state_path`` on the card at
-    the kernel's geometry, the GEMM form elsewhere."""
-    return x.is_cuda and op.frame_blocks == STATE_BLOCKS and op.state_dim == STATE_DIM
+# The composite cascade in three steps, one a span, that a caller may run
+# one at a time (``runtime/dispatch_graphs.py`` captures each in a CUDA
+# graph): ``cascade_products``, ``cascade_chain`` and ``cascade_emit``;
+# ``cascade_state`` puts the final state in the caller's layout. A shared
+# design's steps (op.T (L, L)) take x (..., T); a per-channel bank's (op.T
+# (C, L, L)) take x (..., C, T) and hold the channel axis first. Every
+# product runs in calls of ``frames`` frames (``cascade_frames``).
 
 
-# The composite cascade through ``state_path``, in three steps, one a span,
-# that a caller may run one at a time (``runtime/dispatch_graphs.py``
-# captures each in a CUDA graph): ``cascade_products``, ``cascade_chain``
-# and ``cascade_emit``; ``cascade_state`` puts the final state in the
-# caller's layout. A per-channel bank's (op.T (C, L, L)) steps hold the
-# channel axis first; ``channels`` is the whole bank's channel count where
-# op holds one channel shard's rows (``sosfilt_blocked_composite_bank``).
+def bank_frames(channels: int) -> int:
+    """Frames of each channel per batched product call of a bank: the
+    ``CANONICAL_FRAMES`` of one call shared among the bank's channels, so a
+    dispatch of 8 channels x 64 frames makes one call per product. The
+    channel count is fixed by the bank, so every dispatch calls each
+    product at one shape (chunked == one-shot)."""
+    return max(1, CANONICAL_FRAMES // channels)
 
 
-def _cascade_frames(op, channels: int | None) -> int:
-    """Frames of each channel per product call."""
+def cascade_frames(op, channels: int | None = None) -> int:
+    """Frames of each channel per product call: a bank's ``bank_frames``
+    of ``channels``, the whole bank's channel count where op holds one
+    channel shard's rows (by default op's own); a shared design's
+    ``CANONICAL_FRAMES``."""
     if op.T.ndim == 3:
         return bank_frames(op.T.shape[0] if channels is None else channels)
     return CANONICAL_FRAMES
 
 
-def cascade_products(op, x: torch.Tensor, channels: int | None = None):
-    """Step 1, in the span ``tpu_sdr.iir.products``: x (..., T) (a bank's
-    (..., C, T)) -> (the zero-state output y_zs (..., F, B, L), the forcing
-    f (..., F, B, m), contiguous); a bank's with the channel axis first."""
+def cascade_products(op, x: torch.Tensor, frames: int):
+    """Step 1, in the span ``tpu_sdr.iir.products``: x -> (the zero-state
+    output y_zs (..., F, B, L), the forcing f (..., F, B, m), contiguous)."""
     v = x.reshape(*x.shape[:-1], -1, op.frame_blocks, op.block)
     if op.T.ndim == 3:
         v = v.movedim(-4, 0)
     with span("tpu_sdr.iir.products"):
-        y_zs, f = _composite_products(op, v, _cascade_frames(op, channels))
+        y_zs, f = _composite_products(op, v, frames)
         return y_zs, f.contiguous()  # a padded call's rows are a view
 
 
-def cascade_chain(op, f: torch.Tensor, zi: torch.Tensor, time_axis=None):
-    """Step 2, ``state_path`` (its span ``tpu_sdr.iir.frame_chain``): f
-    from step 1, zi (..., S, 2) (a bank's (..., C, S, 2)) the state
-    entering the dispatch -> (z_in (..., F, B, m), the final state (...,
-    m)); a bank's with the channel axis first."""
+def cascade_chain(op, f: torch.Tensor, zi: torch.Tensor, frames: int, time_axis=None):
+    """Step 2, the state path, in the span ``tpu_sdr.iir.frame_chain``: f
+    from step 1, zi (..., S, 2) (a bank's (..., C, S, 2)) the state entering
+    the dispatch -> (z_in (..., F, B, m), the final state (..., m)).
+    ``state_path`` where ``takes_state_kernel(op)``, else
+    ``gemm_state_path`` in calls of ``frames`` frames."""
     z = zi.reshape(*zi.shape[:-2], -1)
     if op.T.ndim == 3:
         z = z.movedim(-2, 0).contiguous()
-    return state_path(op, f, z, time_axis)
+    if takes_state_kernel(op):
+        return state_path(op, f, z, time_axis)
+    return gemm_state_path(op, f, z, frames, time_axis)
 
 
-def cascade_emit(op, y_zs: torch.Tensor, z_in: torch.Tensor, channels: int | None = None):
+def cascade_emit(op, y_zs: torch.Tensor, z_in: torch.Tensor, frames: int):
     """Step 3, in the span ``tpu_sdr.iir.emit``: y = y_zs + z_in M^T, from
-    steps 1 and 2, in x's layout (..., T) (a bank's (..., C, T))."""
-    rows = _cascade_frames(op, channels) * op.frame_blocks
+    steps 1 and 2, in x's layout."""
     with span("tpu_sdr.iir.emit"):
-        y = y_zs + _canonical_matmul(z_in, op.M.mT, rows)
+        y = y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks)
     if op.T.ndim == 3:
         y = y.movedim(0, -4)
     return y.reshape(*y.shape[:-3], -1)
@@ -561,11 +608,12 @@ def cascade_state(op, z: torch.Tensor) -> torch.Tensor:
     return z.reshape(*z.shape[:-1], -1, 2)
 
 
-def _composite_by_state_kernel(op, x, zi, time_axis=None, channels=None):
+def _composite(op, x, zi, time_axis=None, channels=None):
     """The three steps in turn: (y (..., T), zf (..., S, 2))."""
-    y_zs, f = cascade_products(op, x, channels)
-    z_in, z = cascade_chain(op, f, zi, time_axis)
-    return cascade_emit(op, y_zs, z_in, channels), cascade_state(op, z)
+    frames = cascade_frames(op, channels)
+    y_zs, f = cascade_products(op, x, frames)
+    z_in, z = cascade_chain(op, f, zi, frames, time_axis)
+    return cascade_emit(op, y_zs, z_in, frames), cascade_state(op, z)
 
 
 def sosfilt_blocked_composite(
@@ -574,8 +622,7 @@ def sosfilt_blocked_composite(
     """Composite-cascade filter: x (..., T), T a multiple of B*L.
 
     zi: (..., S, 2) scipy-convention state. Returns (y (..., T),
-    zf (..., S, 2)). The state path is ``state_path`` on the card (at B =
-    128, m = 12), else W's product, ``frame_chain`` and ``_composite_emit``.
+    zf (..., S, 2)).
 
     ``time_axis`` (a ``MeshAxis``): x is this shard's run of frames of a
     stream sharded over that axis, and zi the GLOBAL stream-head state
@@ -584,18 +631,7 @@ def sosfilt_blocked_composite(
     starts, so y is bit-identical to this shard's frames of the one-device
     result and zf is the global final state.
     """
-    if _takes_state_kernel(op, x):
-        return _composite_by_state_kernel(op, x, zi, time_axis)
-    L, B, m = op.block, op.frame_blocks, op.state_dim
-    lead = x.shape[:-1]
-    F = x.shape[-1] // (B * L)
-    v = x.reshape(*lead, F, B, L)
-    z = zi.reshape(*lead, m)
-    y_zs, zhat = _composite_frame_terms(op, v)
-    # Sequential chain across frames: z_{f+1} = ALB z_f + zhat[f, -1].
-    z_starts, z = frame_chain(op, z, zhat[..., -1, :], time_axis)
-    y = _composite_emit(op, y_zs, zhat, z_starts)
-    return y.reshape(*lead, F * B * L), z.reshape(*lead, m // 2, 2)
+    return _composite(op, x, zi, time_axis)
 
 
 def sosfilt_blocked_composite_timesharded(
@@ -606,83 +642,28 @@ def sosfilt_blocked_composite_timesharded(
     return sosfilt_blocked_composite(op, x_local, zi, time_axis=time_axis)
 
 
-def precompute_composite_bank(
-    sos_bank: np.ndarray,
-    block: int = 128,
-    frame_blocks: int = 128,
-    *,
-    device="cuda",
-    dtype=torch.float32,
-) -> BlockedSOSComposite:
-    """Per-channel composite operators: sos_bank (C, S, 6) -> leaves with a
-    leading channel axis, built on ``device`` (host float64 parts per
-    channel; each channel's W expanded on the device). One (S, 6) design is
-    a 1-channel bank. About (L^2 + (B*m)^2) * 4 bytes a channel (9.5 MB at
-    the default shape).
-    """
-    sos_bank = np.asarray(sos_bank, np.float64)
-    if sos_bank.ndim == 2:
-        # (S, 6) -> (1, S, 6); np.atleast_3d would append the axis instead
-        sos_bank = sos_bank[None]
-    parts = [
-        _composite_host_parts(sos_bank[c], block, frame_blocks)
-        for c in range(sos_bank.shape[0])
-    ]
-    as_t = lambda k: torch.as_tensor(
-        np.stack([p[k] for p in parts]), dtype=dtype, device=device
-    )
-    ap = as_t(3)  # (C, B+1, m, m)
-    m = ap.shape[-1]
-    W = torch.empty((ap.shape[0], frame_blocks * m, frame_blocks * m), dtype=dtype, device=device)
-    for c in range(ap.shape[0]):
-        W[c] = _expand_block_toeplitz(ap[c])
-    return BlockedSOSComposite(T=as_t(0), M=as_t(1), P=as_t(2), APow=ap[:, 1:], W=W, ALB=ap[:, -1])
-
-
-def bank_frames(channels: int) -> int:
-    """Frames of each channel per batched product call of a bank: the
-    ``CANONICAL_FRAMES`` of one call shared among the bank's channels, so a
-    dispatch of 8 channels x 64 frames makes one call per product. The
-    channel count is fixed by the bank, so every dispatch calls each
-    product at one shape (chunked == one-shot)."""
-    return max(1, CANONICAL_FRAMES // channels)
-
-
 def sosfilt_blocked_composite_bank(
     op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor, *,
     time_axis=None, channels: int | None = None,
 ):
     """Per-channel-coefficients cascade: x (..., C, T), zi (..., C, S, 2) ->
-    (y (..., C, T), zf (..., C, S, 2)).
+    (y (..., C, T), zf (..., C, S, 2)). A shared design's op runs here as in
+    ``sosfilt_blocked_composite``, ``channels`` unread.
 
     ``time_axis``: the frames are one shard of a stream sharded over that
-    mesh axis; only the per-frame (C, m) summaries cross it
-    (``frame_chain``). ``channels``: the bank's whole channel count when
-    ``op`` holds one channel shard's rows; every product then keeps the
-    call shape of the whole bank (``bank_frames(channels)``).
+    mesh axis; only the per-frame (C, m) summaries cross it. ``channels``:
+    the bank's whole channel count when ``op`` holds one channel shard's
+    rows; every product then keeps the call shape of the whole bank
+    (``bank_frames(channels)``).
 
     The math of ``sosfilt_blocked_composite`` with every constant taken per
     channel: the channel axis leads each product (a batched call of
-    ``bank_frames(C)`` frames of every channel), and the frame chain steps
-    all channels at once (``alb_step`` broadcasts ALB (C, m, m)). One batched
-    call per product held chunked == one-shot on an H100 with less device
-    time than one call per channel (``scripts/torch_bank_call_shape.py``).
-    On the card (B = 128, m = 12) the state path is ``state_path`` with each
-    row's constants those of its channel.
+    ``bank_frames(C)`` frames of every channel), and the state path takes
+    each row's constants from its channel. One batched call per product
+    held chunked == one-shot on an H100 with less device time than one
+    call per channel (``scripts/torch_bank_call_shape.py``).
     """
-    if _takes_state_kernel(op, x):
-        return _composite_by_state_kernel(op, x, zi, time_axis, channels)
-    L, B, m = op.block, op.frame_blocks, op.state_dim
-    C = op.T.shape[0]
-    lead = x.shape[:-2]
-    F = x.shape[-1] // (B * L)
-    v = x.reshape(*lead, C, F, B, L).movedim(-4, 0)  # (C, ..., F, B, L)
-    frames = _cascade_frames(op, channels)
-    y_zs, zhat = _composite_frame_terms(op, v, frames)
-    w = zhat[..., -1, :].movedim(0, -3)  # (..., C, F, m)
-    z_starts, z = frame_chain(op, zi.reshape(*lead, C, m), w, time_axis)
-    y = _composite_emit(op, y_zs, zhat, z_starts.movedim(-3, 0), frames)
-    return y.movedim(0, -4).reshape(*lead, C, F * B * L), z.reshape(*lead, C, m // 2, 2)
+    return _composite(op, x, zi, time_axis, channels)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -84,15 +84,16 @@ class _Graphs:
         self.xw = torch.empty_like(x, memory_format=torch.contiguous_format)
         self.zi = torch.empty_like(zi, memory_format=torch.contiguous_format)
         out = self.out = {}
+        frames = biquad.cascade_frames(op, channels)
 
         def products():
-            out["y_zs"], out["f"] = biquad.cascade_products(op, self.xw, channels)
+            out["y_zs"], out["f"] = biquad.cascade_products(op, self.xw, frames)
 
         def chain():
-            out["z_in"], out["zf"] = biquad.cascade_chain(op, out["f"], self.zi)
+            out["z_in"], out["zf"] = biquad.cascade_chain(op, out["f"], self.zi, frames)
 
         def emit():
-            out["y"] = biquad.cascade_emit(op, out["y_zs"], out["z_in"], channels)
+            out["y"] = biquad.cascade_emit(op, out["y_zs"], out["z_in"], frames)
 
         with launch.captured() as self.launches:
             self.graphs = _capture((products, chain, emit), x.device)
@@ -133,7 +134,7 @@ class DispatchGraphs:
         final state) from the graphs of this dispatch's key; None where the
         dispatch runs eagerly, the first of its key or one that the state
         kernel does not take (the CPU, another geometry)."""
-        if not biquad._takes_state_kernel(op, x):
+        if not biquad.takes_state_kernel(op):
             return None
         key = (_stream_id(x.device), mode_index, tuple(x.shape), x.dtype, id(op))
         with self._lock:

@@ -96,17 +96,6 @@ def check_matmul_precision(expected: str):
         )
 
 
-def _run_iir(op, xw: torch.Tensor, zi: torch.Tensor, cfg: PipelineConfig, time_axis=None):
-    """The composite cascade, shared or per-channel bank (leading channel
-    axis on the leaves; under channel sharding the shard's rows of a bank
-    of ``cfg.channels``), optionally time-sharded over ``time_axis``."""
-    if op.T.ndim == 3:
-        return biquad.sosfilt_blocked_composite_bank(
-            op, xw, zi, time_axis=time_axis, channels=cfg.channels
-        )
-    return biquad.sosfilt_blocked_composite(op, xw, zi, time_axis=time_axis)
-
-
 def process_stream(
     x: torch.Tensor,
     state: StreamState,
@@ -188,7 +177,8 @@ def process_stream(
                                  cfg.channels, spectrum)
             if got is None:
                 xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
-                y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
+                y, zf = biquad.sosfilt_blocked_composite_bank(
+                    bank["op"], xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
                 got = spectrum(y), zf
             mag, zf = got
         out = {"magnitude": mag.reshape(*lead, n_frames, n)}
@@ -201,7 +191,8 @@ def process_stream(
             zf = state.sos_state
         else:
             op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
-            y, zf = _run_iir(op, xw, state.sos_state, cfg, time_axis)
+            y, zf = biquad.sosfilt_blocked_composite_bank(
+                op, xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
         # 3. Per-frame DFT of the real frames + output decode.
         frames = y.reshape(*lead, n_frames, n)
         fr, fi = fft.fft_4step(frames, None, plan)
@@ -245,7 +236,8 @@ def _process_stream_hop(
         y, zf = x, state.sos_state
     else:
         op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
-        y, zf = _run_iir(op, x, state.sos_state, cfg, time_axis)
+        y, zf = biquad.sosfilt_blocked_composite_bank(
+            op, x, state.sos_state, time_axis=time_axis, channels=cfg.channels)
 
     # 2. Overlapped frames from the left context + this chunk.
     if time_axis is None:
@@ -323,7 +315,8 @@ def process_stream_complex(
         y, zf, apply_window = xs, state.sos_state, True
     else:
         xw = (xs.reshape(2, *lead, n_frames, n) * hann_w).reshape(2, *lead, t)
-        y, zf = _run_iir(bank["op"], xw, state.sos_state, cfg, time_axis)
+        y, zf = biquad.sosfilt_blocked_composite_bank(
+            bank["op"], xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
         apply_window = False
     yr, yi = y[0], y[1]
     # bf16_io: only the filtered planes reach the kernel as bf16. In BYPASS

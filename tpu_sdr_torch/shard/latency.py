@@ -9,7 +9,7 @@ work on the SAME frame:
      n2/D contiguous 128-sample blocks;
   2. window + the blocked IIR run locally; only the per-rank m-vector state
      summaries cross the axis (an all-gather of D*m floats), and every rank
-     replays the same short chain (``biquad.frame_chain``);
+     replays the same short chain (``biquad.cascade_chain``);
   3. one all-to-all re-shards rows to columns (the four-step FFT's
      transpose as a collective);
   4. ``fft.fft_4step_sharded`` (step 1 and the twiddle local, the step-3
@@ -96,10 +96,12 @@ class LatencyPipeline:
         else:
             # One local "frame" of b_loc blocks, products at their own shape
             # (frames=1): this engine's contract is float parity with the
-            # throughput engine, not bitwise chunking invariance.
-            y_zs, zhat = biquad._composite_frame_terms(op, xw[None], frames=1)
-            z_start, zf = biquad.frame_chain(op, zi.reshape(m), zhat[:, -1], self.axis)
-            y = biquad._composite_emit(op, y_zs, zhat, z_start, frames=1)[0]
+            # throughput engine, not bitwise chunking invariance. The state
+            # step takes the GEMM form, or the state kernel where the
+            # operator allows it (one rank on the card: b_loc = 128).
+            y_zs, f = biquad.cascade_products(op, xw.reshape(-1), 1)
+            z_in, zf = biquad.cascade_chain(op, f, zi, 1, self.axis)
+            y = biquad.cascade_emit(op, y_zs, z_in, 1).reshape(xw.shape)
         # rows -> columns: the four-step transpose as an all-to-all
         y_cols = comm.all_to_all(y, self.axis, split_dim=1, concat_dim=0)  # (n2, n1/D)
         fr, fi = fft.fft_4step_sharded(y_cols, None, self.plan, self.axis)
