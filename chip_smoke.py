@@ -45,13 +45,16 @@ Phases (each raises on failure):
      its plain version and the GEMM form it replaces (W's product, the
      Python frame chain, the APow product) at a bank of 64 of bank64's
      designs x 16 frames and a shared design x 512 frames, both timed
-     beside the bound of the triangular sums (and the launch counts);
+     beside the bound of the triangular sums (and the launch counts); its
+     emit kernel (``iir_emit``, one launch) against its plain version and
+     the GEMM form it replaces (the T and M products and the add) at the
+     same shapes, timed beside its bound;
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
        Msamples), 5 carried-state dispatches per mode: the default (hybrid)
        path in CUSTOM (butter(12, 0.25)), FIXED and BYPASS (the IIR state
-       kernel twice a filtered dispatch); the fused
+       kernel twice and the emit kernel once a filtered dispatch); the fused
        two-pass path (f32, f32max); complex (IQ) input through ``process``
        and ``process_planes``; each with one kernel launch per dispatch, no
        plain call, a float64 golden, chunked == one-shot;
@@ -263,6 +266,10 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     # scan (no Pallas kernel).
     "iir_state": dict(name="sosfilt_blocked_composite[_bank] state path (frame_ends, "
                            "entry_states)", replaces="tpu_sdr/kernels/biquad.py:467"),
+    # Its output step replaces the T product and _composite_emit's M
+    # product and add.
+    "iir_emit": dict(name="sosfilt_blocked_composite[_bank] output step (block_outputs)",
+                     replaces="tpu_sdr/kernels/biquad.py:417"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -527,6 +534,81 @@ def phase_iir_state() -> tuple[dict, dict]:
     return errs, timing
 
 
+# The IIR emit kernel (``csrc/iir_emit.cu``) at the state kernel's shapes,
+# against its plain version and the GEMM form it replaces (the T and M
+# products at their canonical call shapes and the add), of the reference's
+# largest |y|: tests/test_torch_cuda.py's EMIT_KERNEL_REL.
+IIR_EMIT_REL = 1e-6
+
+
+def phase_iir_emit() -> tuple[dict, dict]:
+    """[3] and [5] for the IIR emit kernel at IIR_STATE_SHAPES: against its
+    plain version and the GEMM form, one launch, chunked == one-shot, and
+    its time beside the GEMM form's and the bound of what the function needs
+    (the input and the entry states read and the output written once, each
+    row's h and M read once; the triangle's 128 x 129 / 2 and the z term's
+    128 x 12 FMAs a block). Returns ({"iir_emit": max |kernel - plain|},
+    {"iir_emit": timing at the bank shape, the shared shape's under
+    "shared"})."""
+    from sdrbench import inputs, spec
+    from tpu_sdr_torch.kernels import biquad
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    errs, timing = {}, {}
+    for label, (C, F) in IIR_STATE_SHAPES.items():
+        if C > 1:
+            bank64 = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config
+            op = biquad.precompute_composite_bank(inputs.make_designs(bank64, 64)[:C],
+                                                  device="cuda")
+            calls = biquad.bank_frames(C)
+        else:
+            op = biquad.precompute_composite(sps.butter(12, 0.25, output="sos"), device="cuda")
+            calls = biquad.CANONICAL_FRAMES
+        gen = torch.Generator(device="cuda").manual_seed(C * 1000 + F + 1)
+        v = torch.randn((C, F, 128, 128), device="cuda", generator=gen)
+        z = torch.randn((C, F, 128, 12), device="cuda", generator=gen)
+        # What the emit kernel replaces: y_zs = v T^T, z_in M^T and their sum.
+        rows = calls * 128
+        gemm_form = lambda: (biquad._canonical_matmul(v, op.T.mT, rows)
+                             + biquad._canonical_matmul(z, op.M.mT, rows))
+        launch.reset_counts()
+        y = biquad.block_outputs(op, v, z)
+        torch.cuda.synchronize()
+        counts = {kind: launch.counts[kind]["iir_emit"] for kind in ("kernel", "plain")}
+        check(counts == {"kernel": 1, "plain": 0}, (label, counts))
+        plain = biquad.block_outputs_plain(op, v, z)
+        rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+        gaps = {"plain": rel(y, plain), "GEMM form": rel(y, gemm_form())}
+        h = F // 2 + 3
+        parts = [biquad.block_outputs(op, v[:, a:b].contiguous(), z[:, a:b].contiguous())
+                 for a, b in ((0, h), (h, F))]
+        bitwise = torch.equal(torch.cat(parts, dim=1), y)
+        print(f"[3] iir_emit {label}: launches {counts['kernel']} (plain {counts['plain']}); of "
+              f"the reference's max |y|: " + ", ".join(f"{k} {e:.2e}" for k, e in gaps.items())
+              + f" (tol {IIR_EMIT_REL}); chunked ({h} + {F - h} frames) == one-shot: {bitwise}")
+        check(max(gaps.values()) <= IIR_EMIT_REL and bitwise, (label, gaps, bitwise))
+        if C > 1:
+            errs["iir_emit"] = float((y - plain).abs().max())
+        sets = C if op.T.ndim == 3 else 1
+        b = bound(4 * (2 * v.numel() + z.numel() + sets * 128 * (1 + 12)),
+                  2 * C * F * 128 * (128 * 129 / 2 + 128 * 12))
+        kernel = lambda: biquad.block_outputs(op, v, z)
+        plain_ms = cuda_ms(lambda: biquad.block_outputs_plain(op, v, z), iters=2, warmup=1)
+        t = {"ms": cuda_ms(kernel), "plain_ms": plain_ms,
+             "library_ms": None, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "gemm_form_ms": cuda_ms(gemm_form, iters=5, warmup=1)}
+        print(f"[5] iir_emit {label}: kernel {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; the "
+              f"GEMM form it replaces {t['gemm_form_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) -> "
+              f"kernel at {b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}; GEMM "
+              f"form: {profiled(gemm_form)}")
+        if C > 1:
+            timing["iir_emit"] = t
+        else:
+            timing["iir_emit"]["shared"] = t
+    return errs, timing
+
+
 def summaries64(x: torch.Tensor, pp) -> torch.Tensor:
     """iir_summaries in float64 on the plan's own fp32 constants: window,
     forcing, the block chain from rest."""
@@ -650,7 +732,8 @@ def phase_main_path(pipe, x_np: np.ndarray, sos_custom) -> int:
     for k, mode in enumerate((FilterMode.CUSTOM, FilterMode.FIXED, FilterMode.BYPASS), start=1):
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
         check_counts(mode.name, {"spectrum_bypass": k * DISPATCHES,
-                                 "iir_state": 2 * DISPATCHES * min(k, 2)})
+                                 "iir_state": 2 * DISPATCHES * min(k, 2),
+                                 "iir_emit": DISPATCHES * min(k, 2)})
         check(int(st.frame_count) == DISPATCHES * FRAMES and int(st.window_phase) == 0)
         check_golden(f"{mode.name:6s} {DISPATCHES} dispatches, spectrum_bypass launches "
                      f"{DISPATCHES}, plain 0", outs[0], x_np, golden_sos[mode])
@@ -756,7 +839,8 @@ def phase_iq(pipe, xc_np: np.ndarray, sos_custom) -> int:
         p_outs, p_st = run_dispatches(lambda a, s: pipe.process_planes(a, s, mode), planes,
                                       state())
         check_counts(f"IQ {mode.name}", {"spectrum_complex": k * DISPATCHES,
-                                         "iir_state": 2 * (k - 2) * DISPATCHES})
+                                         "iir_state": 2 * (k - 2) * DISPATCHES,
+                                         "iir_emit": (k - 2) * DISPATCHES})
         check(int(st.frame_count) == DISPATCHES * FRAMES)
         same = all(torch.equal(a, b) for a, b in zip(outs, p_outs)) and torch.equal(
             st.sos_state, p_st.sos_state)
@@ -814,6 +898,7 @@ LAST_DEVICE_KERNEL = {
     "sosfilt_q15": ("sosfilt_q15_kernel",),
     "viterbi": ("viterbi_warp_kernel", "viterbi_kernel"),
     "iir_state": ("iir_state_ends_kernel", "iir_state_entries_kernel"),
+    "iir_emit": ("iir_emit_kernel",),
 }
 
 
@@ -1672,7 +1757,8 @@ def phase_hop(sos_custom, x_np: np.ndarray):
     for k, mode in enumerate((FilterMode.BYPASS, FilterMode.CUSTOM), start=1):
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
         check_counts(f"hop {mode.name}", {"spectrum_bypass": k * DISPATCHES,
-                                          "iir_state": 2 * (k - 1) * DISPATCHES})
+                                          "iir_state": 2 * (k - 1) * DISPATCHES,
+                                          "iir_emit": (k - 1) * DISPATCHES})
         check(outs[0].shape == (CHANNELS, spectra, N), outs[0].shape)
         check(int(st.frame_count) == DISPATCHES * spectra and st.history.shape == (CHANNELS, N - HOP))
         y = x_np[0].astype(np.float64)
@@ -1730,7 +1816,8 @@ def phase_bank(x_noise: np.ndarray):
     launch.reset_counts()
     outs, st = run_dispatches(lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x,
                               pipe.initial_state())
-    check_counts("bank", {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES})
+    check_counts("bank", {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES,
+                          "iir_emit": DISPATCHES})
     win = golden.hann_true(N)
     worst = []
     for c in range(CHANNELS):
@@ -1747,7 +1834,8 @@ def phase_bank(x_noise: np.ndarray):
     f_outs, _ = run_dispatches(lambda a, s: fused.process(a, s, FilterMode.CUSTOM), x,
                                fused.initial_state())
     check_counts("bank, fused_two_pass config",
-                 {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES})
+                 {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES,
+                  "iir_emit": DISPATCHES})
     same = all(torch.equal(a, b) for a, b in zip(outs, f_outs))
     print(f"[4] bank under fused_two_pass=True: the hybrid branch (spectrum_bypass "
           f"{DISPATCHES}, iir_summaries 0, spectrum_iir 0), the same bits: {same}")
@@ -1790,7 +1878,7 @@ def phase_analyzer(x_np: np.ndarray):
     sb = SpectrumAnalyzer(PipelineConfig(channels=CHANNELS))
     sb.restore(ck)
     resumed = sb.process(x)["magnitude"]
-    check_counts("analyzer", {"spectrum_bypass": 4, "iir_state": 2 * 3})
+    check_counts("analyzer", {"spectrum_bypass": 4, "iir_state": 2 * 3, "iir_emit": 3})
     same = np.array_equal(after, resumed)
     cut = [cus[0, 0, k] / byp[0, 0, k] for k in TONE_BINS]
     frames = sa.stats.frames_produced
@@ -3376,13 +3464,14 @@ SHARD_COLLECTIVE_S = 300.0  # a collective (or a sub-mesh's wait) fails after th
 SHARD_JOIN_S = 540.0  # the phase kills its ranks and fails after this
 SHARD_PATHS = {  # label -> (PipelineConfig kwargs, mode, input, kernels it must launch)
     "BYPASS": (dict(), "BYPASS", "real", ("spectrum_bypass",)),
-    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass", "iir_state")),
-    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass", "iir_state")),
+    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass", "iir_state", "iir_emit")),
+    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass", "iir_state", "iir_emit")),
     "fused f32 CUSTOM": (dict(fused_two_pass=True), "CUSTOM", "real",
                          ("iir_summaries", "spectrum_iir")),
-    "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real", ("spectrum_bypass", "iir_state")),
-    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass", "iir_state")),
-    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex", "iir_state")),
+    "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real",
+                        ("spectrum_bypass", "iir_state", "iir_emit")),
+    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass", "iir_state", "iir_emit")),
+    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex", "iir_state", "iir_emit")),
 }
 SHARD_PROFILED = ("CUSTOM", "fused f32 CUSTOM")
 SHARD_RX_T = 62 * 16_000  # the wbfm receiver's granularity x 62, split over 2 time shards
@@ -3694,12 +3783,15 @@ def main():
     errs = phase_kernel_vs_plain(pp)
     state_errs, state_timing = phase_iir_state()
     errs.update(state_errs)
+    emit_errs, emit_timing = phase_iir_emit()
+    errs.update(emit_errs)
     phase_summaries_accuracy(pp)
     rng = np.random.default_rng(1)
     x_np = two_tone(rng)
     xc_np = two_tone_iq(rng)
     launches = {"spectrum_bypass": phase_main_path(pipe, x_np, sos_custom)}
     launches["iir_state"] = launch.counts["kernel"]["iir_state"]
+    launches["iir_emit"] = launch.counts["kernel"]["iir_emit"]
     phase_chunked(pipe, x_np)
     pipes = fused_pipes(sos_custom)
     launches.update(phase_fused(pipes, x_np, sos_custom))
@@ -3707,6 +3799,7 @@ def main():
     steps = paths(pipe, pipes, x_np, xc_np)
     walls, timing = phase_timing(pp, sos_custom, x_np, steps)
     timing.update(state_timing)
+    timing.update(emit_timing)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
     fplan = pipe.plan

@@ -201,9 +201,9 @@ def test_state_kernel_matches_plain_and_gemm_form(state_ops, kind, frames_):
 
 @pytest.mark.parametrize("kind", ["bank", "shared"])
 def test_state_kernel_path_chunked_equals_one_shot(state_ops, kind):
-    """The composite filters on the card take the kernel path: chunks of 3,
-    5 and 8 frames with the state carried give the one-shot output and
-    final state bit for bit."""
+    """The composite filters on the card take the kernel path (the state
+    kernel and the emit kernel): chunks of 3, 5 and 8 frames with the state
+    carried give the one-shot output and final state bit for bit."""
     op = state_ops[kind]
     rows = op.T.shape[0] if op.T.ndim == 3 else 4
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -218,6 +218,7 @@ def test_state_kernel_path_chunked_equals_one_shot(state_ops, kind):
         parts.append(yp)
     torch.cuda.synchronize()
     assert launch.counts["kernel"]["iir_state"] == 2 * 4
+    assert launch.counts["kernel"]["iir_emit"] == 4
     assert torch.equal(torch.cat(parts, dim=-1), y) and torch.equal(z, zf)
 
 
@@ -246,6 +247,7 @@ def test_state_kernel_path_matches_jax(cuda_plan, case):
     y, zf = run(op, torch.as_tensor(x, device="cuda"), torch.as_tensor(ref["zi"], device="cuda"))
     torch.cuda.synchronize()
     assert launch.counts["kernel"]["iir_state"] == 2 and launch.counts["plain"]["iir_state"] == 0
+    assert launch.counts["kernel"]["iir_emit"] == 1 and launch.counts["plain"]["iir_emit"] == 0
     rows = x.shape[0]
     gap = lambda got, want: float((np.abs(got.cpu().numpy() - want).reshape(rows, -1).max(-1)
                                    / np.abs(want).reshape(rows, -1).max(-1)).max())
@@ -283,6 +285,62 @@ def test_bank64_upload_builds_no_w_and_matches_jax(cuda_plan):
                                    / np.abs(want).reshape(rows, -1).max(-1)).max())
     gy, gz = gap(y, ref["y"]), gap(zf, ref["zf"])
     assert gy <= JAX_Y_REL and gz <= JAX_ZF_REL, (gy, gz)
+
+
+# ---------------------------------------------------------------- iir_emit
+
+
+# The emit kernel against its plain version (the same order, each product
+# rounded before its add) and the GEMM form (y_zs + z_in M^T), of the
+# reference's largest |y|. The kernel's first chip run read at most 9.7e-8
+# of the plain version and 1.9e-7 of the GEMM form (shared, 512 frames).
+EMIT_KERNEL_REL = 1e-6
+
+
+@pytest.mark.parametrize("kind,frames_", [("bank", 16), ("shared", 512)],
+                         ids=["bank-64x16", "shared-1x512"])
+def test_emit_kernel_matches_plain_and_gemm_form(state_ops, kind, frames_):
+    """bank64 CUSTOM at 64 channels x 16 frames and the shared FIXED design at
+    1 x 512: one launch, the plain version's outputs within fp32 rounding,
+    and chunked (an odd split of the frames) == one-shot bit for bit."""
+    op = state_ops[kind]
+    rows = op.T.shape[0] if op.T.ndim == 3 else 1
+    gen = torch.Generator(device="cuda").manual_seed(frames_)
+    v = torch.randn((rows, frames_, 128, 128), device="cuda", generator=gen)
+    z = torch.randn((rows, frames_, 128, 12), device="cuda", generator=gen)
+    launch.reset_counts()
+    y = biquad.block_outputs(op, v, z)
+    torch.cuda.synchronize()
+    assert launch.counts["kernel"]["iir_emit"] == 1 and launch.counts["plain"]["iir_emit"] == 0
+    plain = biquad.block_outputs_plain(op, v, z)
+    calls = biquad.bank_frames(rows) * 128 if kind == "bank" else biquad.CANONICAL_FRAMES * 128
+    gemm = biquad._canonical_matmul(v, op.T.mT, calls) + biquad._canonical_matmul(z, op.M.mT, calls)
+    rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+    errs = {"plain": rel(y, plain), "GEMM": rel(y, gemm)}
+    assert max(errs.values()) <= EMIT_KERNEL_REL, errs
+    h = frames_ // 2 + 1
+    parts = [biquad.block_outputs(op, v[:, a:b].contiguous(), z[:, a:b].contiguous())
+             for a, b in ((0, h), (h, frames_))]
+    assert torch.equal(torch.cat(parts, dim=1), y)
+
+
+@pytest.mark.parametrize("case", ["noncontiguous", "dtype", "z_shape", "rows", "device"])
+def test_emit_kernel_wrapper_refuses_what_it_does_not_take(state_ops, case):
+    op = state_ops["bank"]
+    v = torch.zeros((64, 2, 128, 128), device="cuda")
+    z = torch.zeros((64, 2, 128, 12), device="cuda")
+    if case == "noncontiguous":
+        v = v.transpose(-1, -2)
+    elif case == "dtype":
+        v = v.double()
+    elif case == "z_shape":
+        z = z[..., :8].contiguous()
+    elif case == "rows":
+        v, z = v[:48], z[:48]
+    else:
+        z = z.cpu()
+    with pytest.raises(ValueError):
+        biquad.block_outputs_cuda(op, v, z)
 
 
 def test_plan_leaves_match_cpu_build(cuda_plan):
@@ -1009,7 +1067,8 @@ def test_graph_replay_equals_eager_bitwise(bank64_designs, kind, frames_):
         kept.append(out["magnitude"].clone())
     torch.cuda.synchronize()
     assert launch.graph_counts == {"captures": 1, "replays": 4, "eager": 1, "evictions": 0}
-    assert all(d == {"iir_state": 2, "spectrum_bypass": 1} for d in per_dispatch), per_dispatch
+    assert all(d == {"iir_state": 2, "iir_emit": 1, "spectrum_bypass": 1}
+               for d in per_dispatch), per_dispatch
     refs, ref_state = _eager_stream(p, chunks, mode, p.initial_state())
     for k, (out, copy, ref) in enumerate(zip(outs, kept, refs)):
         assert torch.equal(out, ref) and torch.equal(out, copy), k
@@ -1474,7 +1533,8 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     dispatch's graphs (the profiler's warm-up call captures them): every op
     of the step is launched inside ``tpu_sdr.dispatch``, the frame chain's
     are the IIR state kernel's two kernels, from the chain's graph launch,
-    and the spectrum kernel lies in its launch span."""
+    the emit's the emit kernel, and the spectrum kernel lies in its launch
+    span."""
     from tpu_sdr_torch.bench.trace import capture_op_table
 
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
@@ -1497,7 +1557,10 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     assert all(spans[name]["calls"] == 1 for name in iir)
     assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 2
     assert sum(n for name, n in t["op_counts"].items() if "iir_state" in name) == 2
+    assert spans["tpu_sdr.iir.emit"]["device_ops"] == 1
+    assert sum(n for name, n in t["op_counts"].items() if "iir_emit" in name) == 1
     assert "tpu_sdr.launch.iir_state" not in spans  # replayed, not launched from Python
+    assert "tpu_sdr.launch.iir_emit" not in spans
     assert launch.graph_counts == {"captures": 1, "replays": 2, "eager": 1, "evictions": 0}
     assert spans["tpu_sdr.launch.spectrum_bypass"]["device_ops"] == 1
     assert sum(spans[name]["device_ms"] for name in iir) <= spans["tpu_sdr.dispatch"]["device_ms"]
@@ -1601,14 +1664,16 @@ def test_time_sharded_state_kernel_on_4_gloo_ranks_equals_single_device(gloo4_ra
                                                                         path):
     """Each rank launches the IIR state kernel twice a dispatch: its frames'
     end states, all-gathered over the time axis, then the chain from the
-    stream's head and its frames' entry states. The gathered magnitudes and
-    the final state are the single-device run's, bit for bit."""
+    stream's head and its frames' entry states; and the emit kernel once,
+    on its own frames. The gathered magnitudes and the final state are the
+    single-device run's, bit for bit."""
     import shard_cases_cuda as cases
 
     results, errors = gloo4_ranks
     assert "gloo_time4" in results, errors
-    mag, sos_state, kernel, plain = results["gloo_time4"][shape, path]
+    mag, sos_state, kernel, plain, emit, emit_plain = results["gloo_time4"][shape, path]
     assert kernel == 2 * cases.TIME_CHUNKS and plain == 0
+    assert emit == cases.TIME_CHUNKS and emit_plain == 0
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
     if path == "shared":
         pipe.upload_sos(cases.SOS)

@@ -1,9 +1,9 @@
 """The filtered dispatch's CUDA graphs (``runtime/dispatch_graphs.py``) on
 the CPU: which dispatches take them, their cache's keys, invalidation and
 eviction, and the counts, with a stand-in for the capture. The CPU is
-dressed as the card: the state kernel's path on (its plain version), the
-current stream a number the test sets, and a capture whose graphs run
-their steps again on replay. ``tests/test_torch_cuda.py`` holds the real
+dressed as the card: the state and emit kernels' paths on (their plain
+versions), the current stream a number the test sets, and a capture whose
+graphs run their steps again on replay. ``tests/test_torch_cuda.py`` holds the real
 graphs to the eager dispatch bit for bit on the card."""
 
 import numpy as np
@@ -182,7 +182,8 @@ def test_a_replay_counts_the_launches_of_an_eager_dispatch(card):
         per_dispatch.append({(kind, name): n - before[kind][name]
                              for kind, names in launch.counts.items()
                              for name, n in names.items() if n != before[kind][name]})
-    assert per_dispatch[0] == {("plain", "iir_state"): 2, ("plain", "spectrum_bypass"): 1}
+    assert per_dispatch[0] == {("plain", "iir_state"): 2, ("plain", "iir_emit"): 1,
+                               ("plain", "spectrum_bypass"): 1}
     assert all(d == per_dispatch[0] for d in per_dispatch)
 
 

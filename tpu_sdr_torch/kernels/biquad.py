@@ -26,7 +26,11 @@ card at B = 128 and m = 12 one hand-written kernel (``csrc/iir_state.cu``,
 ``state_path``) takes each frame's end state from rest, the frame chain and
 every block's entry state as triangular sums of products with the powers
 APow; everywhere else the GEMM form above (``gemm_state_path``). W is built
-only for operators that take the GEMM form.
+only for operators that take the GEMM form. Where the state kernel runs and
+blocks hold L = 128 samples (``takes_emit_kernel``), a second kernel
+(``csrc/iir_emit.cu``, ``block_outputs``) computes y = x T^T + z_in M^T a
+block in one pass, from the blocked input itself: y_zs is never stored, and
+the products step runs only P's product.
 
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
@@ -169,6 +173,18 @@ def takes_state_kernel(op) -> bool:
     Every other operator takes the GEMM form (``gemm_state_path``) and holds
     W."""
     return op.APow.is_cuda and op.frame_blocks == STATE_BLOCKS and op.state_dim == STATE_DIM
+
+
+# The emit kernel (``csrc/iir_emit.cu``) takes blocks of this many samples.
+EMIT_BLOCK = 128
+
+
+def takes_emit_kernel(op) -> bool:
+    """Whether the composite cascade's output step runs the emit kernel
+    (``block_outputs``) for ``op``: an operator that takes the state kernel
+    (``takes_state_kernel``) with blocks of L = 128 samples. Every other
+    operator takes the GEMM form, y = y_zs + z_in M^T."""
+    return takes_state_kernel(op) and op.block == EMIT_BLOCK
 
 
 def block_toeplitz(op) -> torch.Tensor:
@@ -537,6 +553,76 @@ def state_path(op, f: torch.Tensor, z: torch.Tensor, time_axis=None):
         return entry_states(op, f, z, w, lo)
 
 
+def block_outputs_plain(op, v: torch.Tensor, z_in: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``block_outputs``, in the kernel's
+    order: each output y[n] of a block is 0, plus M[n, j] z_in[j] for j
+    ascending, plus h[n - k] v[k] for k = 0 .. n ascending, each product
+    rounded and then added (the kernel's FMAs round once)."""
+    L, m = v.shape[-1], z_in.shape[-1]
+    T, M = (op.T, op.M) if op.T.ndim == 3 else (op.T[None], op.M[None])
+    h, M = T[:, None, :, 0], M[:, None]  # each set's h (1, L) and M (1, L, m)
+    vr = v.reshape(T.shape[0], -1, L)
+    zr = z_in.reshape(T.shape[0], -1, m)
+    y = torch.zeros_like(vr)
+    for j in range(m):
+        y = y + M[..., j] * zr[..., j, None]
+    for k in range(L):
+        y[..., k:] = y[..., k:] + h[..., : L - k] * vr[..., k, None]
+    return y.reshape(v.shape)
+
+
+def _emit_check(op, v: torch.Tensor, z_in: torch.Tensor) -> tuple[int, int, int, int]:
+    """Validate the emit kernel's input, entry states and constants; returns
+    (rows, t_stride, m_stride, set_rows): row r of the dispatch uses the
+    constants of set r // set_rows, the strides apart (0 for a shared
+    design)."""
+    L, B, m = EMIT_BLOCK, STATE_BLOCKS, STATE_DIM
+    if v.dtype != torch.float32 or v.ndim < 3 or tuple(v.shape[-2:]) != (B, L) \
+            or not v.is_contiguous():
+        raise ValueError(f"v must be contiguous (..., F, {B}, {L}) float32; got "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if z_in.dtype != torch.float32 or tuple(z_in.shape) != (*v.shape[:-1], m) \
+            or not z_in.is_contiguous() or z_in.device != v.device:
+        raise ValueError(f"z_in must be contiguous {(*v.shape[:-1], m)} float32 on {v.device}; "
+                         f"got {tuple(z_in.shape)} {z_in.dtype} on {z_in.device}")
+    T, M = op.T, op.M
+    if {T.dtype, M.dtype} != {torch.float32} or T.device != v.device or M.device != v.device \
+            or T.ndim not in (2, 3) or M.ndim != T.ndim or tuple(T.shape[-2:]) != (L, L) \
+            or tuple(M.shape[-2:]) != (L, m) or T.shape[:-2] != M.shape[:-2] \
+            or not T.is_contiguous() or not M.is_contiguous() or M.data_ptr() % 16:
+        raise ValueError(f"T and M must be contiguous (..., {L}, {L}) and 16-byte aligned "
+                         f"(..., {L}, {m}) float32 on {v.device}")
+    rows = math.prod(v.shape[:-3])
+    if T.ndim == 2:
+        return rows, 0, 0, max(rows, 1)
+    C = T.shape[0]
+    if rows % C:
+        raise ValueError(f"{rows} rows do not split over a bank of {C} channels")
+    return rows, L * L, L * m, rows // C
+
+
+def block_outputs_cuda(op, v: torch.Tensor, z_in: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/iir_emit.cu`` on CUDA tensors: y (..., F, B, L)."""
+    rows, t_stride, m_stride, set_rows = _emit_check(op, v, z_in)
+    v, z_in = launch.aligned(v), launch.aligned(z_in)
+    y = torch.empty_like(v)
+    launch.launch("iir_emit", v.device, v.data_ptr(), z_in.data_ptr(), op.T.data_ptr(),
+                  op.M.data_ptr(), t_stride, m_stride, set_rows, y.data_ptr(), rows,
+                  v.shape[-3] * v.shape[-2])
+    return y
+
+
+def block_outputs(op, v: torch.Tensor, z_in: torch.Tensor) -> torch.Tensor:
+    """Every block's output from its input and entry state: v (..., F, B,
+    L) the blocked input, z_in (..., F, B, m) -> y = v T^T + z_in M^T (...,
+    F, B, L), with T = op.T Toeplitz. A per-channel bank's rows are
+    channel-major, (C, ..., F, B, L). The plain version on a CPU tensor,
+    ``iir_emit.cu`` (B = L = 128, m = 12) on a CUDA one."""
+    if launch.on_cpu("iir_emit", v):
+        return block_outputs_plain(op, v, z_in)
+    return block_outputs_cuda(op, v, z_in)
+
+
 # The composite cascade in three steps, one a span, that a caller may run
 # one at a time (``runtime/dispatch_graphs.py`` captures each in a CUDA
 # graph): ``cascade_products``, ``cascade_chain`` and ``cascade_emit``;
@@ -566,12 +652,18 @@ def cascade_frames(op, channels: int | None = None) -> int:
 
 
 def cascade_products(op, x: torch.Tensor, frames: int):
-    """Step 1, in the span ``tpu_sdr.iir.products``: x -> (the zero-state
-    output y_zs (..., F, B, L), the forcing f (..., F, B, m), contiguous)."""
+    """Step 1, in the span ``tpu_sdr.iir.products``: x -> (y0, the forcing
+    f (..., F, B, m), contiguous). y0 is what step 3 builds the output on:
+    where ``takes_emit_kernel(op)`` the blocked input v (..., F, B, L)
+    itself, contiguous (a view where x's layout allows), and only P's
+    product runs; else the zero-state output y_zs = v T^T."""
     v = x.reshape(*x.shape[:-1], -1, op.frame_blocks, op.block)
     if op.T.ndim == 3:
         v = v.movedim(-4, 0)
     with span("tpu_sdr.iir.products"):
+        if takes_emit_kernel(op):
+            f = _canonical_matmul(v, op.P.mT, frames * op.frame_blocks)
+            return v.contiguous(), f.contiguous()
         y_zs, f = _composite_products(op, v, frames)
         return y_zs, f.contiguous()  # a padded call's rows are a view
 
@@ -590,11 +682,15 @@ def cascade_chain(op, f: torch.Tensor, zi: torch.Tensor, frames: int, time_axis=
     return gemm_state_path(op, f, z, frames, time_axis)
 
 
-def cascade_emit(op, y_zs: torch.Tensor, z_in: torch.Tensor, frames: int):
-    """Step 3, in the span ``tpu_sdr.iir.emit``: y = y_zs + z_in M^T, from
-    steps 1 and 2, in x's layout."""
+def cascade_emit(op, y0: torch.Tensor, z_in: torch.Tensor, frames: int):
+    """Step 3, in the span ``tpu_sdr.iir.emit``: the output y from steps 1
+    and 2, in x's layout: ``block_outputs`` from the blocked input where
+    ``takes_emit_kernel(op)``, else y_zs + z_in M^T."""
     with span("tpu_sdr.iir.emit"):
-        y = y_zs + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks)
+        if takes_emit_kernel(op):
+            y = block_outputs(op, y0, z_in)
+        else:
+            y = y0 + _canonical_matmul(z_in, op.M.mT, frames * op.frame_blocks)
     if op.T.ndim == 3:
         y = y.movedim(0, -4)
     return y.reshape(*y.shape[:-3], -1)
@@ -611,9 +707,9 @@ def cascade_state(op, z: torch.Tensor) -> torch.Tensor:
 def _composite(op, x, zi, time_axis=None, channels=None):
     """The three steps in turn: (y (..., T), zf (..., S, 2))."""
     frames = cascade_frames(op, channels)
-    y_zs, f = cascade_products(op, x, frames)
+    y0, f = cascade_products(op, x, frames)
     z_in, z = cascade_chain(op, f, zi, frames, time_axis)
-    return cascade_emit(op, y_zs, z_in, frames), cascade_state(op, z)
+    return cascade_emit(op, y0, z_in, frames), cascade_state(op, z)
 
 
 def sosfilt_blocked_composite(

@@ -3,10 +3,11 @@
 ``process_stream``'s hybrid branch (FIXED or CUSTOM, magnitudes at the
 128x128 geometry, frame-aligned hop, one device) runs the composite IIR on
 the card as three steps (``biquad.cascade_products``, ``cascade_chain``,
-``cascade_emit``): some nine device ops a dispatch, each enqueued from
-Python. ``DispatchGraphs`` replays them from three CUDA graphs, one a step
-and each inside the step's span, captured once a key (the current stream,
-the mode, the chunk's shape and dtype, the bank's operator):
+``cascade_emit``): P's product, the state kernel's two launches and the
+emit kernel's one, with their copies, each enqueued from Python.
+``DispatchGraphs`` replays them from three CUDA graphs, one a step and each
+inside the step's span, captured once a key (the current stream, the mode,
+the chunk's shape and dtype, the bank's operator):
 
 - the first dispatch of a key runs eagerly (the warm-up);
 - the second captures the graphs, in one private memory pool, and replays
@@ -87,13 +88,13 @@ class _Graphs:
         frames = biquad.cascade_frames(op, channels)
 
         def products():
-            out["y_zs"], out["f"] = biquad.cascade_products(op, self.xw, frames)
+            out["y0"], out["f"] = biquad.cascade_products(op, self.xw, frames)
 
         def chain():
             out["z_in"], out["zf"] = biquad.cascade_chain(op, out["f"], self.zi, frames)
 
         def emit():
-            out["y"] = biquad.cascade_emit(op, out["y_zs"], out["z_in"], frames)
+            out["y"] = biquad.cascade_emit(op, out["y0"], out["z_in"], frames)
 
         with launch.captured() as self.launches:
             self.graphs = _capture((products, chain, emit), x.device)

@@ -97,11 +97,12 @@ class LatencyPipeline:
             # One local "frame" of b_loc blocks, products at their own shape
             # (frames=1): this engine's contract is float parity with the
             # throughput engine, not bitwise chunking invariance. The state
-            # step takes the GEMM form, or the state kernel where the
-            # operator allows it (one rank on the card: b_loc = 128).
-            y_zs, f = biquad.cascade_products(op, xw.reshape(-1), 1)
+            # step and the output take the GEMM form, or the state and emit
+            # kernels where the operator allows it (one rank on the card:
+            # b_loc = 128).
+            y0, f = biquad.cascade_products(op, xw.reshape(-1), 1)
             z_in, zf = biquad.cascade_chain(op, f, zi, 1, self.axis)
-            y = biquad.cascade_emit(op, y_zs, z_in, 1).reshape(xw.shape)
+            y = biquad.cascade_emit(op, y0, z_in, 1).reshape(xw.shape)
         # rows -> columns: the four-step transpose as an all-to-all
         y_cols = comm.all_to_all(y, self.axis, split_dim=1, concat_dim=0)  # (n2, n1/D)
         fr, fi = fft.fft_4step_sharded(y_cols, None, self.plan, self.axis)
