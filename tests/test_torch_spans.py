@@ -2,7 +2,11 @@
 while no profiler runs; under ``torch.profiler`` each dispatch of
 ``SpectrumPipeline`` opens ``tpu_sdr.dispatch`` once, a CUSTOM bank's IIR
 opens its three spans once inside it, and a kernel launch opens
-``tpu_sdr.launch.<kernel>``. The collectives keep their count."""
+``tpu_sdr.launch.<kernel>``. The sharded dispatch opens
+``tpu_sdr.dispatch`` the same way, and ``tpu_sdr.shard.state`` around its
+state's cut and gather, on a 1 x 1 mesh and on a 2 x 2 mesh of four Gloo
+ranks (``tests/shard_cases_spans.py``); each collective opens
+``tpu_sdr.comm.<name>`` and is counted."""
 
 import contextlib
 
@@ -16,7 +20,11 @@ from tpu_sdr_torch import FilterMode, PipelineConfig, SpectrumPipeline
 from tpu_sdr_torch.core import comm, spans
 from tpu_sdr_torch.kernels import biquad
 from tpu_sdr_torch.kernels.cuda import launch
-from tpu_sdr_torch.shard.mesh import MeshAxis
+from tpu_sdr_torch.shard.mesh import MeshAxis, make_sdr_mesh
+from tpu_sdr_torch.shard.pipeline import ShardedSpectrumPipeline
+
+import shard_cases_spans as cases
+from torch_shard_harness import run_group
 
 torch.set_num_threads(1)
 
@@ -161,6 +169,119 @@ def test_a_collective_is_counted_and_keeps_no_timer(backend):
     axis = MeshAxis("time", 2, 0, (0, 1), group=object(), backend=backend)
     t = torch.arange(6.0).reshape(2, 3)
     seen = []
-    out = comm._run(axis, t, lambda x: seen.append(x) or x * 2)
+    out = comm._run(axis, "all_gather", t, lambda x: seen.append(x) or x * 2)
     assert torch.equal(out, t * 2) and len(seen) == 1
     assert axis.stats == {"calls": 1}
+
+
+def test_the_collective_spans_are_named_once_for_every_collective():
+    assert tuple(comm.SPANS) == comm.COLLECTIVES
+    assert all(comm.SPANS[k] == "tpu_sdr.comm." + k for k in comm.COLLECTIVES)
+    assert all(callable(getattr(comm, k)) for k in comm.COLLECTIVES)
+
+
+@pytest.mark.parametrize("name", comm.COLLECTIVES)
+def test_a_collective_opens_its_span_under_the_profiler(name):
+    axis = MeshAxis("time", 2, 0, (0, 1), group=object(), backend="gloo")
+    t = torch.ones(3, 5, dtype=torch.float64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        comm._run(axis, name, t, lambda x: x)
+    assert [r[0] for r in _ranges(prof)] == ["tpu_sdr.comm." + name]
+    assert axis.stats == {"calls": 1}
+
+
+def test_a_collective_with_no_profiler_makes_no_range(no_record_function):
+    axis = MeshAxis("time", 2, 0, (0, 1), group=object(), backend="gloo")
+    comm._run(axis, "shift", torch.ones(4), lambda x: x)
+    assert axis.stats == {"calls": 1}
+
+
+# ------------------------------------------------------------ the sharded dispatch
+
+
+def _inside(r, outer) -> int:
+    """How many of the ranges ``outer`` hold range ``r``."""
+    return sum(lo <= r[1] and r[2] <= hi for _, lo, hi in outer)
+
+
+def _check_sharded_dispatch(got, calls: int, dispatches: int):
+    """``got``: one rank's profiled ranges over ``dispatches`` CUSTOM
+    dispatches, ``calls`` the collectives counted in them. Each dispatch
+    opens ``tpu_sdr.dispatch`` once, no other dispatch around it; the IIR's
+    three spans, the two state spans and one span a collective lie inside
+    one dispatch each."""
+    names = [r[0] for r in got]
+    dispatch = [r for r in got if r[0] == "tpu_sdr.dispatch"]
+    assert len(dispatch) == dispatches
+    assert all(_inside(r, dispatch) == 1 for r in dispatch)  # itself only: none nests
+    for name in IIR:
+        assert names.count(name) == dispatches
+    assert names.count("tpu_sdr.shard.state") == 2 * dispatches
+    comms = [r for r in got if r[0].startswith("tpu_sdr.comm.")]
+    assert len(comms) == calls
+    for r in got:
+        if r[0] != "tpu_sdr.dispatch":
+            assert _inside(r, dispatch) == 1, r[0]
+    assert [n for n in names if n in IIR] == list(IIR) * dispatches
+
+
+def test_a_sharded_dispatch_on_a_1x1_mesh_opens_dispatch_once_and_the_state_span_twice():
+    mesh = make_sdr_mesh(devices="cpu")
+    pipe = ShardedSpectrumPipeline(PipelineConfig(channels=cases.C), mesh)
+    pipe.upload_sos_bank(cases.bank())
+    x = np.random.default_rng(5).standard_normal((cases.C, 2 * N)).astype(np.float32)
+    _, st = pipe.process(x, pipe.initial_state(), FilterMode.CUSTOM)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(cases.DISPATCHES):
+            _, st = pipe.process(x, st, FilterMode.CUSTOM)
+    _check_sharded_dispatch(_ranges(prof), 0, cases.DISPATCHES)
+    assert mesh.stats == {"calls": 0}
+
+
+def test_a_sharded_dispatch_with_no_profiler_makes_no_range(no_record_function):
+    pipe = ShardedSpectrumPipeline(PipelineConfig(channels=cases.C), make_sdr_mesh(devices="cpu"))
+    pipe.upload_sos_bank(cases.bank())
+    x = np.zeros((cases.C, 2 * N), np.float32)
+    out, _ = pipe.process(x, pipe.initial_state(), FilterMode.CUSTOM)
+    assert out["magnitude"].shape == (cases.C, 2, N)
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    return run_group(tmp_path_factory.mktemp("shard_spans"), "shard_cases_spans", 4)
+
+
+def _result(group, name):
+    results, errors = group
+    if name not in results:
+        pytest.fail(f"case {name} did not finish in the rank group:\n{errors}")
+    return results[name]
+
+
+def test_a_sharded_dispatch_over_four_gloo_ranks_opens_each_span_where_it_belongs(group):
+    """On every rank of a (channel 2, time 2) mesh: the time axis gathers
+    the frames' end states inside the frame chain's span, the channel axis
+    gathers the state inside ``tpu_sdr.shard.state``, and each collective
+    opens one ``tpu_sdr.comm.all_gather`` there."""
+    readings = _result(group, "custom_dispatch")
+    assert len(readings) == 4
+    for r in readings:
+        assert r["calls"] >= 2 * cases.DISPATCHES
+        _check_sharded_dispatch(r["ranges"], r["calls"], cases.DISPATCHES)
+        comms = [x for x in r["ranges"] if x[0].startswith("tpu_sdr.comm.")]
+        assert {x[0] for x in comms} == {"tpu_sdr.comm.all_gather"}
+        state = [x for x in r["ranges"] if x[0] == "tpu_sdr.shard.state"]
+        chain = [x for x in r["ranges"] if x[0] == "tpu_sdr.iir.frame_chain"]
+        assert all(_inside(x, state) + _inside(x, chain) == 1 for x in comms)
+        assert any(_inside(x, state) for x in comms) and any(_inside(x, chain) for x in comms)
+
+
+def test_each_collective_over_four_gloo_ranks_opens_one_span_and_is_counted_once(group):
+    readings = _result(group, "each_collective")
+    assert len(readings) == 4
+    for r in readings:
+        assert [c["name"] for c in r["collectives"]] == list(comm.COLLECTIVES)
+        for c in r["collectives"]:
+            assert c["ranges"] == ["tpu_sdr.comm." + c["name"]]
+            assert c["calls"] == 1
+        assert r["unprofiled_range"] is None and r["unprofiled_calls"] == len(comm.COLLECTIVES)

@@ -15,7 +15,8 @@ A failed collective raises, as any other call does; there is no other
 route to fall back to. Each helper takes its tensor whole and returns a new
 one; an axis without a process group (a 1 x 1 mesh outside
 ``torch.distributed``) returns the single-rank result without a call.
-Each call is counted in the axis's ``stats``.
+Each call is counted in the axis's ``stats`` and runs in the profiler span
+``tpu_sdr.comm.<collective>`` (``SPANS``).
 """
 
 from __future__ import annotations
@@ -23,25 +24,32 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from tpu_sdr_torch.core.spans import span
+
 # The single-tensor forms; older releases name them *_into_tensor / *_tensor.
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "shift",
+               "broadcast_from_last")
+SPANS = {name: f"tpu_sdr.comm.{name}" for name in COLLECTIVES}
 
 
 def _staged(axis, t: torch.Tensor) -> bool:
     return axis.backend == "gloo" and t.is_cuda
 
 
-def _run(axis, t: torch.Tensor, call):
-    """Run ``call(host_or_device_tensor) -> result`` on the axis's route,
-    counted in ``axis.stats``; returns the result on t's device. The staged
-    route's copy to the host waits for ``t``, and its copy back is ordered
-    on the current stream; NCCL orders its own stream against the current
-    one."""
-    if _staged(axis, t):
-        out = call(t.detach().cpu()).to(t.device)
-    else:
-        out = call(t.contiguous())
+def _run(axis, name: str, t: torch.Tensor, call):
+    """Run the collective ``name``, ``call(host_or_device_tensor) ->
+    result``, on the axis's route in its span, counted in ``axis.stats``;
+    returns the result on t's device. The staged route's copy to the host
+    waits for ``t``, and its copy back is ordered on the current stream;
+    NCCL orders its own stream against the current one."""
+    with span(SPANS[name]):
+        if _staged(axis, t):
+            out = call(t.detach().cpu()).to(t.device)
+        else:
+            out = call(t.contiguous())
     axis.stats["calls"] += 1
     return out
 
@@ -59,7 +67,7 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         _ALL_GATHER(out, t, group=axis.group)
         return out
 
-    return _run(axis, xm, call).movedim(0, dim)
+    return _run(axis, "all_gather", xm, call).movedim(0, dim)
 
 
 def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -77,7 +85,7 @@ def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         _REDUCE_SCATTER(out, t, group=axis.group)
         return out
 
-    return _run(axis, xm, call).movedim(0, dim)
+    return _run(axis, "reduce_scatter", xm, call).movedim(0, dim)
 
 
 def all_reduce(x: torch.Tensor, axis) -> torch.Tensor:
@@ -90,7 +98,7 @@ def all_reduce(x: torch.Tensor, axis) -> torch.Tensor:
         dist.all_reduce(t, group=axis.group)
         return t
 
-    return _run(axis, x, call)
+    return _run(axis, "all_reduce", x, call)
 
 
 def all_to_all(x: torch.Tensor, axis, split_dim: int, concat_dim: int) -> torch.Tensor:
@@ -111,7 +119,7 @@ def all_to_all(x: torch.Tensor, axis, split_dim: int, concat_dim: int) -> torch.
         dist.all_to_all_single(out, t, group=axis.group)
         return out
 
-    got = _run(axis, blocks, call)
+    got = _run(axis, "all_to_all", blocks, call)
     return torch.cat(got.unbind(0), dim=concat_dim)
 
 
@@ -137,7 +145,7 @@ def shift(x: torch.Tensor, axis, step: int = 1) -> torch.Tensor | None:
             work.wait()
         return t if got is None else got
 
-    out = _run(axis, x, call)
+    out = _run(axis, "shift", x, call)
     return out if has_src else None
 
 
@@ -152,4 +160,4 @@ def broadcast_from_last(x: torch.Tensor, axis) -> torch.Tensor:
         dist.broadcast(t, axis.global_rank(axis.size - 1), group=axis.group)
         return t
 
-    return _run(axis, x, call)
+    return _run(axis, "broadcast_from_last", x, call)

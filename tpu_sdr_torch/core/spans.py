@@ -7,10 +7,13 @@ as the device's activity. Otherwise it is one shared null context, and
 the call costs a module attribute read. Spans have no switch and no clock
 of their own: they are on exactly when a profiler is.
 
-The names in use: ``tpu_sdr.dispatch`` (``runtime/stream.py``),
-``tpu_sdr.iir.products``, ``tpu_sdr.iir.frame_chain`` and
-``tpu_sdr.iir.emit`` (``kernels/biquad.py``), and
-``tpu_sdr.launch.<kernel>`` (``kernels/cuda/launch.py``).
+The names in use: ``tpu_sdr.dispatch`` (``runtime/stream.py``, and the
+sharded dispatch of ``shard/pipeline.py``), ``tpu_sdr.shard.state``
+(``shard/pipeline.py``: the state's channel rows cut for this rank, and
+all-gathered again), ``tpu_sdr.iir.products``, ``tpu_sdr.iir.frame_chain``
+and ``tpu_sdr.iir.emit`` (``kernels/biquad.py``),
+``tpu_sdr.launch.<kernel>`` (``kernels/cuda/launch.py``) and
+``tpu_sdr.comm.<collective>`` (``core/comm.py``).
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ from tpu_sdr_torch.runtime.stream import (
     process_stream_complex,
 )
 from tpu_sdr_torch.core import comm
+from tpu_sdr_torch.core.spans import span
 from tpu_sdr_torch.shard.mesh import ShardedArray, SdrMesh, make_sdr_mesh
 
 
@@ -96,21 +97,23 @@ class ShardedSpectrumPipeline(SpectrumPipeline):
             )
 
     def _local_state(self, state: StreamState, lead: int) -> StreamState:
-        lo, hi = self.mesh.channel_range(self.cfg.channels)
-        rows = lambda t: None if t is None else t.narrow(lead, lo, hi - lo).to(self.device)
-        return dataclasses.replace(
-            state, sos_state=rows(state.sos_state), history=rows(state.history),
-            window_phase=state.window_phase.to(self.device),
-            frame_count=state.frame_count.to(self.device),
-        )
+        with span("tpu_sdr.shard.state"):
+            lo, hi = self.mesh.channel_range(self.cfg.channels)
+            rows = lambda t: None if t is None else t.narrow(lead, lo, hi - lo).to(self.device)
+            return dataclasses.replace(
+                state, sos_state=rows(state.sos_state), history=rows(state.history),
+                window_phase=state.window_phase.to(self.device),
+                frame_count=state.frame_count.to(self.device),
+            )
 
     def _global_state(self, state: StreamState, lead: int) -> StreamState:
-        if self.mesh.shape["channel"] == 1:
-            return state
-        rows = lambda t: None if t is None else comm.all_gather(t, self.mesh.channel, lead)
-        return dataclasses.replace(
-            state, sos_state=rows(state.sos_state), history=rows(state.history)
-        )
+        with span("tpu_sdr.shard.state"):
+            if self.mesh.shape["channel"] == 1:
+                return state
+            rows = lambda t: None if t is None else comm.all_gather(t, self.mesh.channel, lead)
+            return dataclasses.replace(
+                state, sos_state=rows(state.sos_state), history=rows(state.history)
+            )
 
     def _run(self, x, state, mode, outputs, complex_input: bool):
         x_local = x.local
@@ -135,20 +138,21 @@ class ShardedSpectrumPipeline(SpectrumPipeline):
         ``ShardedArray`` from ``shard_input`` -> (this rank's output
         blocks, the new global state). Complex (IQ) input takes a state
         from ``initial_state(batch_shape=(2,))``."""
-        complex_input = (
-            x.is_complex() if torch.is_tensor(x)
-            else (not isinstance(x, ShardedArray) and np.iscomplexobj(x))
-        )
-        if complex_input:
-            self._check_iq_state(state)
-        shape = x.shape if isinstance(x, ShardedArray) else np.shape(x)
-        if len(shape) > 2:
-            raise ValueError(
-                f"x must be (C, T) or (T,), got {tuple(shape)}; re/im planes go to "
-                "process_planes"
+        with span("tpu_sdr.dispatch"):
+            complex_input = (
+                x.is_complex() if torch.is_tensor(x)
+                else (not isinstance(x, ShardedArray) and np.iscomplexobj(x))
             )
-        self._check_global(shape)
-        return self._run(self.shard_input(x), state, mode, outputs, complex_input)
+            if complex_input:
+                self._check_iq_state(state)
+            shape = x.shape if isinstance(x, ShardedArray) else np.shape(x)
+            if len(shape) > 2:
+                raise ValueError(
+                    f"x must be (C, T) or (T,), got {tuple(shape)}; re/im planes go to "
+                    "process_planes"
+                )
+            self._check_global(shape)
+            return self._run(self.shard_input(x), state, mode, outputs, complex_input)
 
     def process_planes(
         self,
@@ -160,13 +164,14 @@ class ShardedSpectrumPipeline(SpectrumPipeline):
         """IQ input as global re/im planes (2, C, T) (or their
         ``ShardedArray``, e.g. from a sharded ``StreamFeeder``), with the
         re/im-stacked state of ``initial_state(batch_shape=(2,))``."""
-        shape = tuple(xs.shape) if isinstance(xs, ShardedArray) else np.shape(xs)
-        if len(shape) != 3 or shape[0] != 2:
-            raise ValueError(f"xs must be re/im planes (2, C, T), got {tuple(shape)}")
-        self._check_iq_state(state)
-        self._check_global(shape)
-        xs = self.mesh.put(xs, channel_dim=-2, time_dim=-1)
-        return self._run(xs, state, mode, outputs, complex_input=True)
+        with span("tpu_sdr.dispatch"):
+            shape = tuple(xs.shape) if isinstance(xs, ShardedArray) else np.shape(xs)
+            if len(shape) != 3 or shape[0] != 2:
+                raise ValueError(f"xs must be re/im planes (2, C, T), got {tuple(shape)}")
+            self._check_iq_state(state)
+            self._check_global(shape)
+            xs = self.mesh.put(xs, channel_dim=-2, time_dim=-1)
+            return self._run(xs, state, mode, outputs, complex_input=True)
 
     def gather(self, out: dict) -> dict:
         """The global outputs (C, F, N) from every rank's blocks (a
