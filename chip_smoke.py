@@ -5,7 +5,7 @@
 Phases (each raises on failure):
   1. device: card name and power limit, torch/CUDA versions, fp32 matmul
      precision flags (set to IEEE fp32 here);
-  2. build: every CUDA kernel library of the port (eleven), built from
+  2. build: every CUDA kernel library of the port (``launch.KERNELS``), built from
      ``tpu_sdr_torch/csrc`` with nvcc, and the native Q15 host filter and
      the native framer (``tpu_sdr_torch/native/q15_filter.cpp``,
      ``framer.cpp``) with the host C++ compiler, one process per source,
@@ -48,7 +48,11 @@ Phases (each raises on failure):
      beside the bound of the triangular sums (and the launch counts); its
      emit kernel (``iir_emit``, one launch) against its plain version and
      the GEMM form it replaces (the T and M products and the add) at the
-     same shapes, timed beside its bound;
+     same shapes, timed beside its bound; its forcing pass (``iir_force``,
+     one launch) against its plain version (xw bit for bit, f within the
+     FMAs' gap) and the GEMM form, chunked == one-shot, timed at 64 x 16, 64
+     x 256 and 1 x 1 frames beside its bytes bound and the eager window
+     multiply and P's canonical GEMMs it replaces;
   4. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      - the spectrum paths at 8 channels x 64 frames per dispatch (8.4
@@ -270,6 +274,9 @@ RECORDS = {  # kernel source name -> the fixed fields of its JSON record
     # product and add.
     "iir_emit": dict(name="sosfilt_blocked_composite[_bank] output step (block_outputs)",
                      replaces="tpu_sdr/kernels/biquad.py:417"),
+    # Its forcing step replaces the window multiply and P's product.
+    "iir_force": dict(name="sosfilt_blocked_composite[_bank] forcing step (block_forcing)",
+                      replaces="tpu_sdr/kernels/biquad.py:417"),
 }
 
 # The narrowband layer's shapes (scripts/ab_fm_pallas.py's FM dispatch).
@@ -609,6 +616,103 @@ def phase_iir_emit() -> tuple[dict, dict]:
     return errs, timing
 
 
+# The IIR forcing pass (``csrc/iir_force.cu``): bank64's chunk, a pod card's
+# chunk and one frame of a shared design, against its plain version, of the
+# reference's largest |f| (tests/test_torch_iir_force.py's
+# FORCE_KERNEL_REL), and timed beside what it replaces: the eager window
+# multiply and P's product in canonical calls.
+IIR_FORCE_SHAPES = {"bank 64 x 16": (64, 16), "pod card 64 x 256": (64, 256),
+                    "shared 1 x 1": (1, 1)}
+IIR_FORCE_REL = 1e-6
+
+
+def phase_iir_force() -> tuple[dict, dict]:
+    """[3] and [5] for the IIR forcing pass at IIR_FORCE_SHAPES, with the
+    window: one launch; xw equal to ``torch.mul``'s bits; f against its
+    plain version and the GEMM form at every shape (the plain version timed
+    up to 64 x 16); the pass without the window (xw then x's own view);
+    chunked == one-shot; and its time beside
+    the eager window multiply and P's canonical GEMMs and the bound of what
+    it moves (x read, xw and f written once, each row's P and the window
+    read once). Returns ({"iir_force": max |kernel - plain| at 64 x 16},
+    {"iir_force": timing at 64 x 16, the other shapes' under "pod" and
+    "single"})."""
+    from sdrbench import inputs, spec
+    from tpu_sdr_torch.kernels import biquad, window
+    from tpu_sdr_torch.kernels.cuda import launch
+
+    errs, timing = {}, {}
+    w = window.hann_coefficients(N, device="cuda")
+    for label, (C, F) in IIR_FORCE_SHAPES.items():
+        if C > 1:
+            bank64 = spec.find_cell(spec.load_benchmark(), "bank64.custom.sat").config
+            op = biquad.precompute_composite_bank(inputs.make_designs(bank64, 64)[:C],
+                                                  device="cuda")
+        else:
+            op = biquad.precompute_composite(sps.butter(12, 0.25, output="sos"), device="cuda")
+        calls = biquad.cascade_frames(op) * 128
+        gen = torch.Generator(device="cuda").manual_seed(C * 1000 + F + 2)
+        x = torch.randn((C, F * N), device="cuda", generator=gen)
+        # What the pass replaces: the window multiply, then P's product in
+        # canonical calls, with P in the host build's layout, as it was read.
+        p_host = op.P.mT.contiguous().mT
+        gemm_form = lambda: biquad._canonical_matmul(
+            biquad.blocked(op, (x.reshape(C, F, N) * w).reshape(C, -1)), p_host.mT, calls)
+        launch.reset_counts()
+        xw, f = biquad.block_forcing(op, x, w)
+        torch.cuda.synchronize()
+        counts = {kind: launch.counts[kind]["iir_force"] for kind in ("kernel", "plain")}
+        check(counts == {"kernel": 1, "plain": 0}, (label, counts))
+        window_bits = torch.equal(xw, biquad.blocked(op, (x.reshape(C, F, N) * w).reshape(C, -1)))
+        rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+        gaps = {"GEMM form": rel(f, gemm_form())}
+        raw_xw, raw_f = biquad.block_forcing(op, x)
+        raw_view = raw_xw.data_ptr() == x.data_ptr()
+        pxw, pf = biquad.block_forcing_plain(op, x, w)
+        gaps["plain"] = rel(f, pf)
+        gaps["plain, no window"] = rel(raw_f, biquad.block_forcing_plain(op, x)[1])
+        check(torch.equal(xw, pxw), (label, "xw != the plain version's"))
+        if label.startswith("bank"):
+            errs["iir_force"] = float((f - pf).abs().max())
+        del pxw, pf
+        h = F // 2 + 1  # one frame: no split, the one-shot pass again
+        parts = [biquad.block_forcing(op, xc, w)
+                 for xc in (x.split([h * N, (F - h) * N], -1) if F > 1 else (x,))]
+        bitwise = (torch.equal(torch.cat([p[0] for p in parts], dim=-3), xw)
+                   and torch.equal(torch.cat([p[1] for p in parts], dim=-3), f))
+        print(f"[3] iir_force {label}: launches {counts['kernel']} (plain {counts['plain']}); xw "
+              f"== torch.mul bit for bit: {window_bits}; without the window xw is x's view: "
+              f"{raw_view}; of the reference's max |f|: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in gaps.items())
+              + f" (tol {IIR_FORCE_REL} against the plain version); chunked ({h} + {F - h} "
+              f"frames) == one-shot: {bitwise}")
+        check(window_bits and raw_view and bitwise, (label, window_bits, raw_view, bitwise))
+        check(all(e <= IIR_FORCE_REL for k, e in gaps.items() if k != "GEMM form"), (label, gaps))
+        sets = C if op.P.ndim == 3 else 1
+        b = bound(4 * (2 * x.numel() + f.numel() + sets * 12 * 128 + N),
+                  x.numel() + 2 * f.numel() * 128)
+        kernel = lambda: biquad.block_forcing(op, x, w)
+        t = {"ms": cuda_ms(kernel), "library_ms": None, "bound_ms": b["bound_ms"],
+             "bound_by": b["bound_by"], "gemm_form_ms": cuda_ms(gemm_form, iters=5, warmup=1),
+             "window_ms": cuda_ms(lambda: x.reshape(C, F, N) * w, iters=5, warmup=1),
+             "raw_ms": cuda_ms(lambda: biquad.block_forcing(op, x))}
+        t["plain_ms"] = (cuda_ms(lambda: biquad.block_forcing_plain(op, x, w), iters=2, warmup=1)
+                         if C * F <= 64 * 16 else None)
+        plain = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.4f} ms"
+        print(f"[5] iir_force {label}: kernel {t['ms']:.4f} ms (without the window "
+              f"{t['raw_ms']:.4f}); plain {plain}; what it replaces, the window multiply and "
+              f"P's GEMMs in calls of {calls} rows, {t['gemm_form_ms']:.4f} ms (the multiply "
+              f"alone {t['window_ms']:.4f}); bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.1f} MB, {b['flops'] / 1e9:.3f} GFLOP fp32) -> kernel at "
+              f"{b['bound_ms'] / t['ms']:.1%} of the bound; {profiled(kernel)}; replaced: "
+              f"{profiled(gemm_form)}")
+        if label.startswith("bank"):
+            timing["iir_force"] = t
+        else:
+            timing["iir_force"]["pod" if C > 1 else "single"] = t
+    return errs, timing
+
+
 def summaries64(x: torch.Tensor, pp) -> torch.Tensor:
     """iir_summaries in float64 on the plan's own fp32 constants: window,
     forcing, the block chain from rest."""
@@ -733,7 +837,8 @@ def phase_main_path(pipe, x_np: np.ndarray, sos_custom) -> int:
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
         check_counts(mode.name, {"spectrum_bypass": k * DISPATCHES,
                                  "iir_state": 2 * DISPATCHES * min(k, 2),
-                                 "iir_emit": DISPATCHES * min(k, 2)})
+                                 "iir_emit": DISPATCHES * min(k, 2),
+                                 "iir_force": DISPATCHES * min(k, 2)})
         check(int(st.frame_count) == DISPATCHES * FRAMES and int(st.window_phase) == 0)
         check_golden(f"{mode.name:6s} {DISPATCHES} dispatches, spectrum_bypass launches "
                      f"{DISPATCHES}, plain 0", outs[0], x_np, golden_sos[mode])
@@ -840,7 +945,8 @@ def phase_iq(pipe, xc_np: np.ndarray, sos_custom) -> int:
                                       state())
         check_counts(f"IQ {mode.name}", {"spectrum_complex": k * DISPATCHES,
                                          "iir_state": 2 * (k - 2) * DISPATCHES,
-                                         "iir_emit": (k - 2) * DISPATCHES})
+                                         "iir_emit": (k - 2) * DISPATCHES,
+                                         "iir_force": (k - 2) * DISPATCHES})
         check(int(st.frame_count) == DISPATCHES * FRAMES)
         same = all(torch.equal(a, b) for a, b in zip(outs, p_outs)) and torch.equal(
             st.sos_state, p_st.sos_state)
@@ -899,6 +1005,7 @@ LAST_DEVICE_KERNEL = {
     "viterbi": ("viterbi_warp_kernel", "viterbi_kernel"),
     "iir_state": ("iir_state_ends_kernel", "iir_state_entries_kernel"),
     "iir_emit": ("iir_emit_kernel",),
+    "iir_force": ("iir_force_kernel",),
 }
 
 
@@ -1758,7 +1865,8 @@ def phase_hop(sos_custom, x_np: np.ndarray):
         outs, st = run_dispatches(lambda a, s: pipe.process(a, s, mode), x, pipe.initial_state())
         check_counts(f"hop {mode.name}", {"spectrum_bypass": k * DISPATCHES,
                                           "iir_state": 2 * (k - 1) * DISPATCHES,
-                                          "iir_emit": (k - 1) * DISPATCHES})
+                                          "iir_emit": (k - 1) * DISPATCHES,
+                                          "iir_force": (k - 1) * DISPATCHES})
         check(outs[0].shape == (CHANNELS, spectra, N), outs[0].shape)
         check(int(st.frame_count) == DISPATCHES * spectra and st.history.shape == (CHANNELS, N - HOP))
         y = x_np[0].astype(np.float64)
@@ -1817,7 +1925,7 @@ def phase_bank(x_noise: np.ndarray):
     outs, st = run_dispatches(lambda a, s: pipe.process(a, s, FilterMode.CUSTOM), x,
                               pipe.initial_state())
     check_counts("bank", {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES,
-                          "iir_emit": DISPATCHES})
+                          "iir_emit": DISPATCHES, "iir_force": DISPATCHES})
     win = golden.hann_true(N)
     worst = []
     for c in range(CHANNELS):
@@ -1835,7 +1943,7 @@ def phase_bank(x_noise: np.ndarray):
                                fused.initial_state())
     check_counts("bank, fused_two_pass config",
                  {"spectrum_bypass": DISPATCHES, "iir_state": 2 * DISPATCHES,
-                  "iir_emit": DISPATCHES})
+                  "iir_emit": DISPATCHES, "iir_force": DISPATCHES})
     same = all(torch.equal(a, b) for a, b in zip(outs, f_outs))
     print(f"[4] bank under fused_two_pass=True: the hybrid branch (spectrum_bypass "
           f"{DISPATCHES}, iir_summaries 0, spectrum_iir 0), the same bits: {same}")
@@ -1878,7 +1986,8 @@ def phase_analyzer(x_np: np.ndarray):
     sb = SpectrumAnalyzer(PipelineConfig(channels=CHANNELS))
     sb.restore(ck)
     resumed = sb.process(x)["magnitude"]
-    check_counts("analyzer", {"spectrum_bypass": 4, "iir_state": 2 * 3, "iir_emit": 3})
+    check_counts("analyzer", {"spectrum_bypass": 4, "iir_state": 2 * 3, "iir_emit": 3,
+                              "iir_force": 3})
     same = np.array_equal(after, resumed)
     cut = [cus[0, 0, k] / byp[0, 0, k] for k in TONE_BINS]
     frames = sa.stats.frames_produced
@@ -3462,16 +3571,17 @@ SHARD_WORLD = 4
 SHARD_DISPATCHES = 2
 SHARD_COLLECTIVE_S = 300.0  # a collective (or a sub-mesh's wait) fails after this
 SHARD_JOIN_S = 540.0  # the phase kills its ranks and fails after this
+SHARD_IIR = ("iir_state", "iir_emit", "iir_force")  # a filtered dispatch's IIR kernels
 SHARD_PATHS = {  # label -> (PipelineConfig kwargs, mode, input, kernels it must launch)
     "BYPASS": (dict(), "BYPASS", "real", ("spectrum_bypass",)),
-    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass", "iir_state", "iir_emit")),
-    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass", "iir_state", "iir_emit")),
+    "FIXED": (dict(), "FIXED", "real", ("spectrum_bypass", *SHARD_IIR)),
+    "CUSTOM": (dict(), "CUSTOM", "real", ("spectrum_bypass", *SHARD_IIR)),
     "fused f32 CUSTOM": (dict(fused_two_pass=True), "CUSTOM", "real",
                          ("iir_summaries", "spectrum_iir")),
     "hop 8192 CUSTOM": (dict(hop=8192), "CUSTOM", "real",
-                        ("spectrum_bypass", "iir_state", "iir_emit")),
-    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass", "iir_state", "iir_emit")),
-    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex", "iir_state", "iir_emit")),
+                        ("spectrum_bypass", *SHARD_IIR)),
+    "bank CUSTOM": (dict(), "CUSTOM", "bank", ("spectrum_bypass", *SHARD_IIR)),
+    "IQ CUSTOM": (dict(), "CUSTOM", "iq", ("spectrum_complex", *SHARD_IIR)),
 }
 SHARD_PROFILED = ("CUSTOM", "fused f32 CUSTOM")
 SHARD_RX_T = 62 * 16_000  # the wbfm receiver's granularity x 62, split over 2 time shards
@@ -3785,6 +3895,8 @@ def main():
     errs.update(state_errs)
     emit_errs, emit_timing = phase_iir_emit()
     errs.update(emit_errs)
+    force_errs, force_timing = phase_iir_force()
+    errs.update(force_errs)
     phase_summaries_accuracy(pp)
     rng = np.random.default_rng(1)
     x_np = two_tone(rng)
@@ -3792,6 +3904,7 @@ def main():
     launches = {"spectrum_bypass": phase_main_path(pipe, x_np, sos_custom)}
     launches["iir_state"] = launch.counts["kernel"]["iir_state"]
     launches["iir_emit"] = launch.counts["kernel"]["iir_emit"]
+    launches["iir_force"] = launch.counts["kernel"]["iir_force"]
     phase_chunked(pipe, x_np)
     pipes = fused_pipes(sos_custom)
     launches.update(phase_fused(pipes, x_np, sos_custom))
@@ -3800,6 +3913,7 @@ def main():
     walls, timing = phase_timing(pp, sos_custom, x_np, steps)
     timing.update(state_timing)
     timing.update(emit_timing)
+    timing.update(force_timing)
     phase_profile(steps, walls)
     phase_small_dispatch(sos_custom)
     fplan = pipe.plan

@@ -58,8 +58,9 @@ def gloo_time4():
     """CUSTOM with a shared design and with a per-channel bank on the 4
     ranks' (1, 4) and (2, 2) meshes, TIME_CHUNKS carried-state dispatches:
     the gathered magnitudes, the final state and each rank's launches of
-    the IIR state kernel (``csrc/iir_state.cu``) and of the emit kernel
-    (``csrc/iir_emit.cu``), and its plain calls of each."""
+    the IIR state kernel (``csrc/iir_state.cu``), of the emit kernel
+    (``csrc/iir_emit.cu``) and of the forcing kernel (``csrc/iir_force.cu``),
+    and its plain calls of each."""
     res = {}
     for shape in TIME_MESHES:
         mesh = make_sdr_mesh(*shape, devices="cuda:0")
@@ -78,7 +79,9 @@ def gloo_time4():
                                 launch.counts["kernel"]["iir_state"],
                                 launch.counts["plain"]["iir_state"],
                                 launch.counts["kernel"]["iir_emit"],
-                                launch.counts["plain"]["iir_emit"])
+                                launch.counts["plain"]["iir_emit"],
+                                launch.counts["kernel"]["iir_force"],
+                                launch.counts["plain"]["iir_force"])
     return res
 
 

@@ -201,9 +201,10 @@ def test_state_kernel_matches_plain_and_gemm_form(state_ops, kind, frames_):
 
 @pytest.mark.parametrize("kind", ["bank", "shared"])
 def test_state_kernel_path_chunked_equals_one_shot(state_ops, kind):
-    """The composite filters on the card take the kernel path (the state
-    kernel and the emit kernel): chunks of 3, 5 and 8 frames with the state
-    carried give the one-shot output and final state bit for bit."""
+    """The composite filters on the card take the kernel path (the forcing
+    pass, the state kernel and the emit kernel): chunks of 3, 5 and 8 frames
+    with the state carried give the one-shot output and final state bit for
+    bit."""
     op = state_ops[kind]
     rows = op.T.shape[0] if op.T.ndim == 3 else 4
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -218,7 +219,7 @@ def test_state_kernel_path_chunked_equals_one_shot(state_ops, kind):
         parts.append(yp)
     torch.cuda.synchronize()
     assert launch.counts["kernel"]["iir_state"] == 2 * 4
-    assert launch.counts["kernel"]["iir_emit"] == 4
+    assert launch.counts["kernel"]["iir_emit"] == 4 and launch.counts["kernel"]["iir_force"] == 4
     assert torch.equal(torch.cat(parts, dim=-1), y) and torch.equal(z, zf)
 
 
@@ -248,6 +249,7 @@ def test_state_kernel_path_matches_jax(cuda_plan, case):
     torch.cuda.synchronize()
     assert launch.counts["kernel"]["iir_state"] == 2 and launch.counts["plain"]["iir_state"] == 0
     assert launch.counts["kernel"]["iir_emit"] == 1 and launch.counts["plain"]["iir_emit"] == 0
+    assert launch.counts["kernel"]["iir_force"] == 1 and launch.counts["plain"]["iir_force"] == 0
     rows = x.shape[0]
     gap = lambda got, want: float((np.abs(got.cpu().numpy() - want).reshape(rows, -1).max(-1)
                                    / np.abs(want).reshape(rows, -1).max(-1)).max())
@@ -1067,7 +1069,7 @@ def test_graph_replay_equals_eager_bitwise(bank64_designs, kind, frames_):
         kept.append(out["magnitude"].clone())
     torch.cuda.synchronize()
     assert launch.graph_counts == {"captures": 1, "replays": 4, "eager": 1, "evictions": 0}
-    assert all(d == {"iir_state": 2, "iir_emit": 1, "spectrum_bypass": 1}
+    assert all(d == {"iir_force": 1, "iir_state": 2, "iir_emit": 1, "spectrum_bypass": 1}
                for d in per_dispatch), per_dispatch
     refs, ref_state = _eager_stream(p, chunks, mode, p.initial_state())
     for k, (out, copy, ref) in enumerate(zip(outs, kept, refs)):
@@ -1531,10 +1533,11 @@ def test_capture_op_table_counts_a_one_kernel_step(card):
 def test_capture_op_table_charges_ops_to_the_port_spans(card):
     """A CUSTOM bank dispatch of 4 channels x 2 frames, replayed from the
     dispatch's graphs (the profiler's warm-up call captures them): every op
-    of the step is launched inside ``tpu_sdr.dispatch``, the frame chain's
-    are the IIR state kernel's two kernels, from the chain's graph launch,
-    the emit's the emit kernel, and the spectrum kernel lies in its launch
-    span."""
+    of the step is launched inside ``tpu_sdr.dispatch``, the products' is the
+    forcing kernel, launched from Python before the graphs, the frame
+    chain's are the IIR state kernel's two kernels, from the chain's graph
+    launch, the emit's the emit kernel, and the spectrum kernel lies in its
+    launch span."""
     from tpu_sdr_torch.bench.trace import capture_op_table
 
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
@@ -1555,6 +1558,9 @@ def test_capture_op_table_charges_ops_to_the_port_spans(card):
     assert t["device_trace"] and spans["tpu_sdr.dispatch"]["calls"] == 1
     assert spans["tpu_sdr.dispatch"]["device_ops"] == t["n_ops"]
     assert all(spans[name]["calls"] == 1 for name in iir)
+    assert spans["tpu_sdr.iir.products"]["device_ops"] == 1
+    assert sum(n for name, n in t["op_counts"].items() if "iir_force" in name) == 1
+    assert spans["tpu_sdr.launch.iir_force"]["device_ops"] == 1
     assert spans["tpu_sdr.iir.frame_chain"]["device_ops"] == 2
     assert sum(n for name, n in t["op_counts"].items() if "iir_state" in name) == 2
     assert spans["tpu_sdr.iir.emit"]["device_ops"] == 1
@@ -1664,16 +1670,18 @@ def test_time_sharded_state_kernel_on_4_gloo_ranks_equals_single_device(gloo4_ra
                                                                         path):
     """Each rank launches the IIR state kernel twice a dispatch: its frames'
     end states, all-gathered over the time axis, then the chain from the
-    stream's head and its frames' entry states; and the emit kernel once,
-    on its own frames. The gathered magnitudes and the final state are the
+    stream's head and its frames' entry states; and the forcing and emit
+    kernels once each, on its own frames. The gathered magnitudes and the final state are the
     single-device run's, bit for bit."""
     import shard_cases_cuda as cases
 
     results, errors = gloo4_ranks
     assert "gloo_time4" in results, errors
-    mag, sos_state, kernel, plain, emit, emit_plain = results["gloo_time4"][shape, path]
+    mag, sos_state, kernel, plain, emit, emit_plain, force, force_plain = \
+        results["gloo_time4"][shape, path]
     assert kernel == 2 * cases.TIME_CHUNKS and plain == 0
     assert emit == cases.TIME_CHUNKS and emit_plain == 0
+    assert force == cases.TIME_CHUNKS and force_plain == 0
     pipe = SpectrumPipeline(PipelineConfig(channels=4))
     if path == "shared":
         pipe.upload_sos(cases.SOS)

@@ -1,9 +1,11 @@
 """The filtered dispatch's CUDA graphs (``runtime/dispatch_graphs.py``) on
 the CPU: which dispatches take them, their cache's keys, invalidation and
 eviction, and the counts, with a stand-in for the capture. The CPU is
-dressed as the card: the state and emit kernels' paths on (their plain
-versions), the current stream a number the test sets, and a capture whose
-graphs run their steps again on replay. ``tests/test_torch_cuda.py`` holds the real
+dressed as the card: the forcing, state and emit kernels' paths on (their
+plain versions), the current stream a number the test sets, and a capture
+whose graphs run their steps again on replay. A dispatch captures two
+graphs, the state step's and the emit step's: the forcing pass runs
+eagerly into their static inputs. ``tests/test_torch_cuda.py`` holds the real
 graphs to the eager dispatch bit for bit on the card."""
 
 import numpy as np
@@ -55,7 +57,7 @@ def card(monkeypatch):
     monkeypatch.setattr(dispatch_graphs, "_capture", capture)
     launch.reset_counts()
     yield current
-    assert all(n == 3 for n in captured)
+    assert all(n == 2 for n in captured)
     launch.reset_counts()
 
 
@@ -182,8 +184,8 @@ def test_a_replay_counts_the_launches_of_an_eager_dispatch(card):
         per_dispatch.append({(kind, name): n - before[kind][name]
                              for kind, names in launch.counts.items()
                              for name, n in names.items() if n != before[kind][name]})
-    assert per_dispatch[0] == {("plain", "iir_state"): 2, ("plain", "iir_emit"): 1,
-                               ("plain", "spectrum_bypass"): 1}
+    assert per_dispatch[0] == {("plain", "iir_force"): 1, ("plain", "iir_state"): 2,
+                               ("plain", "iir_emit"): 1, ("plain", "spectrum_bypass"): 1}
     assert all(d == per_dispatch[0] for d in per_dispatch)
 
 

@@ -180,6 +180,7 @@ def test_cpu_tensors_take_the_plain_versions(plans, frames):
         "spectrum_bypass": 0, "spectrum_iir": 1, "iir_summaries": 1, "spectrum_complex": 0,
         "fm_demod": 0, "pfb_fold_dft": 0, "spectrum_half": 0, "fft_mag_fused": 0,
         "q15_fft": 0, "sosfilt_q15": 0, "viterbi": 0, "iir_state": 0, "iir_emit": 0,
+        "iir_force": 0,
     }
     assert not any(iir_fft.counts["kernel"].values())
 

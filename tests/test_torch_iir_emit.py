@@ -183,12 +183,14 @@ def test_the_route_is_read_from_the_operator(kind, geometry):
 
 @pytest.mark.parametrize("kind", ["shared", "bank"])
 def test_the_steps_take_the_emit_of_the_route(monkeypatch, kind):
-    """With the card's rule on CPU tensors (the state kernel's route, here
-    its plain version): the products step hands on the blocked input (a view
-    of x) and the emit step runs ``block_outputs`` (its plain version, one
-    call). Against the same state route with the GEMM form's emit: the
-    final states bit for bit, the outputs within the plain version's
-    limit."""
+    """With the card's rule on CPU tensors (the forcing and state kernels'
+    route, here their plain versions): the products step hands on the
+    blocked input (a view of x) with the forcing pass's f, and the emit step
+    runs ``block_outputs`` (its plain version, one call). Against the same
+    state route with the GEMM form's products and emit. The final state does
+    not depend on the emit: it is bit for bit the state step's on the plain
+    pass's f. The GEMM form's forcing sums in another order, so its final
+    states and outputs agree within the plain versions' limit."""
     name = "shared" if kind == "shared" else "bank64_mix"
     op = _op(name)
     run = (biquad.sosfilt_blocked_composite if kind == "shared"
@@ -200,16 +202,21 @@ def test_the_steps_take_the_emit_of_the_route(monkeypatch, kind):
     frames = biquad.cascade_frames(op)
     monkeypatch.setattr(biquad, "takes_state_kernel", lambda op: True)
     assert biquad.takes_emit_kernel(op)
-    assert biquad.cascade_products(op, x, frames)[0].data_ptr() == x.data_ptr()
+    y0, f = biquad.cascade_products(op, x, frames)
+    assert y0.data_ptr() == x.data_ptr() and torch.equal(f, biquad.block_forcing_plain(op, x)[1])
     launch.reset_counts()
     y, zf = run(op, x, zi)
     assert launch.counts["plain"]["iir_emit"] == 1 and launch.counts["plain"]["iir_state"] == 2
+    assert launch.counts["plain"]["iir_force"] == 1
+    _, z = biquad.cascade_chain(op, f, zi, frames)
+    assert torch.equal(zf, biquad.cascade_state(op, z))
     monkeypatch.setattr(biquad, "takes_emit_kernel", lambda op: False)
     assert biquad.cascade_products(op, x, frames)[0].data_ptr() != x.data_ptr()
     launch.reset_counts()
     y_gemm, zf_gemm = run(op, x, zi)
     assert launch.counts["plain"]["iir_emit"] == 0 and launch.counts["plain"]["iir_state"] == 2
-    assert torch.equal(zf, zf_gemm)
+    assert launch.counts["plain"]["iir_force"] == 0
+    assert _per_row(zf, zf_gemm).max() <= REL_VS_GEMM
     assert _per_row(y, y_gemm).max() <= REL_VS_GEMM
 
 

@@ -347,9 +347,9 @@ def _composite(case: str, sos):
 
 @pytest.mark.parametrize("case", list(JAX_CASES))
 def test_state_path_matches_jax(monkeypatch, case):
-    """The composite filter as it runs on the card (the state step's kernel
-    route and the emit kernel's, here with the plain ``state_path`` and
-    ``block_outputs``) against JAX on the same inputs."""
+    """The composite filter as it runs on the card (the forcing, state and
+    emit kernels' route, here with the plain ``block_forcing``,
+    ``state_path`` and ``block_outputs``) against JAX on the same inputs."""
     sos, x, zi = jax_case_inputs(case)
     ref_y, ref_zf = jax_outputs(case, sos, x, zi)
     op, run = _composite(case, sos)
@@ -358,6 +358,7 @@ def test_state_path_matches_jax(monkeypatch, case):
     y, zf = run(op, torch.as_tensor(x), torch.as_tensor(zi))
     assert launch.counts["plain"]["iir_state"] == 2 and launch.counts["kernel"]["iir_state"] == 0
     assert launch.counts["plain"]["iir_emit"] == 1 and launch.counts["kernel"]["iir_emit"] == 0
+    assert launch.counts["plain"]["iir_force"] == 1 and launch.counts["kernel"]["iir_force"] == 0
     assert y.shape == ref_y.shape and zf.shape == ref_zf.shape
     gy, gz = _rel_gaps(y.numpy(), zf.numpy(), ref_y, ref_zf)
     assert gy <= JAX_Y_REL and gz <= JAX_ZF_REL, (case, gy, gz)

@@ -355,6 +355,7 @@ def test_cpu_run_never_launches_the_kernel(port):
         "spectrum_bypass": 3, "spectrum_iir": 0, "iir_summaries": 0, "spectrum_complex": 0,
         "fm_demod": 0, "pfb_fold_dft": 0, "spectrum_half": 0, "fft_mag_fused": 0,
         "q15_fft": 0, "sosfilt_q15": 0, "viterbi": 0, "iir_state": 0, "iir_emit": 0,
+        "iir_force": 0,
     }
 
 

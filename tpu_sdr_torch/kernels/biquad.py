@@ -27,10 +27,12 @@ card at B = 128 and m = 12 one hand-written kernel (``csrc/iir_state.cu``,
 every block's entry state as triangular sums of products with the powers
 APow; everywhere else the GEMM form above (``gemm_state_path``). W is built
 only for operators that take the GEMM form. Where the state kernel runs and
-blocks hold L = 128 samples (``takes_emit_kernel``), a second kernel
-(``csrc/iir_emit.cu``, ``block_outputs``) computes y = x T^T + z_in M^T a
-block in one pass, from the blocked input itself: y_zs is never stored, and
-the products step runs only P's product.
+blocks hold L = 128 samples (``takes_emit_kernel``), two more kernels take
+the products and the output: ``csrc/iir_force.cu`` (``block_forcing``) reads
+the chunk once and writes the blocked input, windowed where the caller
+passes the window, and every block's forcing f = xw P^T; ``csrc/iir_emit.cu``
+(``block_outputs``) computes y = xw T^T + z_in M^T a block in one pass. y_zs
+is never stored, and no product runs in canonical calls.
 
 Chunked streaming at frame granularity is bit-identical to one-shot
 processing within one device: each frame runs the same reductions whatever
@@ -138,7 +140,8 @@ class BlockedSOSComposite:
     Leaves: T (L,L), M (L,m), P (m,L), APow (B,m,m), W (B*m,B*m), ALB (m,m);
     a per-channel bank has a leading channel axis C on each. W is None
     where the operator takes the state kernel (``takes_state_kernel``),
-    which does not read it.
+    which does not read it; P is contiguous where it takes the forcing
+    kernel (``takes_emit_kernel``).
     """
 
     T: torch.Tensor
@@ -201,9 +204,15 @@ def block_toeplitz(op) -> torch.Tensor:
     return W.reshape(*lead, B * m, B * m)
 
 
-def _with_w(op: BlockedSOSComposite) -> BlockedSOSComposite:
-    """``op`` with W where its state step takes the GEMM form."""
-    return op if takes_state_kernel(op) else dataclasses.replace(op, W=block_toeplitz(op))
+def _route_leaves(op: BlockedSOSComposite) -> BlockedSOSComposite:
+    """``op`` with the leaves of its route: W where its state step takes the
+    GEMM form; P contiguous, as the forcing kernel reads it, where its
+    products step takes the pass (the host build leaves P transposed)."""
+    if not takes_state_kernel(op):
+        return dataclasses.replace(op, W=block_toeplitz(op))
+    if takes_emit_kernel(op):
+        return dataclasses.replace(op, P=op.P.contiguous())
+    return op
 
 
 def precompute_composite(
@@ -220,7 +229,7 @@ def precompute_composite(
     T, M, P, alpows = _composite_host_parts(sos, block, frame_blocks)
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     ap = as_t(alpows)  # (B+1, m, m)
-    return _with_w(BlockedSOSComposite(
+    return _route_leaves(BlockedSOSComposite(
         T=as_t(T),
         M=as_t(M),
         P=as_t(P),
@@ -256,8 +265,8 @@ def precompute_composite_bank(
         np.stack([p[k] for p in parts]), dtype=dtype, device=device
     )
     ap = as_t(3)  # (C, B+1, m, m)
-    return _with_w(BlockedSOSComposite(T=as_t(0), M=as_t(1), P=as_t(2), APow=ap[:, 1:], W=None,
-                                       ALB=ap[:, -1]))
+    return _route_leaves(BlockedSOSComposite(T=as_t(0), M=as_t(1), P=as_t(2), APow=ap[:, 1:],
+                                             W=None, ALB=ap[:, -1]))
 
 
 # Every product over the (channel, frame) axes runs in calls that hold
@@ -553,6 +562,168 @@ def state_path(op, f: torch.Tensor, z: torch.Tensor, time_axis=None):
         return entry_states(op, f, z, w, lo)
 
 
+def blocked(op, x: torch.Tensor) -> torch.Tensor:
+    """x (..., T) as the steps' blocks (..., F, B, L), a view; a per-channel
+    bank's x (..., C, T) as (C, ..., F, B, L), its channel axis first."""
+    v = x.reshape(*x.shape[:-1], -1, op.frame_blocks, op.block)
+    return v.movedim(-4, 0) if op.T.ndim == 3 else v
+
+
+def _windowed(x: torch.Tensor, window: torch.Tensor | None) -> torch.Tensor:
+    """x (..., T) times ``window`` a frame of its length at a time."""
+    if window is None:
+        return x
+    n = window.shape[-1]
+    return (x.reshape(*x.shape[:-1], -1, n) * window).reshape(x.shape)
+
+
+def block_forcing_plain(op, x: torch.Tensor, window: torch.Tensor | None = None):
+    """The plain PyTorch version of ``block_forcing``, in the kernel's order:
+    xw = x w, each product rounded alone; then for each of a block's 32 runs
+    of 4 samples (k = 4l .. 4l + 3) the products P[j, k] xw[k] added to 0 in
+    ascending k, each product rounded and then added (the kernel's FMAs round
+    once); then the 32 partial sums pairwise, l with l + 16, then + 8, + 4,
+    + 2 and + 1."""
+    xw = blocked(op, _windowed(x, window)).contiguous()
+    L, m = xw.shape[-1], op.state_dim
+    P = op.P if op.P.ndim == 3 else op.P[None]
+    v = xw.reshape(P.shape[0], -1, L // 4, 4)
+    pt = P.reshape(P.shape[0], 1, m, L // 4, 4).permute(0, 1, 3, 4, 2)  # (sets, 1, l, 4, m)
+    acc = torch.zeros((*v.shape[:-1], m), dtype=xw.dtype, device=xw.device)
+    for s in range(4):
+        acc = acc + v[..., s, None] * pt[..., s, :]
+    while acc.shape[-2] > 1:
+        h = acc.shape[-2] // 2
+        acc = acc[..., :h, :] + acc[..., h:, :]
+    return xw, acc.reshape(*xw.shape[:-1], m)
+
+
+def _force_check(op, x: torch.Tensor, window: torch.Tensor | None) -> tuple[int, int, int, int]:
+    """Validate the forcing kernel's input, window and constants; returns
+    (rows, p_stride, set_rows, chans): row r of the steps' layout reads row
+    (r % set_rows) * chans + r // set_rows of x and the P of set r //
+    set_rows, p_stride floats apart (0 for a shared design)."""
+    L, B, m = EMIT_BLOCK, STATE_BLOCKS, STATE_DIM
+    if x.dtype != torch.float32 or x.ndim < 1 or x.shape[-1] % (B * L):
+        raise ValueError(f"x must be (..., T) float32 with T a multiple of {B * L}; got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if window is not None and (window.dtype != torch.float32 or tuple(window.shape) != (B * L,)
+                               or window.device != x.device):
+        raise ValueError(f"the window must be ({B * L},) float32 on {x.device}")
+    P = op.P
+    if P.dtype != torch.float32 or P.device != x.device or P.ndim not in (2, 3) \
+            or tuple(P.shape[-2:]) != (m, L) or not P.is_contiguous() or P.data_ptr() % 16:
+        raise ValueError(f"P must be contiguous 16-byte aligned (..., {m}, {L}) float32 on "
+                         f"{x.device}")
+    rows = math.prod(x.shape[:-1])
+    if P.ndim == 2:
+        return rows, 0, max(rows, 1), 1
+    C = P.shape[0]
+    if x.ndim < 2 or x.shape[-2] != C:
+        raise ValueError(f"x must be (..., {C}, T) for a bank of {C} channels; got "
+                         f"{tuple(x.shape)}")
+    return rows, m * L, max(rows // C, 1), C
+
+
+def _row_stride(x: torch.Tensor) -> int | None:
+    """Floats between the rows of x (..., T) where they are evenly spaced,
+    each T contiguous floats from a 16-byte boundary (a chunk cut from a
+    longer stream, say), as the forcing kernel reads them; else None."""
+    if x.data_ptr() % 16:
+        return None
+    if x.is_contiguous():
+        return x.shape[-1] if x.numel() and x.shape[-1] < 2**31 else None
+    if x.numel() == 0 or x.stride(-1) != 1:
+        return None
+    try:
+        stride = x.view(-1, x.shape[-1]).stride(0)
+    except RuntimeError:  # the leading axes do not fold into one
+        return None
+    return stride if stride % 4 == 0 and stride < 2**31 else None
+
+
+def _out_check(v: torch.Tensor, out) -> None:
+    """Validate ``out`` (xw, f) for the blocked view v of a chunk."""
+    xw, f = out
+    f_shape = (*v.shape[:-1], STATE_DIM)
+    if tuple(xw.shape) != tuple(v.shape) or tuple(f.shape) != f_shape \
+            or not xw.is_contiguous() or not f.is_contiguous() or xw.data_ptr() % 16 \
+            or {xw.dtype, f.dtype} != {torch.float32} \
+            or xw.device != v.device or f.device != v.device:
+        raise ValueError(f"out must be a 16-byte aligned contiguous {tuple(v.shape)} and a "
+                         f"contiguous {f_shape}, float32 on {v.device}")
+
+
+def _launch_forcing(x: torch.Tensor, consts: tuple, xw, f: torch.Tensor, rows: int) -> None:
+    """Launch ``csrc/iir_force.cu`` on chunk x (..., T), its rows read where
+    they lie where ``_row_stride`` allows, else from an aligned copy;
+    ``consts`` the window's and P's addresses, P's stride, set_rows and
+    chans; xw None where the kernel stores no xw."""
+    stride = _row_stride(x)
+    if stride is None:
+        x, stride = launch.aligned(x), x.shape[-1]
+    launch.launch("iir_force", x.device, x.data_ptr(), *consts, stride,
+                  None if xw is None else xw.data_ptr(), f.data_ptr(), rows,
+                  x.shape[-1] // EMIT_BLOCK)
+
+
+def block_forcing_cuda(op, x: torch.Tensor, window: torch.Tensor | None = None):
+    """Launch ``csrc/iir_force.cu`` on CUDA tensors: (xw, f) as
+    ``block_forcing``."""
+    rows, p_stride, set_rows, chans = _force_check(op, x, window)
+    if _row_stride(x) is None:
+        x = launch.aligned(x)
+    v = blocked(op, x)
+    xw = v if window is None and v.is_contiguous() else torch.empty_like(
+        v, memory_format=torch.contiguous_format)
+    f = x.new_empty((*v.shape[:-1], STATE_DIM))
+    w = None if window is None else launch.aligned(window).data_ptr()
+    _launch_forcing(x, (w, op.P.data_ptr(), p_stride, set_rows, chans),
+                    None if xw is v else xw, f, rows)
+    return xw, f
+
+
+class ForcingLaunch:
+    """``block_forcing(op, x, window)`` as a call of x alone that writes
+    (xw, f) into ``out``, for chunks of one shape and dtype on one device,
+    with the operator, the window and ``out`` checked once, here: the
+    graphs' dispatches (``runtime/dispatch_graphs.py``) launch the pass
+    every chunk, where the host sets the pace. A CPU chunk takes the plain
+    version."""
+
+    def __init__(self, op, x: torch.Tensor, window: torch.Tensor, out):
+        self.op, self.window, self.out, self.shape = op, window, out, x.shape
+        if x.device.type == "cpu":
+            return
+        self.rows, p_stride, set_rows, chans = _force_check(op, x, window)
+        _out_check(blocked(op, x), out)
+        self.window = launch.aligned(window)
+        self.consts = (self.window.data_ptr(), op.P.data_ptr(), p_stride, set_rows, chans)
+
+    def __call__(self, x: torch.Tensor) -> None:
+        if x.shape != self.shape or x.dtype != torch.float32:
+            raise ValueError(f"a chunk of {tuple(self.shape)} float32 was prepared for; got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device.type == "cpu":
+            for buf, got in zip(self.out, block_forcing(self.op, x, self.window)):
+                buf.copy_(got)
+        else:
+            _launch_forcing(x, self.consts, self.out[0], self.out[1], self.rows)
+
+
+def block_forcing(op, x: torch.Tensor, window: torch.Tensor | None = None):
+    """The products step where ``takes_emit_kernel(op)``, in one pass over
+    the chunk: x (..., T) in its own layout (a per-channel bank's (..., C,
+    T)), times ``window`` a frame (B*L samples) at a time where given ->
+    (xw, the blocked input as multiplied, in the steps' layout (``blocked``),
+    contiguous: x's own view where there is no window and the layout allows;
+    f (..., F, B, m), every block's forcing xw P^T). The plain version on a
+    CPU tensor, ``iir_force.cu`` (B = L = 128, m = 12) on a CUDA one."""
+    if launch.on_cpu("iir_force", x):
+        return block_forcing_plain(op, x, window)
+    return block_forcing_cuda(op, x, window)
+
+
 def block_outputs_plain(op, v: torch.Tensor, z_in: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of ``block_outputs``, in the kernel's
     order: each output y[n] of a block is 0, plus M[n, j] z_in[j] for j
@@ -624,12 +795,13 @@ def block_outputs(op, v: torch.Tensor, z_in: torch.Tensor) -> torch.Tensor:
 
 
 # The composite cascade in three steps, one a span, that a caller may run
-# one at a time (``runtime/dispatch_graphs.py`` captures each in a CUDA
-# graph): ``cascade_products``, ``cascade_chain`` and ``cascade_emit``;
-# ``cascade_state`` puts the final state in the caller's layout. A shared
-# design's steps (op.T (L, L)) take x (..., T); a per-channel bank's (op.T
-# (C, L, L)) take x (..., C, T) and hold the channel axis first. Every
-# product runs in calls of ``frames`` frames (``cascade_frames``).
+# one at a time (``runtime/dispatch_graphs.py`` runs the first eagerly and
+# replays the other two from CUDA graphs): ``cascade_products``,
+# ``cascade_chain`` and ``cascade_emit``; ``cascade_state`` puts the final
+# state in the caller's layout. A shared design's steps (op.T (L, L)) take x
+# (..., T); a per-channel bank's (op.T (C, L, L)) take x (..., C, T) and
+# hold the channel axis first. The GEMM form's products run in calls of
+# ``frames`` frames (``cascade_frames``).
 
 
 def bank_frames(channels: int) -> int:
@@ -651,20 +823,17 @@ def cascade_frames(op, channels: int | None = None) -> int:
     return CANONICAL_FRAMES
 
 
-def cascade_products(op, x: torch.Tensor, frames: int):
-    """Step 1, in the span ``tpu_sdr.iir.products``: x -> (y0, the forcing
-    f (..., F, B, m), contiguous). y0 is what step 3 builds the output on:
-    where ``takes_emit_kernel(op)`` the blocked input v (..., F, B, L)
-    itself, contiguous (a view where x's layout allows), and only P's
-    product runs; else the zero-state output y_zs = v T^T."""
-    v = x.reshape(*x.shape[:-1], -1, op.frame_blocks, op.block)
-    if op.T.ndim == 3:
-        v = v.movedim(-4, 0)
+def cascade_products(op, x: torch.Tensor, frames: int, window: torch.Tensor | None = None):
+    """Step 1, in the span ``tpu_sdr.iir.products``: x, times ``window`` a
+    frame at a time where given, -> (y0, the forcing f (..., F, B, m),
+    contiguous). y0 is what step 3 builds the output on: where
+    ``takes_emit_kernel(op)`` the blocked input itself, contiguous, from one
+    pass that also forms f (``block_forcing``); else the zero-state output
+    y_zs = v T^T, after the window's multiply, with f from P's product."""
     with span("tpu_sdr.iir.products"):
         if takes_emit_kernel(op):
-            f = _canonical_matmul(v, op.P.mT, frames * op.frame_blocks)
-            return v.contiguous(), f.contiguous()
-        y_zs, f = _composite_products(op, v, frames)
+            return block_forcing(op, x, window)
+        y_zs, f = _composite_products(op, blocked(op, _windowed(x, window)), frames)
         return y_zs, f.contiguous()  # a padded call's rows are a view
 
 
@@ -704,10 +873,10 @@ def cascade_state(op, z: torch.Tensor) -> torch.Tensor:
     return z.reshape(*z.shape[:-1], -1, 2)
 
 
-def _composite(op, x, zi, time_axis=None, channels=None):
+def _composite(op, x, zi, time_axis=None, channels=None, window=None):
     """The three steps in turn: (y (..., T), zf (..., S, 2))."""
     frames = cascade_frames(op, channels)
-    y0, f = cascade_products(op, x, frames)
+    y0, f = cascade_products(op, x, frames, window)
     z_in, z = cascade_chain(op, f, zi, frames, time_axis)
     return cascade_emit(op, y0, z_in, frames), cascade_state(op, z)
 
@@ -740,11 +909,13 @@ def sosfilt_blocked_composite_timesharded(
 
 def sosfilt_blocked_composite_bank(
     op: BlockedSOSComposite, x: torch.Tensor, zi: torch.Tensor, *,
-    time_axis=None, channels: int | None = None,
+    time_axis=None, channels: int | None = None, window: torch.Tensor | None = None,
 ):
     """Per-channel-coefficients cascade: x (..., C, T), zi (..., C, S, 2) ->
     (y (..., C, T), zf (..., C, S, 2)). A shared design's op runs here as in
-    ``sosfilt_blocked_composite``, ``channels`` unread.
+    ``sosfilt_blocked_composite``, ``channels`` unread. ``window``: x is
+    filtered as multiplied by it a frame of its length at a time (the
+    analyzer's Hann window), in the products step.
 
     ``time_axis``: the frames are one shard of a stream sharded over that
     mesh axis; only the per-frame (C, m) summaries cross it. ``channels``:
@@ -759,7 +930,7 @@ def sosfilt_blocked_composite_bank(
     held chunked == one-shot on an H100 with less device time than one
     call per channel (``scripts/torch_bank_call_shape.py``).
     """
-    return _composite(op, x, zi, time_axis, channels)
+    return _composite(op, x, zi, time_axis, channels, window)
 
 
 @dataclasses.dataclass(frozen=True)

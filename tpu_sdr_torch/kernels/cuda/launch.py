@@ -26,7 +26,7 @@ from tpu_sdr_torch.kernels.cuda import loader
 KERNELS = (
     "spectrum_bypass", "spectrum_iir", "iir_summaries", "spectrum_complex",
     "fm_demod", "pfb_fold_dft", "fft_mag_fused", "q15_fft", "sosfilt_q15", "viterbi",
-    "iir_state", "iir_emit",
+    "iir_state", "iir_emit", "iir_force",
 )
 # The half spectrum (``iir_fft.spectrum_from_state(half_spectrum=True)``)
 # has a plain version of its own and launches spectrum_bypass's or
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "viterbi": "pppppiiiip",
     "iir_state": "ippiippppiiiip",
     "iir_emit": "ppppiiipiip",
+    "iir_force": "pppiiiippiip",
 }
 
 

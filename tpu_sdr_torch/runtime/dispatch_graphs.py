@@ -3,28 +3,30 @@
 ``process_stream``'s hybrid branch (FIXED or CUSTOM, magnitudes at the
 128x128 geometry, frame-aligned hop, one device) runs the composite IIR on
 the card as three steps (``biquad.cascade_products``, ``cascade_chain``,
-``cascade_emit``): P's product, the state kernel's two launches and the
-emit kernel's one, with their copies, each enqueued from Python.
-``DispatchGraphs`` replays them from three CUDA graphs, one a step and each
-inside the step's span, captured once a key (the current stream, the mode,
-the chunk's shape and dtype, the bank's operator):
+``cascade_emit``): the forcing pass's one launch, the state kernel's two
+and the emit kernel's one, with their copies, each enqueued from Python.
+``DispatchGraphs`` replays the last two from two CUDA graphs, one a step
+and each inside the step's span, captured once a key (the current stream,
+the mode, the chunk's shape and dtype, the bank's operator, the window):
 
 - the first dispatch of a key runs eagerly (the warm-up);
 - the second captures the graphs, in one private memory pool, and replays
   them;
 - every later one replays them.
 
-Around the replays, a dispatch writes the windowed chunk into the graphs'
-static input (the window multiply's own output) and copies the carried
-state into their static state; after them, the spectrum kernel reads the
-static output into a fresh magnitude tensor and the final state is cloned
-out, so a later replay overwrites nothing a caller holds. One lock covers
-that sequence, so threads that share a stream do not interleave on the
-static buffers. The graphs read every constant by address: the bank's
-operator they hold is never freed under them, and ``SpectrumPipeline``'s
-uploads drop them (``clear``). A replay adds to ``launch.counts`` the
-launches its capture made; ``launch.graph_counts`` counts the keys' eager
-dispatches, captures, replays and evictions.
+Before the replays, a dispatch launches the forcing pass eagerly, in the
+products step's span (``biquad.ForcingLaunch``, its operands checked once
+at the capture): it reads the caller's chunk and writes the windowed
+blocks and their forcing straight into the graphs' static inputs; the
+carried state is copied into their static state. After them, the spectrum
+kernel reads the static output into a fresh magnitude tensor and the final
+state is cloned out, so a later replay overwrites nothing a caller holds.
+One lock covers that sequence, so threads that share a stream do not
+interleave on the static buffers. The graphs read every constant by
+address: the bank's operator they hold is never freed under them, and
+``SpectrumPipeline``'s uploads drop them (``clear``). A replay adds to
+``launch.counts`` the launches its capture made; ``launch.graph_counts``
+counts the keys' eager dispatches, captures, replays and evictions.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from tpu_sdr_torch.kernels.cuda import launch
 
 # Keys a cache holds at most: a stream's chunk shapes, FIXED and CUSTOM.
 CAPACITY = 4
-# The span of each step, as the steps open them when run eagerly.
+# The span of each step, as the steps open them when run eagerly: the
+# forcing pass's, then each graph's.
 SPANS = ("tpu_sdr.iir.products", "tpu_sdr.iir.frame_chain", "tpu_sdr.iir.emit")
 
 
@@ -76,19 +79,22 @@ def _capture(steps, device: torch.device) -> list:
 
 
 class _Graphs:
-    """One key's graphs and their static buffers: xw the windowed chunk
-    (..., [C,] T), zi the entering state (..., [C,] S, 2), and the steps'
-    outputs in ``out``."""
+    """One key's graphs and their static buffers: zi the entering state
+    (..., [C,] S, 2), and in ``out`` the forcing pass's outputs (y0 the
+    windowed blocks, f their forcing), which ``force`` writes, and the
+    steps' outputs."""
 
-    def __init__(self, op, x: torch.Tensor, zi: torch.Tensor, channels: int):
+    def __init__(self, op, x: torch.Tensor, hann_w: torch.Tensor, zi: torch.Tensor,
+                 channels: int):
         self.op = op
-        self.xw = torch.empty_like(x, memory_format=torch.contiguous_format)
         self.zi = torch.empty_like(zi, memory_format=torch.contiguous_format)
-        out = self.out = {}
+        v = biquad.blocked(op, x)
+        out = self.out = {
+            "y0": torch.empty_like(v, memory_format=torch.contiguous_format),
+            "f": x.new_empty((*v.shape[:-1], op.state_dim)),
+        }
+        self.force = biquad.ForcingLaunch(op, x, hann_w, (out["y0"], out["f"]))
         frames = biquad.cascade_frames(op, channels)
-
-        def products():
-            out["y0"], out["f"] = biquad.cascade_products(op, self.xw, frames)
 
         def chain():
             out["z_in"], out["zf"] = biquad.cascade_chain(op, out["f"], self.zi, frames)
@@ -97,15 +103,14 @@ class _Graphs:
             out["y"] = biquad.cascade_emit(op, out["y0"], out["z_in"], frames)
 
         with launch.captured() as self.launches:
-            self.graphs = _capture((products, chain, emit), x.device)
+            self.graphs = _capture((chain, emit), x.device)
 
-    def replay(self, x: torch.Tensor, hann_w: torch.Tensor, zi: torch.Tensor, spectrum):
+    def replay(self, x: torch.Tensor, zi: torch.Tensor, spectrum):
         """(spectrum(y), the final state) for chunk x from state zi."""
-        n = hann_w.shape[-1]
-        torch.mul(x.reshape(*x.shape[:-1], -1, n), hann_w,
-                  out=self.xw.view(*x.shape[:-1], -1, n))
+        with span(SPANS[0]):
+            self.force(x)
         self.zi.copy_(zi)
-        for name, graph in zip(SPANS, self.graphs):
+        for name, graph in zip(SPANS[1:], self.graphs):
             with span(name):
                 graph.replay()
         launch.add_counts(self.launches)
@@ -133,11 +138,11 @@ class DispatchGraphs:
         """The hybrid branch's IIR and spectrum for chunk x (..., [C,] T)
         from state zi through the bank's operator ``op``: (spectrum(y), the
         final state) from the graphs of this dispatch's key; None where the
-        dispatch runs eagerly, the first of its key or one that the state
-        kernel does not take (the CPU, another geometry)."""
-        if not biquad.takes_state_kernel(op):
+        dispatch runs eagerly, the first of its key or one that the forcing,
+        state and emit kernels do not take (the CPU, another geometry)."""
+        if not biquad.takes_emit_kernel(op):
             return None
-        key = (_stream_id(x.device), mode_index, tuple(x.shape), x.dtype, id(op))
+        key = (_stream_id(x.device), mode_index, tuple(x.shape), x.dtype, id(op), id(hann_w))
         with self._lock:
             held = self._keys.get(key)
             if held is None:
@@ -150,9 +155,9 @@ class DispatchGraphs:
             self._keys.move_to_end(key)
             graphs = held[1]
             if graphs is None:
-                graphs = _Graphs(op, x, zi, channels)
+                graphs = _Graphs(op, x, hann_w, zi, channels)
                 self._keys[key] = (op, graphs)
                 launch.count_graph("captures")
             else:
                 launch.count_graph("replays")
-            return graphs.replay(x, hann_w, zi, spectrum)
+            return graphs.replay(x, zi, spectrum)

@@ -12,7 +12,8 @@ are windowed and transformed (the STFT order).
 
 Magnitude output at the 128x128 geometry goes through the spectrum kernels
 (``kernels/cuda/iir_fft``): BYPASS windows inside the kernel; FIXED/CUSTOM
-run the window and the composite IIR as matrix products first and call the
+hand the window to the composite IIR, which applies it in its products step
+(on the card in the forcing pass, ``biquad.block_forcing``), and call the
 kernel with ``apply_window=False`` (the hybrid structure, every tier's
 default), or, with ``fused_two_pass`` at the f32/f32max tiers, run the IIR
 inside two kernels (``iir_summaries``, then ``spectrum_from_state`` from
@@ -176,23 +177,23 @@ def process_stream(
                 got = graphs.run(mode_index, x, hann_w, bank["op"], state.sos_state,
                                  cfg.channels, spectrum)
             if got is None:
-                xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
                 y, zf = biquad.sosfilt_blocked_composite_bank(
-                    bank["op"], xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
+                    bank["op"], x, state.sos_state, time_axis=time_axis, channels=cfg.channels,
+                    window=hann_w)
                 got = spectrum(y), zf
             mag, zf = got
         out = {"magnitude": mag.reshape(*lead, n_frames, n)}
     else:
-        # 1. Window over the frame-aligned stream.
-        xw = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
-        # 2. IIR filter bank (or bypass).
+        # 1-2. Window over the frame-aligned stream, then the IIR filter bank
+        # (which takes the window into its products step), or bypass.
         if mode_index == 0:
-            y = xw
+            y = (x.reshape(*lead, n_frames, n) * hann_w).reshape(*lead, t)
             zf = state.sos_state
         else:
             op = (bank_fixed if mode_index == 1 else bank_custom)["op"]
             y, zf = biquad.sosfilt_blocked_composite_bank(
-                op, xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
+                op, x, state.sos_state, time_axis=time_axis, channels=cfg.channels,
+                window=hann_w)
         # 3. Per-frame DFT of the real frames + output decode.
         frames = y.reshape(*lead, n_frames, n)
         fr, fi = fft.fft_4step(frames, None, plan)
@@ -314,9 +315,9 @@ def process_stream_complex(
     if mode_index == 0:
         y, zf, apply_window = xs, state.sos_state, True
     else:
-        xw = (xs.reshape(2, *lead, n_frames, n) * hann_w).reshape(2, *lead, t)
         y, zf = biquad.sosfilt_blocked_composite_bank(
-            bank["op"], xw, state.sos_state, time_axis=time_axis, channels=cfg.channels)
+            bank["op"], xs, state.sos_state, time_axis=time_axis, channels=cfg.channels,
+            window=hann_w)
         apply_window = False
     yr, yi = y[0], y[1]
     # bf16_io: only the filtered planes reach the kernel as bf16. In BYPASS
