@@ -100,7 +100,10 @@ Phases (each raises on failure):
        the chunks passed directly; ``WelchPSD.compute`` and ``compute_iq``
        against ``scipy.signal.welch`` in float64 within 1e-5 of the peak
        (mean and median, even and odd segment counts); ``decimate_db``'s
-       five detectors against NumPy;
+       five detectors against NumPy; the host-fed bank (64 x 16 frames a
+       chunk from a ``PinnedRingSource`` of 4) == ``process`` on the
+       device ring bit for bit, timed beside the staging path (a NumPy
+       source) and the device-fed path, and the link's rate alone;
      - burst + FEC: 64 coded QPSK bursts (K = 7, rate 1/2, 2048 info bits,
        sps 8, starts 0..16 symbols into the capture, 14 dB) through
        ``BurstModem.demodulate``, ``modem_soft_bits`` and
@@ -2110,6 +2113,9 @@ Q15_KERNEL_FRAMES = (1, 3, 8, 64, 133)
 Q15_CHUNKS = 6  # Q15Stream's chunks of one frame, at depth 1 and 3
 FEED_CHUNKS = 8  # StreamFeeder -> SpectrumPipeline.process
 FEED_FRAMES = 8  # frames a channel in one fed chunk (8 channels)
+HOSTFED_SEED = 2**31 + 27  # the host-fed bank's designs and ring
+HOSTFED_CHECK_CHUNKS = 10  # host-fed against device-fed: 2.5 wraps of the ring of 4
+HOSTFED_CHUNKS = 24  # chunks timed a path of the host-fed bank
 WELCH_REL = 1e-5  # of the peak, against scipy.signal.welch in float64
 # K2's dependent chain in cycles, 4 a dependent integer operation. What
 # the function needs: a (sample, section) step, from the previous output of
@@ -2520,6 +2526,106 @@ def phase_host_runtime(pipe, sos_custom):
               f"{'bitwise' if exact else 'max_err/max'} {err == 0 if exact else f'{err:.2e}'}, "
               f"dB max_err {err_db:.2e} dB vs NumPy float64")
         check((err == 0 if exact else err < 1e-6) and err_db < 1e-4, ("decimate_db", det))
+
+
+def phase_host_feed():
+    """The host-fed bank at ``bank64.custom.hostfed``'s chunk (64 ch x 16
+    frames, 67,108,864 B, a ring of 4, feeder depth 2, CUSTOM): the pinned
+    ring path (``PinnedRingSource``, no host copy) == ``process`` on the
+    device ring bit for bit over 2.5 wraps; then the pinned path, the
+    staging path (the same chunks from a NumPy source, copied into the
+    feeder's pinned buffers) and the device-fed path each timed over
+    ``HOSTFED_CHUNKS`` chunks after a warm-up, the feeder restarted empty
+    before the timed chunks; and the link alone, one slot copied ten times,
+    timed with CUDA events."""
+    from sdrbench import inputs, spec, system
+    from tpu_sdr_torch import FilterMode, SpectrumPipeline, StreamFeeder
+    from tpu_sdr_torch.runtime.source import CallbackSource, PinnedRingSource
+
+    cell = spec.find_cell(spec.load_benchmark(), "bank64.custom.hostfed")
+    cfg, traffic = cell.config, cell.traffic
+    ring = inputs.make_ring(cfg, traffic, HOSTFED_SEED, "cuda")
+    slots, t = ring.shape[0], ring.shape[-1]
+    pipe = SpectrumPipeline(system.pipeline_config(cfg))
+    pipe.upload_sos_bank(inputs.make_designs(cfg, HOSTFED_SEED))
+    src = PinnedRingSource(slots, tuple(ring.shape[1:]))
+    for slot, chunk in zip(src.slots, ring):
+        slot.copy_(chunk)
+    host = [chunk.cpu().numpy() for chunk in ring]
+    nbytes = src.slots[0].numel() * 4
+    mode = FilterMode.CUSTOM
+
+    def feed(source, chunks, warm=0):
+        """(outputs or None, final state, ms a chunk after ``warm`` chunks, stats)."""
+        source_reset = getattr(source, "reset", None)
+        if source_reset is not None:
+            source_reset()
+        feeder = StreamFeeder(source, t, depth=traffic["feeder_depth"]).start()
+        st, outs = pipe.initial_state(), []
+        try:
+            for k in range(warm + chunks):
+                if k == warm:
+                    if warm:  # staged ahead no more: every timed chunk crosses in the window
+                        feeder.stop()
+                        feeder.start()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out, st = pipe.process(feeder.get(), st, mode)
+                if not warm:
+                    outs.append(out["magnitude"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / chunks * 1e3
+        finally:
+            feeder.stop()
+        return outs or None, st, ms, dict(feeder.stats)
+
+    fed, fed_st, _, stats = feed(src, HOSTFED_CHECK_CHUNKS)
+    st, direct = pipe.initial_state(), []
+    for k in range(HOSTFED_CHECK_CHUNKS):
+        out, st = pipe.process(ring[k % slots], st, mode)
+        direct.append(out["magnitude"])
+    same = (all(torch.equal(a, b) for a, b in zip(fed, direct))
+            and torch.equal(fed_st.sos_state, st.sos_state)
+            and int(fed_st.frame_count) == int(st.frame_count))
+    del fed, direct
+    _, _, pinned_ms, pinned_stats = feed(src, HOSTFED_CHUNKS, warm=slots)
+    k_read = iter(range(10**9))
+    numpy_src = CallbackSource(lambda n: host[next(k_read) % slots])
+    _, _, staged_ms, staged_stats = feed(numpy_src, HOSTFED_CHUNKS, warm=slots)
+    st = pipe.initial_state()
+    for k in range(slots + HOSTFED_CHUNKS):
+        if k == slots:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _, st = pipe.process(ring[k % slots], st, mode)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) / HOSTFED_CHUNKS * 1e3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    src.slots[0].to("cuda", non_blocking=True)
+    a.record()
+    for _ in range(10):
+        src.slots[0].to("cuda", non_blocking=True)
+    b.record()
+    b.synchronize()
+    link_gb_s = 10 * nbytes / (a.elapsed_time(b) / 1e3) / 1e9
+    msps = lambda ms: cell.samples_per_chunk / (ms / 1e3) / 1e6
+    print(f"[4] host feed, {cfg['channels']} ch x {traffic['frames_per_chunk']} frames a chunk "
+          f"({nbytes:,} B f32), ring of {slots}, depth {traffic['feeder_depth']}, CUSTOM: "
+          f"host-fed == device-fed bit for bit over {HOSTFED_CHECK_CHUNKS} chunks (spectra, state, "
+          f"frame count): {same}; bytes_staged {stats['bytes_staged']:,} = "
+          f"{stats['chunks_staged']} x {nbytes:,}, host_copies {stats['host_copies']}; the ring's "
+          f"slots waited for their copies {src.release_waits} times in all")
+    for label, ms, s_ in (("pinned ring (no host copy)", pinned_ms, pinned_stats),
+                          ("staging path (NumPy source)", staged_ms, staged_stats)):
+        print(f"[4] host feed {label}: {ms:.4f} ms a chunk, {msps(ms):.1f} Msamples/s, "
+              f"{nbytes / (ms / 1e3) / 1e9:.2f} GB/s over {HOSTFED_CHUNKS} chunks; "
+              + ", ".join(f"{k} {v}" for k, v in s_.items()))
+    print(f"[4] host feed device-fed (the on-card cell's path): {device_ms:.4f} ms a chunk, "
+          f"{msps(device_ms):.1f} Msamples/s; the link alone: {link_gb_s:.2f} GB/s (one pinned "
+          f"slot copied 10 times, CUDA events)")
+    check(same and stats["host_copies"] == 0 and pinned_stats["host_copies"] == 0
+          and stats["bytes_staged"] == stats["chunks_staged"] * nbytes
+          and staged_stats["host_copies"] == staged_stats["chunks_staged"], "host feed")
 
 
 def q15_chain_floor_ms(t: int, sections: int) -> tuple[float, float, float]:
@@ -3948,6 +4054,7 @@ def main():
     phase_profile(q15_steps, q15_walls)
     phase_q15_stream(q15_pipes["split"])
     phase_host_runtime(pipe, sos_custom)
+    phase_host_feed()
     errs["viterbi"] = phase_k3_vs_plain()
     launches["viterbi"], k3_inputs = phase_burst_fec()
     pr10_steps = {**phase_fastfir(), **phase_iqcorr(), **phase_scanner()}

@@ -1401,6 +1401,103 @@ def test_feeder_on_card_stages_through_pinned_buffers(card):
     assert np.array_equal(torch.cat(chunks, dim=-1).cpu().numpy(), ref)
 
 
+def _host_fed_bank(seed: int):
+    """``bank64.custom.hostfed``'s pipeline, device ring and pinned host
+    ring (64 ch x 16 frames a chunk, 4 slots)."""
+    from sdrbench import system
+    from tpu_sdr_torch.runtime.source import PinnedRingSource
+
+    cell = spec.find_cell(spec.load_benchmark(), "bank64.custom.hostfed")
+    pipe = SpectrumPipeline(system.pipeline_config(cell.config), device="cuda")
+    pipe.upload_sos_bank(inputs.make_designs(cell.config, seed))
+    ring = inputs.make_ring(cell.config, cell.traffic, seed, "cuda")
+    src = PinnedRingSource(ring.shape[0], tuple(ring.shape[1:]))
+    for slot, chunk in zip(src.slots, ring):
+        slot.copy_(chunk)
+    return cell, pipe, ring, src
+
+
+def test_host_fed_bank_equals_device_fed_bit_for_bit(card):
+    """Ten chunks (two and a half wraps of the ring of 4) through the
+    feeder from pinned slots, CUSTOM, against ``process`` on the same
+    chunks of the device ring: spectra, carried state and frame count."""
+    from tpu_sdr_torch.runtime import StreamFeeder
+
+    cell, pipe, ring, src = _host_fed_bank(2**31 + 41)
+    assert all(s.is_pinned() for s in src.slots)
+    f = StreamFeeder(src, ring.shape[-1], depth=cell.traffic["feeder_depth"]).start()
+    fed, st = [], pipe.initial_state()
+    try:
+        for _ in range(10):
+            out, st = pipe.process(f.get(), st, FilterMode.CUSTOM)
+            fed.append(out["magnitude"])
+    finally:
+        f.stop()
+    direct, ref = [], pipe.initial_state()
+    for k in range(10):
+        out, ref = pipe.process(ring[k % ring.shape[0]], ref, FilterMode.CUSTOM)
+        direct.append(out["magnitude"])
+    assert all(torch.equal(a, b) for a, b in zip(fed, direct))
+    assert torch.equal(st.sos_state, ref.sos_state) and int(st.frame_count) == int(ref.frame_count)
+    assert f.stats["host_copies"] == 0
+    assert f.stats["bytes_staged"] == f.chunks_staged * 64 * 16 * N * 4
+
+
+def test_no_ring_slot_is_rewritten_before_its_copy(card):
+    """The front end refills a slot (chunk k's number in every sample) only
+    once the copy that read the slot last has finished, so every chunk on
+    the card holds its own number."""
+    from tpu_sdr_torch.runtime import StreamFeeder
+
+    _, _, ring, src = _host_fed_bank(2**31 + 42)
+    del ring
+    released, refilled = {}, []
+    release = src.release
+
+    def track(slot, event):
+        released[slot.data_ptr()] = event
+        release(slot, event)
+
+    def refill(slot):
+        last = released.get(slot.data_ptr())
+        refilled.append(last is None or last.query())
+        slot.fill_(float(len(refilled)))
+
+    src.release, src.refill = track, refill
+    f = StreamFeeder(src, src.slots[0].shape[-1], depth=2).start()
+    try:
+        got = [f.get() for _ in range(12)]
+        values = [(float(c.min()), float(c.max())) for c in got]
+    finally:
+        f.stop()
+    assert values == [(float(k), float(k)) for k in range(1, 13)]
+    assert all(refilled)
+
+
+def test_feeder_on_card_stages_pinned_tensors_of_a_source_without_release(card):
+    """A source that returns one pinned tensor, rewritten at each read, and
+    takes no copy's event back: the feeder copies each chunk on the host
+    into its staging buffers, so no chunk sees a later rewrite."""
+    from tpu_sdr_torch.runtime import StreamFeeder
+    from tpu_sdr_torch.runtime.source import CallbackSource
+
+    block = torch.zeros(64, 16 * N, pin_memory=True)
+    k = iter(range(100))
+
+    def refilled(n):
+        block.fill_(float(next(k)))
+        return block
+
+    f = StreamFeeder(CallbackSource(refilled), chunk_samples=16 * N, depth=2).start()
+    try:
+        got = [f.get() for _ in range(8)]
+        values = [(float(c.min()), float(c.max())) for c in got]
+    finally:
+        f.stop()
+    assert values == [(float(j), float(j)) for j in range(8)]
+    assert f.stats["host_copies"] == f.chunks_staged >= 8
+
+
 def test_welch_on_card_matches_scipy(card):
     from tpu_sdr_torch.runtime import WelchPSD
 

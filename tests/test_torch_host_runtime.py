@@ -314,6 +314,159 @@ def test_feeder_stop_waits_out_a_blocked_producer_before_restart():
         f.stop()
 
 
+def _ring_source(slots=3, channels=2, t=16, **kw):
+    src = source.PinnedRingSource(slots, (channels, t), pin=False, **kw)
+    for i, slot in enumerate(src.slots):
+        slot.fill_(float(i))
+    return src
+
+
+class _Copy:
+    """Stands in for a copy's CUDA event: finished once ``finish()``."""
+
+    def __init__(self):
+        self.done = threading.Event()
+
+    def finish(self):
+        self.done.set()
+
+    def query(self):
+        return self.done.is_set()
+
+    def synchronize(self):
+        assert self.done.wait(10)
+
+
+def test_pinned_ring_source_keeps_its_order_across_a_wrap_and_resets():
+    src = _ring_source()
+    got = [src.read(16) for _ in range(7)]
+    assert [int(x[0, 0]) for x in got] == [0, 1, 2, 0, 1, 2, 0]
+    assert all(x is src.slots[k % 3] for k, x in enumerate(got))  # the slot, not a copy
+    src.reset()
+    assert src.read(16) is src.slots[0] and src.read(16) is src.slots[1]
+    with pytest.raises(ValueError, match="16 samples"):
+        src.read(8)
+    mine = [torch.full((1, 4), 5.0), torch.full((1, 4), 6.0)]
+    adopted = source.PinnedRingSource(mine)
+    assert [adopted.read(4) for _ in range(3)] == [mine[0], mine[1], mine[0]]
+    with pytest.raises(ValueError, match="equal float32"):
+        source.PinnedRingSource([torch.zeros(1, 4), torch.zeros(1, 5)])
+
+
+def test_pinned_ring_source_hands_a_slot_out_again_only_after_its_release():
+    seen = []
+    in_flight = _Copy()
+    src = _ring_source(slots=2,
+                       refill=lambda slot: seen.append((slot.data_ptr(), in_flight.query())))
+    first = src.read(16)
+    src.release(first, in_flight)
+    src.release(src.read(16), None)
+    got = []
+    reader = threading.Thread(target=lambda: got.append(src.read(16)))
+    reader.start()
+    time.sleep(0.2)
+    assert reader.is_alive() and not got  # slot 0's copy has not finished
+    in_flight.finish()
+    reader.join(5)
+    assert got == [first] and src.release_waits == 1
+    # the front end refilled slot 0 the second time only after its copy
+    assert seen[2] == (first.data_ptr(), True)
+
+
+def test_feeder_takes_ring_slots_without_a_host_copy():
+    chunk_bytes = 2 * 16 * 4
+    src = _ring_source()
+    f = StreamFeeder(src, chunk_samples=16, depth=2, device="cpu").start()
+    try:
+        chunks = [f.get(timeout=5) for _ in range(7)]  # over two wraps of the ring
+    finally:
+        f.stop()
+    assert [int(c[0, 0]) for c in chunks] == [0, 1, 2, 0, 1, 2, 0]
+    assert all(c.dtype == torch.float32 and c.shape == (2, 16) for c in chunks)
+    # each chunk crossed on its own: no chunk shares the slot's memory
+    assert not {c.data_ptr() for c in chunks} & {s.data_ptr() for s in src.slots}
+    assert f.stats["host_copies"] == 0 and f.chunks_staged >= 7
+    assert f.stats["bytes_staged"] == f.chunks_staged * chunk_bytes
+    src.reset()
+    f.start()
+    try:
+        assert int(f.get(timeout=5)[0, 0]) == 0
+    finally:
+        f.stop()
+
+
+def test_feeder_staging_path_still_counts_its_host_copies():
+    f = StreamFeeder(source.SyntheticSource(channels=2), chunk_samples=64, depth=2,
+                     device="cpu").start()
+    try:
+        for _ in range(4):
+            f.get(timeout=5)
+    finally:
+        f.stop()
+    assert f.chunks_staged >= 4 and f.stats["host_copies"] == f.chunks_staged
+    assert f.stats["bytes_staged"] == f.chunks_staged * 2 * 64 * 4
+    assert f.stats["release_waits"] == 0
+
+
+def test_feeder_stages_a_sources_tensors_that_take_no_release():
+    """A source that hands out float32 tensors but takes no copy's event
+    back keeps the staging path: it may rewrite its tensor at once, so each
+    chunk is copied on the host first."""
+    block = torch.zeros(2, 16)
+    k = iter(range(100))
+
+    def refilled(n):
+        block.fill_(float(next(k)))  # the same tensor, rewritten each read
+        return block
+
+    f = StreamFeeder(source.CallbackSource(refilled), chunk_samples=16, depth=2,
+                     device="cpu").start()
+    try:
+        chunks = [f.get(timeout=5) for _ in range(4)]
+    finally:
+        f.stop()
+    assert [float(c[0, 0]) for c in chunks] == [0.0, 1.0, 2.0, 3.0]
+    assert f.stats["host_copies"] == f.chunks_staged >= 4
+    assert f.stats["bytes_staged"] == f.chunks_staged * 2 * 16 * 4
+
+
+def test_feeder_counts_the_gets_that_wait():
+    gate = threading.Event()
+
+    def held(n):
+        gate.wait(10)
+        return np.zeros((1, n), np.float32)
+
+    f = StreamFeeder(source.CallbackSource(held), chunk_samples=8, device="cpu").start()
+    try:
+        threading.Timer(0.2, gate.set).start()
+        f.get(timeout=5)  # nothing staged until the gate opens
+        assert f.stats["consumer_waits"] == 1
+    finally:
+        f.stop()
+
+
+def test_feeder_spans_appear_under_the_profiler():
+    """The consumer's ``get()`` under any profiler; the producer thread's
+    stage span under one that records every thread."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    def keys(config=None):
+        kw = {} if config is None else {"experimental_config": config}
+        with profile(activities=[ProfilerActivity.CPU], **kw) as prof:
+            f = StreamFeeder(_ring_source(), chunk_samples=16, device="cpu").start()
+            try:
+                for _ in range(3):
+                    f.get(timeout=5)
+            finally:
+                f.stop()
+        return {e.key: e.count for e in prof.key_averages()}
+
+    every = keys(_ExperimentalConfig(profile_all_threads=True))
+    assert every["tpu_sdr.feeder.get"] == 3 and every["tpu_sdr.feeder.stage"] >= 3
+    assert keys()["tpu_sdr.feeder.get"] == 3
+
+
 # ---------------------------------------------------------------- A20 names
 
 

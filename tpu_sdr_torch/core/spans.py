@@ -12,8 +12,15 @@ sharded dispatch of ``shard/pipeline.py``), ``tpu_sdr.shard.state``
 (``shard/pipeline.py``: the state's channel rows cut for this rank, and
 all-gathered again), ``tpu_sdr.iir.products``, ``tpu_sdr.iir.frame_chain``
 and ``tpu_sdr.iir.emit`` (``kernels/biquad.py``),
-``tpu_sdr.launch.<kernel>`` (``kernels/cuda/launch.py``) and
-``tpu_sdr.comm.<collective>`` (``core/comm.py``).
+``tpu_sdr.launch.<kernel>`` (``kernels/cuda/launch.py``),
+``tpu_sdr.comm.<collective>`` (``core/comm.py``), and
+``tpu_sdr.feeder.stage`` (on the feeder's producer thread: one chunk's read
+and copy launch) and ``tpu_sdr.feeder.get`` (the consumer's ``get()``,
+any wait included) (``runtime/feeder.py``).
+
+A profiler records the ranges of the thread that started it; the feeder's
+producer thread's ranges appear only under a profiler that records every
+thread (``torch.profiler._ExperimentalConfig(profile_all_threads=True)``).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Sample sources — the acquisition front-end (XADC replacement).
 
-A copy of ``tpu_sdr.runtime.source`` (host NumPy code, no tensors): the
-port imports nothing of ``tpu_sdr``.
+A copy of ``tpu_sdr.runtime.source`` (host NumPy code), and one source of
+the port's own that hands out tensors: the port imports nothing of
+``tpu_sdr``.
 
 The reference acquires from the XADC at 1 MSPS, 12-bit, sign-extended
 (``imp/dsp_system_top.vhd:412-435``). Software equivalents:
@@ -10,7 +11,10 @@ The reference acquires from the XADC at 1 MSPS, 12-bit, sign-extended
   12-bit quantization emulating the ADC transfer function;
 - ``FileSource``: playback of a recorded capture (.npy or raw int16/float32),
   looped, for reproducible demos;
-- ``CallbackSource``: adapter for external ingest (sockets, SDR hardware).
+- ``CallbackSource``: adapter for external ingest (sockets, SDR hardware);
+- ``PinnedRingSource``: a ring of pinned host slots, the buffers a front
+  end's DMA fills, handed to ``StreamFeeder`` as tensors that it copies
+  straight to the card.
 
 Sources produce frame-aligned float32 blocks shaped (channels, T); pacing to
 real time is the caller's choice (``pace=True`` sleeps to the nominal rate —
@@ -24,6 +28,7 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from tpu_sdr_torch.core import qformat as qf
 
@@ -174,3 +179,70 @@ class CallbackSource:
         if pace:
             time.sleep(n_samples / self.fs)
         return out
+
+
+class PinnedRingSource:
+    """A ring of R host slots of one chunk each, handed out in order.
+
+    The deployment it stands for acquires into pinned host memory (a NIC's
+    receive ring, a digitizer driver's buffers), so the feeder can copy a
+    slot straight to the card. ``slots`` is R, with the chunk's ``shape``,
+    for slots of its own (pinned where CUDA is available, else ordinary
+    CPU tensors in the same order), or a sequence of the caller's equal
+    tensors to adopt. ``read()`` hands out the next slot itself, float32
+    (channels, T), not a copy.
+
+    A slot is handed out again, and refilled, only after the copy that read
+    it last has finished: the consumer passes that copy's event to
+    ``release(slot, event)``, and ``read()`` waits on it
+    (``release_waits`` counts the waits that found it unfinished).
+    ``refill(slot)``, where given, writes the next samples into the slot
+    before it is handed out (the front end's DMA); without it the ring
+    replays what its slots hold. ``reset()`` returns to slot 0.
+    """
+
+    def __init__(self, slots: int | Sequence[torch.Tensor], shape: Sequence[int] | None = None,
+                 refill: Callable[[torch.Tensor], None] | None = None, fs: float = 1_000_000.0,
+                 pin: bool | None = None):
+        if isinstance(slots, int):
+            if shape is None:
+                raise ValueError("PinnedRingSource(R, shape): R slots need the chunk's shape")
+            pin = torch.cuda.is_available() if pin is None else pin
+            slots = [torch.zeros(tuple(shape), dtype=torch.float32, pin_memory=pin)
+                     for _ in range(slots)]
+        self.slots = list(slots)
+        if not self.slots:
+            raise ValueError("PinnedRingSource needs at least one slot")
+        first = self.slots[0]
+        if any(s.shape != first.shape or s.dtype != torch.float32 or s.device.type != "cpu"
+               for s in self.slots):
+            raise ValueError("the slots must be equal float32 host tensors")
+        self._index = {s.data_ptr(): i for i, s in enumerate(self.slots)}
+        self._released: list = [None] * len(self.slots)
+        self.refill = refill
+        self.fs = fs
+        self.release_waits = 0
+        self._next = 0
+
+    def read(self, n_samples: int, pace: bool = False) -> torch.Tensor:
+        i = self._next
+        slot = self.slots[i]
+        if slot.shape[-1] != n_samples:
+            raise ValueError(f"a slot holds {slot.shape[-1]} samples a channel, not {n_samples}")
+        done, self._released[i] = self._released[i], None
+        if done is not None and not done.query():
+            self.release_waits += 1
+            done.synchronize()
+        if self.refill is not None:
+            self.refill(slot)
+        self._next = (i + 1) % len(self.slots)
+        if pace:
+            time.sleep(n_samples / self.fs)
+        return slot
+
+    def release(self, slot: torch.Tensor, event) -> None:
+        """``event`` completes when the copy that read ``slot`` has."""
+        self._released[self._index[slot.data_ptr()]] = event
+
+    def reset(self) -> None:
+        self._next = 0
